@@ -1,0 +1,87 @@
+"""Guards of the PyTorch port: it never imports JAX, and its framework-free
+copies of uno_tpu code (spec dataclasses, 2-D factories, Darcy presets,
+resample tables) stay equal to the originals."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from uno_tpu.configs import presets as jpresets
+from uno_tpu.models import core as jcore
+from uno_tpu.models import uno2d as juno2d
+from uno_tpu.ops.resample import resize_matrix as j_resize_matrix
+from uno_tpu_torch.configs import presets as tpresets
+from uno_tpu_torch.models import MODEL_REGISTRY
+from uno_tpu_torch.models import core as tcore
+from uno_tpu_torch.ops.resample import resize_matrix
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = (
+        "import sys, pkgutil, importlib, uno_tpu_torch, uno_tpu_torch.cli, "
+        "uno_tpu_torch.models, chip_smoke\n"
+        "for m in pkgutil.walk_packages(uno_tpu_torch.__path__, 'uno_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'uno_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _fields(cls):
+    return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+
+def test_spec_dataclasses_equal_uno_tpus():
+    assert _fields(tcore.BlockSpec) == _fields(jcore.BlockSpec)
+    assert _fields(tcore.UNOSpec) == _fields(jcore.UNOSpec)
+    assert tcore.LIFT == jcore.LIFT
+    for d in (85, 211, 247, 421):
+        for f in (jcore.Fraction(1, 2), jcore.Fraction(3, 4), jcore.Fraction(1, 32)):
+            assert tcore._scale(d, f) == jcore._scale(d, f)
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_REGISTRY))
+@pytest.mark.parametrize("kwargs", [{}, dict(width=8, pad=1), dict(width=20, factor=0.5)])
+def test_2d_factories_equal_uno_tpus(name, kwargs):
+    if name == "uno_demo":
+        kwargs = {k: v for k, v in kwargs.items() if k != "factor"}
+    got = MODEL_REGISTRY[name](**kwargs)
+    want = getattr(juno2d, name)(**kwargs)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [type(b).__name__ for b in got.blocks] == ["BlockSpec"] * len(want.blocks)
+
+
+def test_darcy_presets_equal_uno_tpus():
+    assert set(tpresets.PRESETS) == {
+        n for n, p in jpresets.PRESETS.items() if p.task == "darcy"
+    }
+    for name, got in tpresets.PRESETS.items():
+        want = jpresets.PRESETS[name]
+        for f in dataclasses.fields(got):
+            if f.name != "train":
+                assert getattr(got, f.name) == getattr(want, f.name), (name, f.name)
+        for f in dataclasses.fields(got.train):
+            assert getattr(got.train, f.name) == getattr(want.train, f.name), (name, f.name)
+
+
+@pytest.mark.parametrize("kernel", ["linear", "cubic", "nearest"])
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("antialias", [True, False])
+def test_resize_matrix_equals_uno_tpus(kernel, align_corners, antialias):
+    for n_in, n_out in [(247, 123), (61, 123), (7, 7), (10, 1), (1, 5), (33, 64)]:
+        got = resize_matrix(n_in, n_out, kernel, align_corners, antialias)
+        want = j_resize_matrix(n_in, n_out, kernel, align_corners, antialias)
+        assert got.dtype == want.dtype
+        assert np.array_equal(got, want), (n_in, n_out)

@@ -1,0 +1,42 @@
+"""Positional (grid) embeddings concatenated on the channel axis before the
+lift (port of ``uno_tpu/models/embeddings.py``, 2-D).
+
+* Darcy: raw ``(x, y) ∈ [0,1]^2`` linspace grid
+* NS 2D: ``(sin x, sin y, cos x, cos y)`` with x, y ∈ linspace(0, 2π)
+
+``linspace`` includes both endpoints.  Outputs are channels-last f32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+
+def _axes(shape: Tuple[int, ...], end: float, device):
+    b, s1, s2 = shape[0], shape[1], shape[2]
+    gx = torch.linspace(0.0, end, s1, dtype=torch.float32, device=device)
+    gy = torch.linspace(0.0, end, s2, dtype=torch.float32, device=device)
+    gx = gx[None, :, None, None].expand(b, s1, s2, 1)
+    gy = gy[None, None, :, None].expand(b, s1, s2, 1)
+    return gx, gy
+
+
+def grid_linear_2d(shape: Tuple[int, ...], device=None) -> torch.Tensor:
+    """(B, S1, S2, 2) raw [0,1] coordinates."""
+    gx, gy = _axes(shape, 1.0, device)
+    return torch.cat([gx, gy], dim=-1)
+
+
+def grid_sincos_2d(shape: Tuple[int, ...], device=None) -> torch.Tensor:
+    """(B, S1, S2, 4): sin/cos of linspace(0, 2π) per axis."""
+    gx, gy = _axes(shape, 2.0 * math.pi, device)
+    return torch.cat([gx.sin(), gy.sin(), gx.cos(), gy.cos()], dim=-1)
+
+
+EMBEDDINGS = {
+    "linear2d": grid_linear_2d,
+    "sincos2d": grid_sincos_2d,
+}

@@ -1,0 +1,163 @@
+"""Operator layers: port of ``uno_tpu/nn/layers.py`` (2-D).
+
+* ``SpectralConv``  — truncated-mode Fourier integral operator
+* ``PointwiseOp``   — 1x1 channel conv + bicubic-antialias resampling
+* ``OperatorBlock`` — u' = GELU(InstanceNorm(K(u) + W(u)))
+
+Initialisation matches ``uno_tpu``'s distributions, drawn from an explicit
+``torch.Generator`` on the CPU and then moved to ``device``: Dense and 1x1
+conv weights and biases ~ U(-k, k) with k = 1/sqrt(fan_in); spectral weights
+~ scale * complex-normal; norm affine = (1, 0).
+
+Weights are stored in torch's layout: a Dense or 1x1 conv weight is
+``[out, in]`` (flax keeps ``[in, out]``; ``uno_tpu_torch/bridge.py``
+transposes).  Layers take channels-first ``(B, C, H, W)`` input and an
+``out_size`` grid at call time.  Under the bf16 policy the matmuls run in
+bf16 with f32 accumulation; spectral transforms, spectral weights and norm
+statistics stay f32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from uno_tpu_torch.ops.norm import instance_norm
+from uno_tpu_torch.ops.resample import resize
+from uno_tpu_torch.ops.spectral import spectral_conv_2d, spectral_weight_init
+
+
+def _uniform(shape, bound: float, generator, device) -> nn.Parameter:
+    t = (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+    return nn.Parameter(t.to(device))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact erf form (torch's F.gelu default), as ``uno_tpu`` uses."""
+    return F.gelu(x)
+
+
+class Dense(nn.Module):
+    """Channels-last linear layer with torch nn.Linear default init.
+
+    ``dtype=torch.bfloat16`` runs the matmul in bf16 and emits bf16 (params
+    stay f32), as ``uno_tpu``'s Dense does on an accelerator.
+    """
+
+    def __init__(self, in_features: int, features: int, dtype=torch.float32,
+                 device=None, generator: torch.Generator = None):
+        super().__init__()
+        self.dtype = dtype
+        k = 1.0 / math.sqrt(in_features)
+        self.weight = _uniform((features, in_features), k, generator, device)
+        self.bias = _uniform((features,), k, generator, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class SpectralConv(nn.Module):
+    """2-D truncated-mode Fourier integral operator; ``out_size`` at call
+    time sets the output grid."""
+
+    def __init__(self, in_codim: int, out_codim: int, modes: Tuple[int, int],
+                 device=None, generator: torch.Generator = None):
+        super().__init__()
+        self.modes = tuple(modes)
+        self.weights = nn.Parameter(
+            spectral_weight_init(in_codim, out_codim, self.modes, 2, generator, device)
+        )
+
+    def forward(self, x: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
+        return spectral_conv_2d(x, self.weights, tuple(out_size), self.modes)
+
+
+class PointwiseOp(nn.Module):
+    """1x1 conv (channel mixing) + bicubic-antialias resampling
+    (align_corners=True) to ``out_size``."""
+
+    def __init__(self, in_codim: int, out_codim: int, dtype=torch.float32,
+                 device=None, generator: torch.Generator = None):
+        super().__init__()
+        self.in_codim, self.out_codim, self.dtype = in_codim, out_codim, dtype
+        k = 1.0 / math.sqrt(in_codim)
+        self.weight = _uniform((out_codim, in_codim), k, generator, device)
+        self.bias = _uniform((out_codim,), k, generator, device)
+
+    def _conv(self, z: torch.Tensor) -> torch.Tensor:
+        b, _, *spatial = z.shape
+        k = self.weight.to(self.dtype)
+        y = torch.matmul(k, z.to(self.dtype).reshape(b, self.in_codim, -1))
+        return y.reshape(b, self.out_codim, *spatial)
+
+    def _resize(self, z: torch.Tensor, out_size) -> torch.Tensor:
+        return resize(z, out_size, (2, 3), "cubic", True, True)
+
+    def forward(self, x: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
+        in_grid = x.shape[2:]
+
+        def resize_flops(ch: int) -> float:
+            dims = list(in_grid)
+            fl = 0.0
+            for i, n_out in enumerate(out_size):
+                if dims[i] != n_out:
+                    others = 1
+                    for j, d in enumerate(dims):
+                        if j != i:
+                            others *= d
+                    fl += ch * n_out * dims[i] * others
+                    dims[i] = n_out
+            return fl
+
+        # Channel mixing and spatial resampling are linear maps on disjoint
+        # axes, so they commute: apply the channel matmul on the cheaper side
+        # (encoder blocks resize first, decoder blocks conv first), by
+        # uno_tpu's FLOP rule.  The resample tables preserve constants, so
+        # the bias moves across the resize exactly; under bf16 the order
+        # decides where the rounding happens, which is why the rule is kept.
+        n_in = math.prod(in_grid)
+        n_out = math.prod(out_size)
+        conv_first = n_in * self.in_codim * self.out_codim + resize_flops(self.out_codim)
+        resize_first = resize_flops(self.in_codim) + n_out * self.in_codim * self.out_codim
+        bias = self.bias.reshape(1, -1, 1, 1)
+        if resize_first < conv_first:
+            y = self._conv(self._resize(x, out_size))
+            return y + bias.to(y.dtype)
+        y = self._conv(x)
+        return self._resize(y + bias.to(y.dtype), out_size)
+
+
+class OperatorBlock(nn.Module):
+    """u' = GELU(InstanceNorm(K(u) + W(u))) with both paths resampled to
+    ``out_size``.  ``residual`` adds the input after the norm (uno11)."""
+
+    def __init__(self, in_codim: int, out_codim: int, modes: Tuple[int, int],
+                 normalize: bool = False, residual: bool = False,
+                 dtype=torch.float32, device=None,
+                 generator: torch.Generator = None):
+        super().__init__()
+        self.normalize, self.residual, self.dtype = normalize, residual, dtype
+        self.conv = SpectralConv(in_codim, out_codim, modes, device, generator)
+        self.w = PointwiseOp(in_codim, out_codim, dtype, device, generator)
+        if normalize:
+            self.norm_scale = nn.Parameter(torch.ones(out_codim, device=device))
+            self.norm_bias = nn.Parameter(torch.zeros(out_codim, device=device))
+
+    def forward(self, x: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
+        # the spectral path is f32 and W is in the compute dtype, so under
+        # bf16 the sum, norm and GELU run in f32 before the final cast
+        out = self.conv(x, out_size) + self.w(x, out_size)
+        if self.normalize:
+            out = instance_norm(out, self.norm_scale, self.norm_bias)
+        if self.residual:
+            if x.shape != out.shape:
+                raise ValueError(
+                    f"residual block needs matching shapes, {tuple(x.shape)} vs {tuple(out.shape)}"
+                )
+            out = out + x
+        return gelu(out).to(self.dtype)

@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``uno_tpu_torch/csrc/*.cu`` expose plain ``extern "C"``
+entry points that launch on a given stream and return ``cudaGetLastError()``.
+At first use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library under ``build/uno_tpu_torch/`` at the repository root, named
+by a hash of the sources and flags, and loaded with ``ctypes``.  Nothing is
+built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "uno_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> argtypes (pointers and the stream as c_void_p, ints as c_int)
+_SIGNATURES = {
+    "uno_cmul_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "uno_mlp_head_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_LIB = None
+BUILD_LOG = ""        # nvcc's output (ptxas register / shared-memory report)
+BUILD_SECONDS = None  # wall time of the compile; 0.0 when the library existed
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if not found:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the CUDA kernels cannot be built"
+        )
+    return found
+
+
+def library() -> ctypes.CDLL:
+    """The compiled kernel library, built on first call."""
+    global _LIB, BUILD_LOG, BUILD_SECONDS
+    if _LIB is not None:
+        return _LIB
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out = BUILD_DIR / f"libuno_kernels_{h.hexdigest()[:16]}.so"
+    BUILD_SECONDS = 0.0
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_SECONDS = time.perf_counter() - t0
+        BUILD_LOG = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.uno_error_string.argtypes = [_I]
+    lib.uno_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        msg = library().uno_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} (cudaError_t {err})")
