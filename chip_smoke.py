@@ -2,22 +2,33 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-It drives the port's serving path, Darcy ``darcy_s211`` batch inference with
-model uno9 at full width (32) on the 211x211 grid, batch 16, under the bf16
-mixed-precision policy, with random weights from a seed:
+It drives the port's two paths on the Darcy ``darcy_s211`` preset, model
+uno9 at full width (32) on the 211x211 grid, batch 16, under the bf16
+mixed-precision policy, with random weights from a seed: serving (batch
+inference) and training.
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions and both TF32 flags (set off);
-2. builds the CUDA kernels from ``uno_tpu_torch/csrc`` (nvcc, sm_90a);
-3. holds each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, and times both (median of per-launch
-   CUDA events, L2 flushed before each launch);
+2. builds the CUDA kernels from ``uno_tpu_torch/csrc`` (nvcc, sm_90a, one
+   process per source);
+3. holds each of the five kernels (contraction forward, dx, dw; head
+   forward, backward) against its plain PyTorch version on the card at the
+   shapes the paths give it, and times both (median of per-launch CUDA
+   events, the L2 flushed before each launch by reading a 256 MB buffer,
+   in turns plain, kernel, kernel, plain);
 4. runs ``python -m uno_tpu_torch.cli predict`` over a synthetic six-key
    darcy_s211 split (16 test samples) once to warm up and once measured,
-   with the kernels' launch counters set to 0 just before the measured run;
-   checks the output and that every kernel of the path launched;
-5. runs the same weights on a 2-sample input on the card and on the CPU
-   (f32 and bf16) and bounds the difference.
+   with the launch counts set to 0 just before the measured run; checks the
+   output, that the forward kernels launched and that no backward kernel
+   did;
+5. runs ``python -m uno_tpu_torch.cli train`` for 3 epochs of 4 steps on a
+   synthetic split (64 train, 16 val, 16 test) with a learnable target, the
+   counts set to 0 just before; checks that the losses are finite and fall
+   and that every kernel launched as often as the steps and evaluation
+   batches require; prints the warm ms per step and the peak device memory;
+6. computes one training loss and all gradients with the same weights on 2
+   samples at 211x211 on the card and on the CPU (f32 and bf16) and bounds
+   the difference, then does the same for the forward alone.
 
 Any failed phase raises, and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
@@ -42,6 +53,7 @@ import torch
 from uno_tpu_torch import cli
 from uno_tpu_torch.bridge import params_from_flax, params_to_flax
 from uno_tpu_torch.configs.presets import get_preset
+from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.models import build_model
 from uno_tpu_torch.ops.kernels import _build
 from uno_tpu_torch.ops.kernels import cmul as cmul_k
@@ -50,13 +62,27 @@ from uno_tpu_torch.ops.spectral import spectral_weight_init
 
 PRESET = "darcy_s211"
 S, BATCH, NTEST = 211, 16, 16
+NTRAIN, NVAL, EPOCHS = 64, 16, 3  # the train phase: 4 steps per epoch
 # (B, Ci, Co, M = 2*m1*m2) of uno9's five spectral contractions at darcy_s211
 CMUL_SHAPES = [(16, 32, 64, 648), (16, 64, 128, 128), (16, 128, 128, 128),
                (16, 128, 64, 128), (16, 128, 32, 648)]
 # head: B, C (32 from block 4 + 32 from the lift skip), N = 211**2, H, O
 HEAD_SHAPE = (16, 64, S * S, 32, 1)
 CMUL_ATOL, HEAD_REL = 1e-4, 1e-5          # the CPU tests' bounds
+HEAD_GX_REL = 4e-3                         # gx is bf16: one ulp
 E2E_REL = {"float32": 1e-4, "bfloat16": 3e-2}
+GRAD_REL = {"float32": 1e-4, "bfloat16": 5e-2}
+KERNELS = {  # name -> (wrapper module, count key, source, the TPU kernel it replaces)
+    "cmul_fwd": (cmul_k, "fwd", "uno_tpu_torch/csrc/cmul.cu", "uno_tpu/ops/pallas/cmul.py:38"),
+    "cmul_bwd_x": (cmul_k, "bwd_x", "uno_tpu_torch/csrc/cmul.cu",
+                   "uno_tpu/ops/pallas/cmul.py:158"),
+    "cmul_bwd_w": (cmul_k, "bwd_w", "uno_tpu_torch/csrc/cmul.cu",
+                   "uno_tpu/ops/pallas/cmul.py:162"),
+    "mlp_head_fwd": (head_k, "fwd", "uno_tpu_torch/csrc/mlp_head.cu",
+                     "uno_tpu/ops/pallas/mlp_head.py:93"),
+    "mlp_head_bwd": (head_k, "bwd", "uno_tpu_torch/csrc/mlp_head.cu",
+                     "uno_tpu/ops/pallas/mlp_head.py:123"),
+}
 REPS = 20
 
 
@@ -65,11 +91,23 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-12))
 
 
+def _zero_launches() -> None:
+    for mod, key, _, _ in KERNELS.values():
+        mod.LAUNCHES[key] = 0
+
+
+def _launches() -> dict:
+    return {name: mod.LAUNCHES[key] for name, (mod, key, _, _) in KERNELS.items()}
+
+
 def _time_ms(fn, flush: torch.Tensor, reps: int = REPS) -> list:
-    """Per-launch device times in ms; the L2 cache is flushed before each."""
+    """Per-launch device times in ms.  Before each launch the L2 cache is
+    flushed by reading ``flush``: a read leaves clean lines, where a fill
+    would leave dirty ones for the timed launch to write back (that made
+    the plain versions' times vary up to 1.6x within one run)."""
     events = []
     for _ in range(reps):
-        flush.zero_()
+        flush.sum()
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -115,30 +153,40 @@ def phase_build() -> None:
             print("[build]", line.strip())
 
 
+def _cmul_case(name, kernel, plain, args, flush, res):
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= CMUL_ATOL:
+        raise AssertionError(f"{name}: max abs err {err} > {CMUL_ATOL}")
+    km, pm = _turns(lambda: kernel(*args), lambda: plain(*args), flush)
+    r = res.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["ms"] += km
+    r["plain_ms"] += pm
+    return err, km, pm
+
+
 def phase_kernels(dev) -> dict:
     g = torch.Generator().manual_seed(0)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    flush = torch.ones(256 * 2**20, dtype=torch.uint8, device=dev)  # 5x the 50 MB L2
     res = {}
+    crand = lambda *s: torch.complex(torch.randn(*s, generator=g),
+                                     torch.randn(*s, generator=g)).to(dev)
 
-    errs, k_ms, p_ms = [], [], []
     for b, ci, co, m in CMUL_SHAPES:
-        # activations at unit scale, weights from the model's init distribution
-        x = torch.complex(torch.randn(b, ci, m, generator=g),
-                          torch.randn(b, ci, m, generator=g)).to(dev)
+        # activations and cotangents at unit scale, weights from the init
+        x, gy = crand(b, ci, m), crand(b, co, m)
         w = spectral_weight_init(ci, co, (m,), 1, g, dev)[0].contiguous()
-        got = cmul_k.cmul(x, w)
-        want = cmul_k.cmul_plain(x, w)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not err <= CMUL_ATOL:
-            raise AssertionError(f"cmul {(b, ci, co, m)}: max abs err {err} > {CMUL_ATOL}")
-        km, pm = _turns(lambda: cmul_k.cmul(x, w), lambda: cmul_k.cmul_plain(x, w), flush)
-        print(f"[kernels] cmul B={b} Ci={ci} Co={co} M={m}: max_abs_err {err:.3g} "
-              f"kernel {km:.4f} ms  plain (complex einsum) {pm:.4f} ms")
-        errs.append(err)
-        k_ms.append(km)
-        p_ms.append(pm)
-    res["cmul"] = dict(max_abs_err=max(errs), ms=sum(k_ms), plain_ms=sum(p_ms))
+        cases = [("cmul_fwd", cmul_k.cmul, cmul_k.cmul_plain, (x, w), "complex einsum"),
+                 ("cmul_bwd_x", cmul_k.cmul_bwd_x, cmul_k.cmul_bwd_x_plain, (gy, w),
+                  "einsum g.conj(w)"),
+                 ("cmul_bwd_w", cmul_k.cmul_bwd_w, cmul_k.cmul_bwd_w_plain, (x, gy),
+                  "einsum conj(x).g")]
+        for name, kernel, plain, args, what in cases:
+            err, km, pm = _cmul_case(name, kernel, plain, args, flush, res)
+            print(f"[kernels] {name} B={b} Ci={ci} Co={co} M={m}: max_abs_err {err:.3g} "
+                  f"kernel {km:.4f} ms  plain ({what}) {pm:.4f} ms")
 
     b, c, n, h, o = HEAD_SHAPE
     x = torch.randn(b, c, n, generator=g).to(dev, torch.bfloat16)
@@ -153,31 +201,60 @@ def phase_kernels(dev) -> dict:
         raise AssertionError(f"mlp_head {HEAD_SHAPE}: rel-L2 {rel} > {HEAD_REL}")
     km, pm = _turns(lambda: head_k.mlp_head(x, k1, b1, k2, b2),
                     lambda: head_k.mlp_head_plain(x, k1, b1, k2, b2), flush)
-    print(f"[kernels] mlp_head B={b} C={c} N={n} H={h} O={o}: rel-L2 {rel:.3g} "
+    print(f"[kernels] mlp_head_fwd B={b} C={c} N={n} H={h} O={o}: rel-L2 {rel:.3g} "
           f"max_abs_err {err:.3g} kernel {km:.4f} ms  plain (unfused f32) {pm:.4f} ms")
-    res["mlp_head"] = dict(max_abs_err=err, ms=km, plain_ms=pm)
+    res["mlp_head_fwd"] = dict(max_abs_err=err, ms=km, plain_ms=pm)
+
+    gy = torch.randn(b, o, n, generator=g).to(dev)
+    args = (x, gy, k1, b1, k2)
+    got = head_k.mlp_head_bwd(*args)
+    want = head_k.mlp_head_bwd_plain(*args)
+    again = head_k.mlp_head_bwd(*args)
+    torch.cuda.synchronize()
+    rels = [_rel(a, w_) for a, w_ in zip(got, want)]
+    err = max(float((a.float() - w_.float()).abs().max()) for a, w_ in zip(got, want))
+    if not (rels[0] <= HEAD_GX_REL and max(rels[1:]) <= HEAD_REL):
+        raise AssertionError(f"mlp_head_bwd {HEAD_SHAPE}: rel-L2 (gx, gk1, gb1, gk2, gb2) "
+                             f"{rels} > ({HEAD_GX_REL}, {HEAD_REL})")
+    if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+        raise AssertionError("mlp_head_bwd: two runs on the same inputs differ")
+    km, pm = _turns(lambda: head_k.mlp_head_bwd(*args),
+                    lambda: head_k.mlp_head_bwd_plain(*args), flush)
+    print(f"[kernels] mlp_head_bwd B={b} C={c} N={n} H={h} O={o}: rel-L2 gx {rels[0]:.3g} "
+          f"weights {max(rels[1:]):.3g}, deterministic, max_abs_err {err:.3g} "
+          f"kernel {km:.4f} ms  plain (f32 channels-last) {pm:.4f} ms")
+    res["mlp_head_bwd"] = dict(max_abs_err=err, ms=km, plain_ms=pm)
+    for name, r in res.items():
+        print(f"[kernels] {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms "
+              f"(summed over its shapes)")
     return res
 
 
-def _write_split(path: str, rng) -> None:
-    """A six-key darcy_s211 split with the signature uno_tpu's cli writes."""
+def _write_split(path: str, rng, ntrain: int = 0, nval: int = 0) -> None:
+    """A six-key darcy_s211 split with the signature uno_tpu's cli writes.
+    Test inputs are 3/12 coefficient fields; train and val inputs are
+    standard normal with a learnable target, the local average of
+    tests/test_train.py."""
     a = np.where(rng.standard_normal((NTEST, S, S, 1)) > 0, 12.0, 3.0).astype(np.float32)
     u = (0.01 * rng.standard_normal((NTEST, S, S))).astype(np.float32)
-    ea, eu = np.zeros((0, S, S, 1), np.float32), np.zeros((0, S, S), np.float32)
+    x = rng.standard_normal((ntrain + nval, S, S, 1)).astype(np.float32)
+    y = ((x[..., 0] + np.roll(x[..., 0], 1, 1) + np.roll(x[..., 0], 1, 2)) / 3.0)
+    y = y.astype(np.float32)
     seed = get_preset(PRESET).train.seed
-    sig = f"task=darcy,sub=2,ntrain=0,nval=0,ntest={NTEST},seed={seed}"
-    np.savez(path, train_a=ea, train_u=eu, val_a=ea, val_u=eu, test_a=a, test_u=u,
-             config_sig=np.asarray(sig))
+    sig = f"task=darcy,sub=2,ntrain={ntrain},nval={nval},ntest={NTEST},seed={seed}"
+    np.savez(path, train_a=x[:ntrain], train_u=y[:ntrain], val_a=x[ntrain:],
+             val_u=y[ntrain:], test_a=a, test_u=u, config_sig=np.asarray(sig))
 
 
-def _predict(argv) -> dict:
+def _run_cli(argv) -> list:
+    """Run the CLI, echo its output, return its JSON lines."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     sys.stdout.write(buf.getvalue())
     if rc != 0:
-        raise AssertionError(f"predict returned {rc}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
+        raise AssertionError(f"{argv[0]} returned {rc}")
+    return [json.loads(l) for l in buf.getvalue().splitlines() if l.startswith("{")]
 
 
 def phase_predict(tmp: str) -> dict:
@@ -186,20 +263,87 @@ def phase_predict(tmp: str) -> dict:
     argv = ["predict", "--preset", PRESET, "--dtype", "bfloat16", "--init-seed", "0",
             "--data-cache", data, "--ntrain", "0", "--nval", "0", "--ntest", str(NTEST),
             "--split", "test", "--out", out, "--device", "cuda"]
-    warm = _predict(argv)  # first run: cuFFT plans, cuBLAS handles, allocator
-    cmul_k.LAUNCHES = 0
-    head_k.LAUNCHES = 0
-    report = _predict(argv)
-    launches = {"cmul": cmul_k.LAUNCHES, "mlp_head": head_k.LAUNCHES}
+    warm = _run_cli(argv)[-1]  # first run: cuFFT plans, cuBLAS handles, allocator
+    _zero_launches()
+    report = _run_cli(argv)[-1]
+    launches = _launches()
     batches = len(report["batch_ms"])
     pred = np.load(out)["pred"]
     if pred.shape != (NTEST, S, S) or not np.isfinite(pred).all():
         raise AssertionError(f"predict output: shape {pred.shape}, finite {np.isfinite(pred).all()}")
-    if launches["cmul"] < 5 * batches or launches["mlp_head"] != batches:
-        raise AssertionError(f"kernel launches {launches} over {batches} batches")
+    if (launches["cmul_fwd"] < 5 * batches or launches["mlp_head_fwd"] != batches
+            or launches["cmul_bwd_x"] or launches["cmul_bwd_w"] or launches["mlp_head_bwd"]):
+        raise AssertionError(f"predict kernel launches {launches} over {batches} batches")
     print(f"[predict] {PRESET} uno9 bf16 b{BATCH}: {batches} batch(es), ms per batch "
           f"{report['batch_ms']} (first run {warm['batch_ms']}); launches {launches}")
     return launches
+
+
+def phase_train(tmp: str, dev) -> dict:
+    data = os.path.join(tmp, "darcy_s211_train.npz")
+    _write_split(data, np.random.default_rng(1), NTRAIN, NVAL)
+    argv = ["train", "--preset", PRESET, "--dtype", "bfloat16", "--epochs", str(EPOCHS),
+            "--device", "cuda", "--data-cache", data, "--ntrain", str(NTRAIN),
+            "--nval", str(NVAL), "--ntest", str(NTEST)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    records = _run_cli(argv)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    epochs = [r for r in records if "train_rel_l2" in r]
+    losses = [r[k] for r in epochs for k in ("train_rel_l2", "val_rel_l2")]
+    losses.append(records[-1]["test_rel_l2"])
+    if len(epochs) != EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"train: {len(epochs)} epochs, losses {losses}")
+    if not epochs[-1]["train_rel_l2"] < epochs[0]["train_rel_l2"]:
+        raise AssertionError(f"train: loss did not fall: {[r['train_rel_l2'] for r in epochs]}")
+    steps = epochs[-1]["step"]
+    evals = EPOCHS * -(-NVAL // BATCH) + -(-NTEST // BATCH)  # forward-only batches
+    want = {"cmul_fwd": 5 * (steps + evals), "cmul_bwd_x": 5 * steps,
+            "cmul_bwd_w": 5 * steps, "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps}
+    exact = ("mlp_head_fwd", "mlp_head_bwd")
+    if any(launches[k] < v if k not in exact else launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"train kernel launches {launches}, expected {want} "
+                             f"({steps} steps, {evals} eval batches)")
+    warm = [ms for r in epochs[1:] for ms in r["step_ms"]]
+    print(f"[train] {PRESET} uno9 bf16 b{BATCH}: {steps} steps in {EPOCHS} epochs, "
+          f"train_rel_l2 {[round(r['train_rel_l2'], 5) for r in epochs]}, "
+          f"test_rel_l2 {records[-1]['test_rel_l2']:.5f}; launches {launches}")
+    print(f"[train] ms per step: warm median {statistics.median(warm):.3f} "
+          f"(epochs 2-{EPOCHS}: {[round(v, 3) for v in warm]}), first step "
+          f"{epochs[0]['step_ms'][0]:.1f}; samples/s per epoch "
+          f"{[round(r['samples_per_sec'], 1) for r in epochs]}; peak device memory "
+          f"{peak_gb:.3f} GB; wall {wall:.1f} s")
+    return launches
+
+
+def _grads(model, x, y):
+    loss = relative_lp_loss(model(x).reshape(y.shape), y)
+    loss.backward()
+    flat = torch.cat([torch.view_as_real(p.grad).flatten() if p.is_complex()
+                      else p.grad.flatten() for p in model.parameters()])
+    return loss.detach(), flat
+
+
+def phase_grads_cpu_vs_cuda(dev) -> None:
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, S, S, 1)).astype(np.float32))
+    y = (x[..., 0] + x[..., 0].roll(1, 1) + x[..., 0].roll(1, 2)) / 3.0
+    kw = get_preset(PRESET).model_kwargs
+    for dtype, bound in GRAD_REL.items():
+        cpu = build_model("uno9", dtype=dtype, generator=torch.Generator().manual_seed(0), **kw)
+        gpu = build_model("uno9", dtype=dtype, device=dev, **kw)
+        params_from_flax(gpu, params_to_flax(cpu))
+        want_l, want_g = _grads(cpu, x, y)
+        got_l, got_g = _grads(gpu, x.to(dev), y.to(dev))
+        rl, rg = _rel(got_l, want_l), _rel(got_g, want_g)
+        if not (torch.isfinite(got_g).all() and rl <= bound and rg <= bound):
+            raise AssertionError(f"gradients cuda vs cpu, {dtype}: loss rel {rl}, "
+                                 f"grads rel-L2 {rg} > {bound}")
+        print(f"[grads-cuda-vs-cpu] uno9 {S}x{S} b2 {dtype}: loss rel {rl:.3g}, all "
+              f"gradients rel-L2 {rg:.3g} (bound {bound})")
 
 
 def phase_cpu_vs_cuda(dev) -> None:
@@ -226,15 +370,14 @@ def main() -> int:
     phase_build()
     times = phase_kernels(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_predict(tmp)
+        phase_predict(tmp)
+        launches = phase_train(tmp, dev)
+    phase_grads_cpu_vs_cuda(dev)
     phase_cpu_vs_cuda(dev)
     kernels = [
-        dict(name="cmul_fwd", route="cuda", source="uno_tpu_torch/csrc/cmul.cu",
-             replaces="uno_tpu/ops/pallas/cmul.py:38", launches=launches["cmul"],
-             **times["cmul"]),
-        dict(name="mlp_head_fwd", route="cuda", source="uno_tpu_torch/csrc/mlp_head.cu",
-             replaces="uno_tpu/ops/pallas/mlp_head.py:93", launches=launches["mlp_head"],
-             **times["mlp_head"]),
+        dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
+             **times[name])
+        for name, (_, _, src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

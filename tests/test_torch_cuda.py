@@ -1,5 +1,6 @@
 """The port's CUDA kernels and model on the card, against their plain PyTorch
-versions.  Every case needs a CUDA device and skips without one.
+versions, forward and backward.  Every case needs a CUDA device and skips
+without one.
 
 This file imports no JAX, so it runs where the port runs; tests/conftest.py
 imports JAX, so on a machine without it run
@@ -45,11 +46,33 @@ def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
     g = torch.Generator().manual_seed(1)
     x = _rand_c(g, b, ci, m).to(cuda)
     w = (_rand_c(g, ci, co, m) / (2 * ci) ** 0.5).to(cuda)  # the init's scale
-    before = C.LAUNCHES
+    before = C.LAUNCHES["fwd"]
     got = C.cmul(x, w)
     torch.cuda.synchronize()
-    assert C.LAUNCHES == before + 1
+    assert C.LAUNCHES["fwd"] == before + 1
     torch.testing.assert_close(got, C.cmul_plain(x, w), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ci,co,m", [(2, 3, 5, 7), (9, 5, 3, 33), (3, 6, 7, 200),
+                                       DARCY_S211[4]])
+def test_cmul_backward_kernels_match_plain(cuda, b, ci, co, m):
+    g_ = torch.Generator().manual_seed(3)
+    x = _rand_c(g_, b, ci, m).to(cuda)
+    w = (_rand_c(g_, ci, co, m) / (2 * ci) ** 0.5).to(cuda)
+    g = _rand_c(g_, b, co, m).to(cuda)
+    before = dict(C.LAUNCHES)
+    gx, gw = C.cmul_bwd_x(g, w), C.cmul_bwd_w(x, g)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["bwd_x"] == before["bwd_x"] + 1
+    assert C.LAUNCHES["bwd_w"] == before["bwd_w"] + 1
+    torch.testing.assert_close(gx, C.cmul_bwd_x_plain(g, w), rtol=0, atol=1e-4)
+    torch.testing.assert_close(gw, C.cmul_bwd_w_plain(x, g), rtol=0, atol=1e-4)
+    # autograd through the Function reaches the same kernels
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (C.cmul(xr, wr) * g.conj()).real.sum().backward()
+    torch.testing.assert_close(xr.grad, gx, rtol=0, atol=1e-5)
+    torch.testing.assert_close(wr.grad, gw, rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -73,13 +96,69 @@ def test_mlp_head_kernel_matches_plain(cuda, shape, h, o):
                               torch.randn(h, generator=g),
                               torch.randn(h, o, generator=g) / h**0.5,
                               torch.randn(o, generator=g))]
-    before = H.LAUNCHES
+    before = H.LAUNCHES["fwd"]
     got = H.mlp_head(x, *w)
     torch.cuda.synchronize()
-    assert H.LAUNCHES == before + 1
+    assert H.LAUNCHES["fwd"] == before + 1
     assert got.shape == (shape[0], o) + shape[2:] and got.dtype == torch.float32
     want = H.mlp_head_plain(x.reshape(shape[0], c, -1), *w).reshape(got.shape)
     assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,h,o", [((2, 8, 37 * 45), 32, 1), ((1, 16, 4096), 64, 3),
+                                       ((3, 5, 2100), 40, 4), ((16, 64, 211 * 211), 32, 1)])
+def test_mlp_head_backward_kernel_matches_plain(cuda, shape, h, o):
+    g_ = torch.Generator().manual_seed(4)
+    b, c, n = shape
+    x = torch.randn(shape, generator=g_).to(cuda, torch.bfloat16)
+    k1, b1, k2 = [t.to(cuda) for t in (torch.randn(c, h, generator=g_) / c**0.5,
+                                       torch.randn(h, generator=g_),
+                                       torch.randn(h, o, generator=g_) / h**0.5)]
+    g = torch.randn(b, o, n, generator=g_).to(cuda)
+    before = H.LAUNCHES["bwd"]
+    got = H.mlp_head_bwd(x, g, k1, b1, k2)
+    torch.cuda.synchronize()
+    assert H.LAUNCHES["bwd"] == before + 1
+    want = H.mlp_head_bwd_plain(x, g, k1, b1, k2)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == x.shape
+    assert _rel(got[0], want[0]) <= 4e-3
+    for gk, wk in zip(got[1:], want[1:]):
+        assert gk.shape == wk.shape and _rel(gk, wk) <= 1e-5
+    # the weight-gradient reduction is deterministic: the same bits again
+    again = H.mlp_head_bwd(x, g, k1, b1, k2)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_uno9_gradients_on_the_card_match_the_cpu(cuda, dtype, bound):
+    """One training loss through the kernels on the card and the plain
+    versions on the CPU; all gradients concatenated."""
+    from uno_tpu_torch.losses import relative_lp_loss
+
+    kw = dict(in_width=3, width=8, pad=1)
+    cpu = build_model("uno9", dtype=dtype, generator=torch.Generator().manual_seed(0), **kw)
+    gpu = build_model("uno9", dtype=dtype, generator=torch.Generator().manual_seed(0),
+                      device=cuda, **kw)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 85, 85, 1)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((2, 85, 85)).astype(np.float32))
+    before = dict(C.LAUNCHES), dict(H.LAUNCHES)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        loss = relative_lp_loss(model(x.to(dev)).reshape(2, 85, 85), y.to(dev))
+        loss.backward()
+        losses.append(loss.detach().cpu())
+    assert C.LAUNCHES["bwd_x"] - before[0]["bwd_x"] == 5
+    assert C.LAUNCHES["bwd_w"] - before[0]["bwd_w"] == 5
+    assert H.LAUNCHES["bwd"] - before[1]["bwd"] == (1 if dtype == "bfloat16" else 0)
+    flat = [torch.cat([torch.view_as_real(p.grad).flatten() if p.is_complex()
+                       else p.grad.flatten() for p in m.parameters()]) for m in (cpu, gpu)]
+    assert torch.isfinite(flat[1]).all()
+    assert _rel(losses[1], losses[0]) <= bound
+    assert _rel(flat[1], flat[0]) <= bound
 
 
 @pytest.mark.cuda
@@ -93,11 +172,14 @@ def test_uno9_on_the_card_matches_the_cpu(cuda, dtype, bound):
                       device=cuda, **kw)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 85, 85, 1))
                          .astype(np.float32))
-    c0, h0 = C.LAUNCHES, H.LAUNCHES
+    c0, h0 = dict(C.LAUNCHES), dict(H.LAUNCHES)
     with torch.inference_mode():
         want = cpu(x)
         got = gpu(x.to(cuda))
-    assert C.LAUNCHES - c0 == 5
-    assert H.LAUNCHES - h0 == (1 if dtype == "bfloat16" else 0)
+    assert C.LAUNCHES["fwd"] - c0["fwd"] == 5
+    assert H.LAUNCHES["fwd"] - h0["fwd"] == (1 if dtype == "bfloat16" else 0)
+    # inference launches the forward kernels only
+    assert (C.LAUNCHES["bwd_x"], C.LAUNCHES["bwd_w"], H.LAUNCHES["bwd"]) == (
+        c0["bwd_x"], c0["bwd_w"], h0["bwd"])
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= bound

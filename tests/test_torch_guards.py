@@ -1,6 +1,6 @@
 """Guards of the PyTorch port: it never imports JAX, and its framework-free
-copies of uno_tpu code (spec dataclasses, 2-D factories, Darcy presets,
-resample tables) stay equal to the originals."""
+copies of uno_tpu code (spec dataclasses, 2-D factories, Darcy presets and
+their TrainConfig, resample tables) stay equal to the originals."""
 
 import dataclasses
 import os
@@ -14,10 +14,12 @@ from uno_tpu.configs import presets as jpresets
 from uno_tpu.models import core as jcore
 from uno_tpu.models import uno2d as juno2d
 from uno_tpu.ops.resample import resize_matrix as j_resize_matrix
+from uno_tpu.train import common as jcommon
 from uno_tpu_torch.configs import presets as tpresets
 from uno_tpu_torch.models import MODEL_REGISTRY
 from uno_tpu_torch.models import core as tcore
 from uno_tpu_torch.ops.resample import resize_matrix
+from uno_tpu_torch.train import common as tcommon
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -25,7 +27,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import sys, pkgutil, importlib, uno_tpu_torch, uno_tpu_torch.cli, "
-        "uno_tpu_torch.models, chip_smoke\n"
+        "uno_tpu_torch.models, uno_tpu_torch.optim, uno_tpu_torch.losses, "
+        "uno_tpu_torch.train.darcy, uno_tpu_torch.data.batching, chip_smoke\n"
         "for m in pkgutil.walk_packages(uno_tpu_torch.__path__, 'uno_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -63,6 +66,10 @@ def test_2d_factories_equal_uno_tpus(name, kwargs):
     assert [type(b).__name__ for b in got.blocks] == ["BlockSpec"] * len(want.blocks)
 
 
+def test_train_config_equals_uno_tpus():
+    assert _fields(tcommon.TrainConfig) == _fields(jcommon.TrainConfig)
+
+
 def test_darcy_presets_equal_uno_tpus():
     assert set(tpresets.PRESETS) == {
         n for n, p in jpresets.PRESETS.items() if p.task == "darcy"
@@ -72,6 +79,8 @@ def test_darcy_presets_equal_uno_tpus():
         for f in dataclasses.fields(got):
             if f.name != "train":
                 assert getattr(got, f.name) == getattr(want, f.name), (name, f.name)
+        assert [f.name for f in dataclasses.fields(got.train)] == [
+            f.name for f in dataclasses.fields(want.train)]
         for f in dataclasses.fields(got.train):
             assert getattr(got.train, f.name) == getattr(want.train, f.name), (name, f.name)
 

@@ -2,9 +2,12 @@
 
 uno_tpu runs its FFT path (the default off the TPU) with its XLA contraction
 and with its Pallas contraction kernel in interpret mode.  Bound: rel-L2 <=
-1e-5 at f32 (the two FFT libraries sum in different orders).
+1e-5 at f32 (the two FFT libraries sum in different orders), for the output
+and for the gradients of a real loss with respect to x and the weights
+(``jax.grad``'s weight gradient conjugated: torch's is its conjugate).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ CASES = [
 
 
 def _rel(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    a, b = np.asarray(a, np.complex128), np.asarray(b, np.complex128)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
 
 
@@ -52,6 +55,35 @@ def test_spectral_conv_2d_matches_uno_tpu(shape, out_size, modes, pallas):
     got = spectral_conv_2d(torch.from_numpy(x), torch.from_numpy(wt), out_size, modes)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert _rel(got.numpy(), want) <= 1e-5, _rel(got.numpy(), want)
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("shape,out_size,modes", CASES[:3])
+def test_spectral_conv_2d_gradients_match_uno_tpu(shape, out_size, modes, pallas):
+    x, wt = _inputs(shape, modes, seed=1)
+    cot = np.random.default_rng(2).standard_normal((shape[0], shape[2]) + out_size)
+    cot = cot.astype(np.float32)
+
+    def loss(x, wt):
+        return jnp.sum(jspec.spectral_conv_2d(x, wt, out_size, modes) * jnp.asarray(cot))
+
+    jspec.set_dft_mode(False)
+    jspec.set_pallas_mode(pallas, interpret=True)
+    try:
+        jgx, jgw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(wt))
+    finally:
+        jspec.set_dft_mode(None)
+        jspec.set_pallas_mode(None)
+    xt = torch.from_numpy(x).requires_grad_()
+    wtt = torch.from_numpy(wt).requires_grad_()
+    (spectral_conv_2d(xt, wtt, out_size, modes) * torch.from_numpy(cot)).sum().backward()
+    assert _rel(xt.grad.numpy(), jgx) <= 1e-5, _rel(xt.grad.numpy(), jgx)
+    assert _rel(wtt.grad.numpy(), np.conj(np.asarray(jgw))) <= 1e-5
+    if 2 * modes[0] > out_size[0]:
+        # the positive-kx rows the negative-kx block overwrites get no gradient
+        n_top = out_size[0] - modes[0]
+        assert torch.all(wtt.grad[0, :, :, n_top:] == 0)
+        assert torch.any(wtt.grad[0, :, :, :n_top] != 0)
 
 
 def test_bf16_input_runs_the_transform_in_f32():

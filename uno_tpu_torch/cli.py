@@ -1,8 +1,16 @@
 """Command-line entry point of the PyTorch port.
 
+    python -m uno_tpu_torch.cli train --preset darcy_s211 --data-cache D.npz \\
+        [--dtype bfloat16] [--device cuda] [--epochs N] [--log run.jsonl]
     python -m uno_tpu_torch.cli predict --preset darcy_s211 \\
         --data-cache D.npz (--params P.npz | --init-seed N) \\
         --split test --out preds.npz [--dtype bfloat16] [--device cuda]
+
+``train`` is the counterpart of ``uno_tpu``'s ``cli train`` for the Darcy
+presets: it reads the six-key split ``.npz`` that ``uno_tpu``'s
+``--data-cache`` writes, draws the model's weights from the preset's seed,
+and runs ``train.darcy.train_darcy``, printing one JSON line per epoch and a
+final ``test_rel_l2`` line.
 
 ``predict`` is batch inference, the counterpart of ``uno_tpu``'s ``cli
 predict``: it reads the six-key split ``.npz`` that ``uno_tpu``'s
@@ -27,12 +35,15 @@ import torch
 _SPLIT_KEYS = ("train_a", "train_u", "val_a", "val_u", "test_a", "test_u")
 
 
+_TRAIN_FLAGS = ("epochs", "batch_size", "learning_rate", "weight_decay", "seed")
+
+
 def _build_preset(args):
     from uno_tpu_torch.configs.presets import get_preset
 
     preset = get_preset(args.preset)
-    train_over = {k: getattr(args, k) for k in ("batch_size", "seed")
-                  if getattr(args, k) is not None}
+    train_over = {k: getattr(args, k) for k in _TRAIN_FLAGS
+                  if getattr(args, k, None) is not None}
     data_over = {k: getattr(args, k) for k in ("ntrain", "nval", "ntest")
                  if getattr(args, k) is not None}
     return dataclasses.replace(
@@ -81,16 +92,62 @@ def _device(name: str) -> torch.device:
     return dev
 
 
+def _no_tf32() -> None:
+    """Full-f32 matmuls and convolutions on the card (both default to TF32
+    in some torch versions); stated in the output."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class _Tee:
+    """Write metric JSONL to both stdout and an append-mode file."""
+
+    def __init__(self, path):
+        self._file = open(path, "a")
+
+    def write(self, s):
+        self._file.write(s)
+        sys.stdout.write(s)
+
+    def flush(self):
+        self._file.flush()
+        sys.stdout.flush()
+
+    def close(self):
+        self._file.close()
+
+
+def cmd_train(args) -> int:
+    """Train a Darcy preset's model on a split cache; JSONL metrics."""
+    from uno_tpu_torch.models import build_model
+    from uno_tpu_torch.train.darcy import train_darcy
+    from uno_tpu_torch.train.metrics import MetricLogger
+
+    device = _device(args.device)
+    _no_tf32()
+    preset = _build_preset(args)
+    if preset.task != "darcy":
+        raise SystemExit(f"train: only Darcy presets are ported, not {preset.task}")
+    data = _load_split_cache(args.data_cache, _gen_sig(preset))
+    gen = torch.Generator().manual_seed(preset.train.seed)
+    model = build_model(preset.model, dtype=args.dtype, device=device,
+                        generator=gen, **preset.model_kwargs)
+    tee = _Tee(args.log) if args.log else None
+    try:
+        train_darcy(model, *data, preset.train, logger=MetricLogger(tee))
+    finally:
+        if tee is not None:
+            tee.close()
+    return 0
+
+
 def cmd_predict(args) -> int:
     """Batch inference over one split; writes (input, pred, target)."""
     from uno_tpu_torch.bridge import load_npz, params_from_flax
     from uno_tpu_torch.models import build_model
 
     device = _device(args.device)
-    # full-f32 matmuls and convolutions on the card (both default to TF32
-    # in some torch versions); stated in the output
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _no_tf32()
     preset = _build_preset(args)
     if preset.task != "darcy":
         raise SystemExit(f"predict: only Darcy presets are ported, not {preset.task}")
@@ -134,6 +191,37 @@ def cmd_predict(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="uno_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser(
+        "train", help="train a Darcy preset's model on a split cache",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog="Not ported yet, with the ROADMAP.md item that brings each:\n"
+               "  --generate, --data         Queue 1 item 9 (data generators, loaders)\n"
+               "  --checkpoint-dir, --resume Queue 1 item 4 (checkpoints)\n"
+               "  --data-parallel, --spatial, --tensor-parallel\n"
+               "                             Queue 1 item 8 (parallel/)",
+    )
+    p.add_argument("--preset", required=True)
+    p.add_argument("--data-cache", required=True,
+                   help="six-key split npz written by uno_tpu's --data-cache")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; a missing CUDA device raises")
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype (bf16 mixed-precision policy: params, "
+                        "optimizer and loss stay f32)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--weight-decay", type=float, default=None)
+    p.add_argument("--ntrain", type=int, default=None)
+    p.add_argument("--nval", type=int, default=None)
+    p.add_argument("--ntest", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None,
+                   help="the preset's seed: weights, batch order and the "
+                        "data-cache signature")
+    p.add_argument("--log", default=None,
+                   help="append metric JSONL to this file (also printed to stdout)")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict", help="batch inference over a data split")
     p.add_argument("--preset", required=True)

@@ -76,8 +76,10 @@ class UNOModel(nn.Module):
     (B, S1, S2, C) -> (B, S1, S2, out_dim).
 
     Parameters are drawn from ``generator`` on the CPU and moved to
-    ``device``.  Call it under ``torch.no_grad()`` or
-    ``torch.inference_mode()``: the kernels have no backward yet.
+    ``device``.  It trains under autograd: the spectral contraction and the
+    fused head are ``torch.autograd.Function``s whose backward passes are
+    kernels too.  Under ``torch.no_grad()`` or ``torch.inference_mode()``
+    they run forward only and save nothing.
     """
 
     def __init__(self, spec: UNOSpec, device=None,

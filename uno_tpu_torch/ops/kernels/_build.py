@@ -2,7 +2,8 @@
 
 The sources under ``uno_tpu_torch/csrc/*.cu`` expose plain ``extern "C"``
 entry points that launch on a given stream and return ``cudaGetLastError()``.
-At first use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+At first use they are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and linked into one
 shared library under ``build/uno_tpu_torch/`` at the repository root, named
 by a hash of the sources and flags, and loaded with ``ctypes``.  Nothing is
 built when a module is imported.
@@ -24,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "uno_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -33,7 +34,10 @@ _I = ctypes.c_int
 # entry point -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 _SIGNATURES = {
     "uno_cmul_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "uno_cmul_bwd_x": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "uno_cmul_bwd_w": [_P, _P, _P, _I, _I, _I, _I, _P],
     "uno_mlp_head_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "uno_mlp_head_bwd": [_P] * 11 + [_I] * 7 + [_P],
 }
 
 _LIB = None
@@ -69,19 +73,28 @@ def library() -> ctypes.CDLL:
     BUILD_SECONDS = 0.0
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs = [str(Path(tmp) / f"{s.stem}.o") for s in sources]
+            procs = [
+                (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+                for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                            for o, s in zip(objs, sources))
+            ]
+            logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+            link = [nvcc, "-shared", "-o", str(Path(tmp) / "lib.so"), *objs]
+            if all(rc == 0 for _, _, rc in logs):
+                proc = subprocess.run(link, capture_output=True, text=True)
+                logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+            BUILD_LOG = "".join(log for _, log, _ in logs)
+            for cmd, log, rc in logs:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+            # atomic: a concurrent loader never sees half a file
+            os.replace(Path(tmp) / "lib.so", out)
         BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -105,9 +105,14 @@ def resize_matrix(
 
 @lru_cache(maxsize=256)
 def _table(n_in, n_out, kernel, align_corners, antialias, device, dtype):
-    """``resize_matrix`` as a tensor on ``device``, built once per process."""
+    """``resize_matrix`` as a tensor on ``device``, built once per process.
+
+    Built outside inference mode even when first asked for inside it: a
+    cached inference tensor could not be saved for a later backward in the
+    same process (serving, then training)."""
     wm = resize_matrix(n_in, n_out, kernel, align_corners, antialias)
-    return torch.from_numpy(wm).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(wm).to(device=device, dtype=dtype)
 
 
 def resize(

@@ -10,9 +10,13 @@ Behavioural contract, as in ``uno_tpu``:
   the requested output grid, so the same layer resamples the domain.
 * The transforms run in f32 whatever the input dtype, and the output is f32.
 
-The per-mode complex contraction goes through the CUDA kernel of
-``ops/kernels/cmul.py``.  The partial-DFT transform path (``uno_tpu``'s
-``ops/dft.py``) is not ported yet.
+The per-mode complex contraction goes through the CUDA kernels of
+``ops/kernels/cmul.py`` (forward and both gradients).  Everything around it
+is differentiated by torch autograd: ``rfft2``/``irfft2``, the corner
+gather and the slice writes into the output spectrum, where a positive-kx
+row that the negative-kx block overwrites gets a zero gradient, as
+``uno_tpu``'s ``_unslice_pm`` gives it on the DFT path.  The partial-DFT
+transform path (``uno_tpu``'s ``ops/dft.py``) is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,15 +1,139 @@
-"""Trainer configuration (port of part of ``uno_tpu/train/common.py``).
+"""Shared trainer machinery (port of ``uno_tpu/train/common.py``): config,
+optimizer wiring, the logged learning rate, graceful stop, best-val tracking.
 
-Only the fields that batch inference reads are carried so far; the
-optimizer, schedule and checkpoint fields come with the trainer.
+``uno_tpu``'s ``DataPlacer`` (TPU tile-padding layouts, host-resident
+fallback, mesh placement) and ``DeviceAccumulator`` (a relay workaround) are
+not ported: the trainer moves each split to the card once, indexes batches
+there and sums losses in a device tensor that it reads once per epoch.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
+from typing import Dict, Optional
+
+import torch
+
+from uno_tpu_torch.optim import ComplexAdam, step_lr
+
+# fields the port does not implement yet -> the ROADMAP item that brings them
+_NOT_PORTED = {
+    "checkpoint_dir": "ROADMAP.md Queue 1 item 4 (checkpoints)",
+    "checkpoint_every": "ROADMAP.md Queue 1 item 4 (checkpoints)",
+    "resume": "ROADMAP.md Queue 1 item 4 (checkpoints)",
+    "tensor_parallel": "ROADMAP.md Queue 1 item 8 (parallel/)",
+    "log_tensorboard": "ROADMAP.md Queue 1 item 7 (metrics, profiling)",
+}
 
 
 @dataclass
 class TrainConfig:
+    epochs: int = 150
     batch_size: int = 16
+    learning_rate: float = 1e-3
+    scheduler_step: int = 100        # epochs between StepLR decays
+    scheduler_gamma: float = 0.5
+    weight_decay: float = 1e-4
     seed: int = 0
+    eval_every: int = 1              # validate every k epochs (reference NS: 2)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0        # full-state checkpoint every k epochs
+    resume: bool = False
+    drop_remainder: bool = False
+    # Reference ns_train_2d.py steps the scheduler only on even epochs
+    # (:74,:113 — effective step size 2x nominal).  Off by default; enable to
+    # bit-match the reference schedule.
+    compat_even_epoch_scheduler: bool = False
+    log_tensorboard: Optional[str] = None
+    # uno_tpu's channel tensor-parallelism (parallel/tp.py)
+    tensor_parallel: bool = False
+
+    def __post_init__(self):
+        for f in fields(self):
+            if f.name in _NOT_PORTED and getattr(self, f.name) != f.default:
+                raise NotImplementedError(
+                    f"TrainConfig.{f.name}={getattr(self, f.name)!r} is not ported "
+                    f"yet: {_NOT_PORTED[f.name]}"
+                )
+
+
+def _sched_epochs(cfg: TrainConfig) -> int:
+    return cfg.scheduler_step * (2 if cfg.compat_even_epoch_scheduler else 1)
+
+
+def make_optimizer(cfg: TrainConfig, steps_per_epoch: int, params) -> ComplexAdam:
+    schedule = step_lr(cfg.learning_rate, _sched_epochs(cfg), cfg.scheduler_gamma,
+                       steps_per_epoch)
+    return ComplexAdam(params, lr=schedule, weight_decay=cfg.weight_decay)
+
+
+def lr_at(cfg: TrainConfig, steps_per_epoch: int, step: int) -> float:
+    """Learning rate in effect at optimizer step ``step`` (for logging)."""
+    epoch = max(step - 1, 0) // steps_per_epoch
+    return cfg.learning_rate * cfg.scheduler_gamma ** (epoch // _sched_epochs(cfg))
+
+
+class GracefulStop:
+    """Preemption-safe shutdown: on SIGTERM/SIGINT, finish the current epoch
+    and return early.
+
+    Install with ``with GracefulStop() as stop:`` around the epoch loop and
+    poll ``stop.requested`` at epoch boundaries.  Previous handlers are
+    restored on exit; a second signal falls through to them (so a double
+    Ctrl-C still kills a run immediately).
+    """
+
+    SIGNALS = ("SIGTERM", "SIGINT")
+
+    def __init__(self):
+        self.requested = False
+        self._prev = {}
+
+    def _handler(self, signum, frame):
+        import signal
+
+        self.requested = True
+        # restore previous disposition: next signal is not swallowed
+        signal.signal(signum, self._prev.get(signum, signal.SIG_DFL))
+
+    def __enter__(self):
+        import signal
+        import threading
+
+        if threading.current_thread() is not threading.main_thread():
+            return self  # handlers only installable from the main thread
+        for name in self.SIGNALS:
+            sig = getattr(signal, name)
+            try:
+                self._prev[sig] = signal.signal(sig, self._handler)
+            except (ValueError, OSError):  # non-main interpreter contexts
+                pass
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        for sig, prev in self._prev.items():
+            try:
+                if signal.getsignal(sig) == self._handler:
+                    signal.signal(sig, prev)
+            except (ValueError, OSError):
+                pass
+        return False
+
+
+class BestTracker:
+    """Reference best-val selection: keep a copy of the model's state dict,
+    on its device, whenever val improves.  There is no checkpoint manager
+    yet (ROADMAP.md Queue 1 item 4)."""
+
+    def __init__(self):
+        self.best_val = float("inf")
+        self.best_state: Optional[Dict[str, torch.Tensor]] = None
+
+    def update(self, val: float, model: torch.nn.Module) -> bool:
+        if val < self.best_val:
+            self.best_val = val
+            self.best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            return True
+        return False
