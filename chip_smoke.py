@@ -13,9 +13,16 @@ inference) and training.
    process per source);
 3. holds each of the five kernels (contraction forward, dx, dw; head
    forward, backward) against its plain PyTorch version on the card at the
-   shapes the paths give it, and times both (median of per-launch CUDA
-   events, the L2 flushed before each launch by reading a 256 MB buffer,
-   in turns plain, kernel, kernel, plain);
+   shapes the paths give it, checks that a second launch gives the same
+   bits, and times both (median of per-launch CUDA events, the L2 flushed
+   before each launch by reading a 256 MB buffer, in turns plain, kernel,
+   kernel, plain).  Beside each time: the kernel's bound, the larger of its
+   bytes (each input read once, each output written once) at the card's
+   3.35 TB/s and its flops at 67 TFLOP/s of f32 outside the tensor cores,
+   and the time of one PyTorch call that computes the same function where
+   there is one (the contractions' plain versions are one einsum each, so
+   that time is also their ``library_ms``; the head has none).  A
+   one-element add timed the same way gives the floor of this timing;
 4. runs ``python -m uno_tpu_torch.cli predict`` over a synthetic six-key
    darcy_s211 split (16 test samples) once to warm up and once measured,
    with the launch counts set to 0 just before the measured run; checks the
@@ -84,6 +91,8 @@ KERNELS = {  # name -> (wrapper module, count key, source, the TPU kernel it rep
                      "uno_tpu/ops/pallas/mlp_head.py:123"),
 }
 REPS = 20
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
+F32_FLOPS_PER_MS = 67e9    # H100 SXM: 67 TFLOP/s f32 outside the tensor cores
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -153,18 +162,41 @@ def phase_build() -> None:
             print("[build]", line.strip())
 
 
+def _bound(nbytes: float, flops: float) -> tuple:
+    """(ms, what bounds it): the larger of bytes over the card's memory rate
+    and flops over its f32 rate."""
+    tb, tf = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOPS_PER_MS
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _add(res, name, err, km, pm, bound, library):
+    r = res.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                  bytes_ms=0.0, flops_ms=0.0, library_ms=0.0))
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["ms"] += km
+    r["plain_ms"] += pm
+    r["bound_ms"] += bound[0]
+    r["bytes_ms" if bound[1] == "bytes" else "flops_ms"] += bound[0]
+    r["library_ms"] = None if library is None else r["library_ms"] + library
+
+
 def _cmul_case(name, kernel, plain, args, flush, res):
-    got, want = kernel(*args), plain(*args)
+    """One contraction at one shape: error, same bits twice, times, bound."""
+    got, again, want = kernel(*args), kernel(*args), plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not err <= CMUL_ATOL:
         raise AssertionError(f"{name}: max abs err {err} > {CMUL_ATOL}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
     km, pm = _turns(lambda: kernel(*args), lambda: plain(*args), flush)
-    r = res.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
-    r["max_abs_err"] = max(r["max_abs_err"], err)
-    r["ms"] += km
-    r["plain_ms"] += pm
-    return err, km, pm
+    # 8 flops per complex multiply-add; the contracted axis is the first
+    # operand's channels (forward, dx) or batch (dw)
+    k = args[0].shape[0 if name == "cmul_bwd_w" else 1]
+    nbytes = 8 * (args[0].numel() + args[1].numel() + got.numel())
+    bound = _bound(nbytes, 8.0 * got.numel() * k)
+    _add(res, name, err, km, pm, bound, pm)  # the plain version is one einsum
+    return err, km, pm, bound
 
 
 def phase_kernels(dev) -> dict:
@@ -173,6 +205,9 @@ def phase_kernels(dev) -> dict:
     res = {}
     crand = lambda *s: torch.complex(torch.randn(*s, generator=g),
                                      torch.randn(*s, generator=g)).to(dev)
+    one = torch.zeros(1, device=dev)
+    floor = statistics.median(_time_ms(lambda: one.add_(1), flush))
+    print(f"[kernels] timing floor: a one-element add timed the same way takes {floor:.4f} ms")
 
     for b, ci, co, m in CMUL_SHAPES:
         # activations and cotangents at unit scale, weights from the init
@@ -184,9 +219,10 @@ def phase_kernels(dev) -> dict:
                  ("cmul_bwd_w", cmul_k.cmul_bwd_w, cmul_k.cmul_bwd_w_plain, (x, gy),
                   "einsum conj(x).g")]
         for name, kernel, plain, args, what in cases:
-            err, km, pm = _cmul_case(name, kernel, plain, args, flush, res)
-            print(f"[kernels] {name} B={b} Ci={ci} Co={co} M={m}: max_abs_err {err:.3g} "
-                  f"kernel {km:.4f} ms  plain ({what}) {pm:.4f} ms")
+            err, km, pm, (bd, by) = _cmul_case(name, kernel, plain, args, flush, res)
+            print(f"[kernels] {name} B={b} Ci={ci} Co={co} M={m}: max_abs_err {err:.3g}, "
+                  f"same bits twice; kernel {km:.4f} ms  plain = library ({what}) {pm:.4f} ms"
+                  f"  bound {bd:.4f} ms ({by})")
 
     b, c, n, h, o = HEAD_SHAPE
     x = torch.randn(b, c, n, generator=g).to(dev, torch.bfloat16)
@@ -194,16 +230,23 @@ def phase_kernels(dev) -> dict:
     k1, b1 = bound(c, h) / c**0.5, bound(h) / c**0.5
     k2, b2 = bound(h, o) / h**0.5, bound(o) / h**0.5
     got = head_k.mlp_head(x, k1, b1, k2, b2)
+    again = head_k.mlp_head(x, k1, b1, k2, b2)
     want = head_k.mlp_head_plain(x, k1, b1, k2, b2)
     torch.cuda.synchronize()
     rel, err = _rel(got, want), float((got - want).abs().max())
     if not rel <= HEAD_REL:
         raise AssertionError(f"mlp_head {HEAD_SHAPE}: rel-L2 {rel} > {HEAD_REL}")
+    if not torch.equal(got, again):
+        raise AssertionError("mlp_head: two runs on the same inputs differ")
     km, pm = _turns(lambda: head_k.mlp_head(x, k1, b1, k2, b2),
                     lambda: head_k.mlp_head_plain(x, k1, b1, k2, b2), flush)
+    wbytes = 4 * (c * h + h + h * o + o)
+    # reads bf16 x and the weights, writes f32 out; 2 flops per multiply-add
+    bd = _bound(2 * x.numel() + wbytes + 4 * got.numel(), 2.0 * b * n * (c * h + h * o))
     print(f"[kernels] mlp_head_fwd B={b} C={c} N={n} H={h} O={o}: rel-L2 {rel:.3g} "
-          f"max_abs_err {err:.3g} kernel {km:.4f} ms  plain (unfused f32) {pm:.4f} ms")
-    res["mlp_head_fwd"] = dict(max_abs_err=err, ms=km, plain_ms=pm)
+          f"max_abs_err {err:.3g}, same bits twice; kernel {km:.4f} ms  plain (unfused "
+          f"f32) {pm:.4f} ms  bound {bd[0]:.4f} ms ({bd[1]}); no one-call library version")
+    _add(res, "mlp_head_fwd", err, km, pm, bd, None)
 
     gy = torch.randn(b, o, n, generator=g).to(dev)
     args = (x, gy, k1, b1, k2)
@@ -220,13 +263,21 @@ def phase_kernels(dev) -> dict:
         raise AssertionError("mlp_head_bwd: two runs on the same inputs differ")
     km, pm = _turns(lambda: head_k.mlp_head_bwd(*args),
                     lambda: head_k.mlp_head_bwd_plain(*args), flush)
+    # reads x, g, k1, b1, k2, writes gx and the four weight gradients; it
+    # recomputes z (CH), then dh (HO), gx (CH), gk1 (CH) and gk2 (HO)
+    bd = _bound(4 * x.numel() + 4 * gy.numel() + wbytes - 4 * o + wbytes,
+                2.0 * b * n * (3 * c * h + 2 * h * o))
     print(f"[kernels] mlp_head_bwd B={b} C={c} N={n} H={h} O={o}: rel-L2 gx {rels[0]:.3g} "
-          f"weights {max(rels[1:]):.3g}, deterministic, max_abs_err {err:.3g} "
-          f"kernel {km:.4f} ms  plain (f32 channels-last) {pm:.4f} ms")
-    res["mlp_head_bwd"] = dict(max_abs_err=err, ms=km, plain_ms=pm)
+          f"weights {max(rels[1:]):.3g}, same bits twice, max_abs_err {err:.3g}; "
+          f"kernel {km:.4f} ms  plain (f32 channels-last) {pm:.4f} ms  bound {bd[0]:.4f} ms "
+          f"({bd[1]}); no one-call library version")
+    _add(res, "mlp_head_bwd", err, km, pm, bd, None)
     for name, r in res.items():
-        print(f"[kernels] {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms "
-              f"(summed over its shapes)")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[kernels] {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"library {lib}  bound {r['bound_ms']:.4f} ms (summed over its shapes)")
+    for r in res.values():
+        r["bound_by"] = "bytes" if r.pop("bytes_ms") >= r.pop("flops_ms") else "operations"
     return res
 
 

@@ -39,23 +39,44 @@ def _rand_c(g, *shape):
     return torch.complex(torch.randn(shape, generator=g), torch.randn(shape, generator=g))
 
 
+# Shapes at every edge of the contraction kernel's plan (B, Ci, Co, M): one
+# batch row; 9, 17 and 33 rows (a partial tile, batch tiles over weights
+# kept in shared memory); odd M (8-byte copies) and M not a multiple of the
+# block's 4 modes; Ci or Co of 1; channel counts that the split does not
+# divide.  Then the five path shapes.
+EDGES = [(2, 3, 5, 7), (4, 8, 8, 128), (2, 4, 6, 200), (3, 6, 7, 200), (9, 5, 3, 33),
+         (1, 1, 1, 1), (1, 7, 1, 33), (17, 1, 40, 7), (16, 9, 17, 64), (17, 128, 64, 128),
+         (33, 9, 19, 33), (33, 130, 70, 40), (16, 37, 1, 648)]
+
+
+def _misaligned(t):
+    """The same values at an address 8 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", [(2, 3, 5, 7), (4, 8, 8, 128), (2, 4, 6, 200),
-                                       (9, 5, 3, 33)] + DARCY_S211)
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211)
 def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
     g = torch.Generator().manual_seed(1)
     x = _rand_c(g, b, ci, m).to(cuda)
     w = (_rand_c(g, ci, co, m) / (2 * ci) ** 0.5).to(cuda)  # the init's scale
     before = C.LAUNCHES["fwd"]
     got = C.cmul(x, w)
+    again = C.cmul(x, w)
     torch.cuda.synchronize()
-    assert C.LAUNCHES["fwd"] == before + 1
+    assert C.LAUNCHES["fwd"] == before + 2
     torch.testing.assert_close(got, C.cmul_plain(x, w), rtol=0, atol=1e-4)
+    assert torch.equal(got, again)  # the split's partial sums add in a fixed order
+    # an operand off a 16-byte boundary takes the 8-byte copies
+    torch.testing.assert_close(C.cmul(_misaligned(x), w), got, rtol=0, atol=1e-6)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", [(2, 3, 5, 7), (9, 5, 3, 33), (3, 6, 7, 200),
-                                       DARCY_S211[4]])
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211)
 def test_cmul_backward_kernels_match_plain(cuda, b, ci, co, m):
     g_ = torch.Generator().manual_seed(3)
     x = _rand_c(g_, b, ci, m).to(cuda)
@@ -63,11 +84,14 @@ def test_cmul_backward_kernels_match_plain(cuda, b, ci, co, m):
     g = _rand_c(g_, b, co, m).to(cuda)
     before = dict(C.LAUNCHES)
     gx, gw = C.cmul_bwd_x(g, w), C.cmul_bwd_w(x, g)
+    gx2 = C.cmul_bwd_x(g, w)
     torch.cuda.synchronize()
-    assert C.LAUNCHES["bwd_x"] == before["bwd_x"] + 1
+    assert C.LAUNCHES["bwd_x"] == before["bwd_x"] + 2
     assert C.LAUNCHES["bwd_w"] == before["bwd_w"] + 1
     torch.testing.assert_close(gx, C.cmul_bwd_x_plain(g, w), rtol=0, atol=1e-4)
     torch.testing.assert_close(gw, C.cmul_bwd_w_plain(x, g), rtol=0, atol=1e-4)
+    assert torch.equal(gx, gx2)
+    torch.testing.assert_close(C.cmul_bwd_x(g, _misaligned(w)), gx, rtol=0, atol=1e-6)
     # autograd through the Function reaches the same kernels
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     (C.cmul(xr, wr) * g.conj()).real.sum().backward()
@@ -83,6 +107,12 @@ def test_cmul_wrapper_raises_on_the_card(cuda):
         C.cmul(x.transpose(0, 1).contiguous().transpose(0, 1), w)
     with pytest.raises(ValueError):
         C.cmul(x, w.cpu())
+    n = C.TILE_N * C.GRID_Y_MAX + 1  # past the grid's y limit: raises, launches nothing
+    before = dict(C.LAUNCHES)
+    with pytest.raises(ValueError, match="grid"):
+        C.cmul(x[:1, :1, :1].contiguous(), torch.zeros(1, n, 1, dtype=torch.complex64,
+                                                        device=cuda))
+    assert C.LAUNCHES == before
 
 
 @pytest.mark.cuda

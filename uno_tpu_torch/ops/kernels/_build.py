@@ -33,11 +33,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 _SIGNATURES = {
-    "uno_cmul_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "uno_cmul_bwd_x": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # B, Ci, Co, M, then the launch plan (cmul.py: ContractPlan.args)
+    "uno_cmul_fwd": [_P, _P, _P] + [_I] * 11 + [_P],
+    "uno_cmul_bwd_x": [_P, _P, _P] + [_I] * 11 + [_P],
     "uno_cmul_bwd_w": [_P, _P, _P, _I, _I, _I, _I, _P],
     "uno_mlp_head_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "uno_mlp_head_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    # device, then where to write its SM count and opt-in shared memory
+    "uno_device_limits": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }
 
 _LIB = None

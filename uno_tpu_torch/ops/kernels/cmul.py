@@ -8,11 +8,12 @@ against the spectral weights (one small complex (B x Ci) @ (Ci x Co) product
 per mode), and the two backward contractions, dx and dw
 (``uno_tpu/ops/pallas/cmul.py: _bwd``).
 
-The CUDA kernels in ``uno_tpu_torch/csrc/cmul.cu`` read or write each
-weight-sized element (Ci*Co*M complex values, each used by B multiply-adds)
-once, with coalesced accesses along the mode axis.  On an H100 they are
-bound by the latency of a serial channel loop over too few threads, not by
-those bytes; the source says more.
+The forward and dx run one CUDA kernel, ``contract_kernel`` in
+``uno_tpu_torch/csrc/cmul.cu``, which reads each weight once (for B <= 16),
+splits the channel reduction over the warps of a block and adds their
+partial sums in a fixed order; ``contract_plan`` below picks its tiles,
+split, shared memory and grid, and the source says more.  dw has its own
+kernel.
 
 ``cmul`` is differentiable: when grad mode is on and an input requires grad
 it runs as a ``torch.autograd.Function`` whose backward calls ``cmul_bwd_x``
@@ -26,6 +27,10 @@ A tensor on the CPU goes to the plain versions (complex64, or complex128 for
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -71,14 +76,101 @@ def _validate(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"{name}: dimensions must be in [1, 2**31): {a.shape}, {b.shape}")
 
 
+# the kernel's constants (csrc/cmul.cu: CB, TN, TM2, STAGES, MAX_SPLIT)
+TILE_B, TILE_N, TILE_M, STAGES, MAX_SPLIT = 16, 16, 4, 4, 8
+GRID_Y_MAX = 65535
+WARPS_PER_SM = 8             # the split aims at 8 warps per SM
+MIN_K_PER_WARP = 4
+# an H100's SM count and opt-in shared memory per block (227 KB): the plan's
+# limits when no device is named; a launch reads its own card's
+SMS, MAX_SMEM = 132, 232448
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple:
+    """(SM count, shared-memory bytes a block may opt in to) of CUDA device
+    ``index``, as the runtime reports them."""
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    check(library().uno_device_limits(index, ctypes.byref(sms), ctypes.byref(smem)),
+          "uno_device_limits")
+    return sms.value, smem.value
+
+
+@dataclass(frozen=True)
+class ContractPlan:
+    """How ``contract_kernel`` covers ``out[b,n,m] = sum_k a[b,k,m] w'[k,n,m]``.
+
+    Block ``(gx, gy)`` owns modes ``[gx*TILE_M, +TILE_M)`` and outputs
+    ``[gy*TILE_N, +TILE_N)`` for every batch row, TILE_B rows at a time; its
+    warp ``kg`` of ``split`` contracts k in ``[kg*k_per_warp, +k_per_warp)``.
+    """
+
+    split: int       # warps per block, one slice of K each
+    k_per_warp: int
+    resident: bool   # the block's w tile stays in shared memory over batch tiles
+    vec: int         # bytes per copy: 16 (two modes) or 8
+    smem: int        # dynamic shared memory per block, bytes
+    grid: tuple      # (ceil(M / TILE_M), ceil(N / TILE_N))
+
+    def args(self) -> tuple:
+        """The plan arguments of ``uno_cmul_fwd`` / ``uno_cmul_bwd_x``."""
+        return (self.split, self.k_per_warp, int(self.resident), self.vec, self.smem,
+                *self.grid)
+
+
+def contract_smem(split: int, k_per_warp: int, resident: bool) -> int:
+    """Shared-memory bytes of a block (csrc/cmul.cu: contract_smem): per warp
+    an a ring and a w ring (or, resident, its whole w slice); the warps'
+    partial sums reuse the front."""
+    x_ring = STAGES * TILE_B * TILE_M * 8
+    w_stage = TILE_N * TILE_M * 8
+    red = TILE_B * TILE_N * TILE_M * 8
+    w_slots = k_per_warp if resident else STAGES
+    end = split * (max(x_ring, red) if resident else x_ring) + split * w_slots * w_stage
+    return max(end, split * red)
+
+
+def contract_plan(bsz: int, k: int, n: int, m: int, aligned: bool = True,
+                  device: int | None = None) -> ContractPlan:
+    """The launch plan of ``contract_kernel`` for a (bsz, k, m) ``a`` and n
+    outputs per mode; ``aligned``: every pointer is 16-byte aligned;
+    ``device``: the CUDA device whose SMs and shared memory the plan fills
+    (None: an H100's).  Raises ValueError where the grid cannot take the
+    shape."""
+    if min(bsz, k, n, m) < 1:
+        raise ValueError(f"contraction: empty shape {(bsz, k, n, m)}")
+    grid = (-(-m // TILE_M), -(-n // TILE_N))
+    if grid[1] > GRID_Y_MAX:
+        raise ValueError(f"contraction: {n} outputs need {grid[1]} blocks along the grid's "
+                         f"y axis > {GRID_Y_MAX}")
+    sms, max_smem = (SMS, MAX_SMEM) if device is None else device_limits(device)
+    split = 1
+    while (split < MAX_SPLIT and grid[0] * grid[1] * split < sms * WARPS_PER_SM
+           and k >= 2 * split * MIN_K_PER_WARP):
+        split *= 2
+    k_per_warp = -(-k // split)
+    split = -(-k // k_per_warp)  # no warp without channels
+    resident = bsz > TILE_B and contract_smem(split, k_per_warp, True) <= max_smem
+    vec = 16 if aligned and m % 2 == 0 else 8
+    return ContractPlan(split, k_per_warp, resident, vec,
+                        contract_smem(split, k_per_warp, resident), grid)
+
+
 def _launch(entry: str, key: str, a, b, out_shape, bsz, ci, co, m):
-    if max(ci, co) > 4 * 65535 or bsz > 8 * 65535:
-        raise ValueError(f"{entry}: channels {ci}, {co} or batch {bsz} exceed the grid")
+    plan = ()
+    if key == "bwd_w":  # grid (M / 32, Co / 4, Ci / 4)
+        if max(ci, co) > 4 * GRID_Y_MAX:
+            raise ValueError(f"{entry}: channels {ci}, {co} exceed the grid")
+    else:  # the forward and dx kernel takes a launch plan
+        k, n = (ci, co) if key == "fwd" else (co, ci)
+        # out comes from the caching allocator, aligned to 512 bytes
+        aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+        plan = contract_plan(bsz, k, n, m, aligned, a.device.index).args()
     out = torch.empty(out_shape, dtype=torch.complex64, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(library(), entry)(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, ci, co, m, stream
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, ci, co, m, *plan, stream
         )
     check(err, entry)
     LAUNCHES[key] += 1
