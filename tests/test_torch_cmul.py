@@ -97,67 +97,87 @@ def test_backward_computes_only_the_gradients_asked_for():
     assert x.grad is None and w.grad is not None
 
 
-# (B, K, N, M) of the forward and dx at the five darcy_s211 shapes, then
-# edges: one batch row, 17 and 33 rows (batch tiles, resident weights), odd
-# M (the 8-byte copies), K or N of 1, K not a multiple of the split
+# (rows, K, N, M) of the three uses at the five darcy_s211 shapes: (B, Ci,
+# Co) for the forward, (B, Co, Ci) for dx, (Ci, B, Co) for dw; then edges:
+# one row, 17 and 33 rows (row tiles along the grid's z), odd M (the 8-byte
+# copies), K or N of 1, K not a multiple of the split, dw's batch of 1, 9,
+# 17 and 33 contracted over Ci or Co of 1
 PATH_SHAPES = [(16, 32, 64, 648), (16, 64, 128, 128), (16, 128, 128, 128),
                (16, 128, 64, 128), (16, 128, 32, 648)]
 PLAN_SHAPES = ([(b, k, n, m) for b, ci, co, m in PATH_SHAPES for k, n in ((ci, co), (co, ci))]
                + [(1, 3, 5, 7), (9, 5, 3, 33), (17, 128, 64, 128), (33, 9, 19, 33),
                   (16, 1, 40, 7), (1, 40, 1, 33), (16, 130, 70, 40), (33, 17, 16, 2)])
+DW_SHAPES = ([(ci, b, co, m) for b, ci, co, m in PATH_SHAPES]
+             + [(1, 1, 1, 1), (7, 9, 1, 33), (1, 17, 40, 7), (37, 33, 19, 33), (9, 16, 17, 64),
+                (130, 16, 70, 40), (5, 2, 3, 7)])
 
 
-@pytest.mark.parametrize("b,k,n,m", PLAN_SHAPES)
+@pytest.mark.parametrize("b,k,n,m", PLAN_SHAPES + DW_SHAPES)
 def test_contract_plan_covers_each_term_once(b, k, n, m):
-    """Every product x[b,k,m] * w[k,n,m] falls in exactly one (block, warp,
-    batch tile) of the plan, as contract_kernel maps them."""
+    """Every product a[r,k,m] * w[k,n,m] falls in exactly one (block, warp)
+    of the plan, as contract_kernel maps them."""
     p = K.contract_plan(b, k, n, m)
     count = np.zeros((b, k, n, m), np.uint8)
     for gx in range(p.grid[0]):
         for gy in range(p.grid[1]):
-            for kg in range(p.split):
-                assert kg * p.k_per_warp < k  # no warp without channels
-                for b0 in range(0, b, K.TILE_B):
-                    count[b0:b0 + K.TILE_B, kg * p.k_per_warp:(kg + 1) * p.k_per_warp,
+            for gz in range(p.grid[2]):
+                for kg in range(p.split):
+                    assert kg * p.k_per_warp < k  # no warp without channels
+                    count[gz * K.TILE_B:(gz + 1) * K.TILE_B,
+                          kg * p.k_per_warp:(kg + 1) * p.k_per_warp,
                           gy * K.TILE_N:(gy + 1) * K.TILE_N,
                           gx * K.TILE_M:(gx + 1) * K.TILE_M] += 1
     assert (count == 1).all()
 
 
-@pytest.mark.parametrize("b,k,n,m", PLAN_SHAPES)
+@pytest.mark.parametrize("b,k,n,m", PLAN_SHAPES + DW_SHAPES)
 def test_contract_plan_fits_the_card(b, k, n, m):
     p = K.contract_plan(b, k, n, m)
     assert 1 <= p.split <= K.MAX_SPLIT and p.split * p.k_per_warp >= k
-    assert p.smem == K.contract_smem(p.split, p.k_per_warp, p.resident) <= K.MAX_SMEM
-    assert p.grid[0] < 2**31 and p.grid[1] <= K.GRID_Y_MAX
-    if b <= K.TILE_B:  # the weights are read once; two blocks fit on an SM
-        assert not p.resident and 2 * p.smem <= K.MAX_SMEM
-    else:
-        assert p.resident  # the w tile stays in shared memory over batch tiles
+    assert p.smem == K.contract_smem(p.split) and 2 * p.smem <= K.MAX_SMEM  # two blocks fit
+    assert p.grid == (-(-m // K.TILE_M), -(-n // K.TILE_N), -(-b // K.TILE_B))
+    assert p.grid[0] < 2**31 and max(p.grid[1:]) <= K.GRID_Y_MAX
     assert p.vec == (16 if m % 2 == 0 else 8)
     assert K.contract_plan(b, k, n, m, aligned=False).vec == 8
 
 
 def test_contract_plan_splits_to_fill_the_card():
-    """At the path's shapes the grid holds WARPS_PER_SM warps per H100 SM,
-    or the split has reached its limit."""
-    for b, k, n, m in PLAN_SHAPES[:10]:
+    """At the path's shapes, each use's grid holds WARPS_PER_SM warps per
+    H100 SM, or the split has reached its limit or its least channels per
+    warp."""
+    for b, k, n, m in PLAN_SHAPES[:10] + DW_SHAPES[:5]:
         p = K.contract_plan(b, k, n, m)
-        warps = p.grid[0] * p.grid[1] * p.split
-        assert warps >= K.SMS * K.WARPS_PER_SM or p.split == K.MAX_SPLIT, (b, k, n, m, p)
+        warps = p.grid[0] * p.grid[1] * p.grid[2] * p.split
+        assert (warps >= K.SMS * K.WARPS_PER_SM or p.split == K.MAX_SPLIT
+                or k < 2 * p.split * K.MIN_K_PER_WARP), (b, k, n, m, p)
+
+
+def test_contract_plan_of_dw_runs_one_block_per_row_tile():
+    """dw contracts the batch of 16: its Ci rows go along the grid's z, one
+    16-row tile per block, and its split stays within the 16 channels."""
+    for b, ci, co, m in PATH_SHAPES:
+        p = K.contract_plan(ci, b, co, m)
+        assert p.grid[2] == ci // K.TILE_B >= 2
+        assert p.split * p.k_per_warp == b and p.k_per_warp >= K.MIN_K_PER_WARP
+        fwd = K.contract_plan(b, ci, co, m)
+        assert fwd.grid[2] == 1  # the forward's batch of 16 is one row tile
 
 
 def test_contract_plan_follows_the_cards_limits(monkeypatch):
     """A launch plans for its own card: with half an H100's SMs the split
-    that fills them is smaller, and with 48 KB of shared memory per block
-    the weights no longer stay resident over batch tiles."""
-    h100 = K.contract_plan(16, 64, 128, 128), K.contract_plan(17, 128, 64, 128)
-    assert (h100[0].split, h100[1].resident) == (K.MAX_SPLIT, True)
-    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS // 2, 48 * 1024))
-    small = K.contract_plan(16, 64, 128, 128, device=0), K.contract_plan(17, 128, 64, 128,
-                                                                         device=0)
-    assert small[0].split == K.MAX_SPLIT // 2 and not small[1].resident
-    assert small[1].smem == K.contract_smem(small[1].split, small[1].k_per_warp, False)
+    that fills them is smaller; with less shared memory per block the split
+    stops where its partial sums still fit; with too little the plan
+    raises."""
+    h100 = K.contract_plan(16, 64, 128, 128)
+    assert h100.split == K.MAX_SPLIT
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS // 2, K.MAX_SMEM))
+    assert K.contract_plan(16, 64, 128, 128, device=0).split == K.MAX_SPLIT // 2
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS, 20 * 1024))
+    small = K.contract_plan(16, 64, 128, 128, device=0)
+    assert small.split == 2 and small.smem == K.contract_smem(2) <= 20 * 1024
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS, 4 * 1024))
+    with pytest.raises(ValueError, match="shared memory"):
+        K.contract_plan(16, 64, 128, 128, device=0)
 
 
 def test_contract_plan_constants_match_the_kernel_source():
@@ -171,6 +191,8 @@ def test_wrapper_raises_where_the_plan_cannot_launch():
     n = K.TILE_N * K.GRID_Y_MAX + 1  # one block row past the grid's y limit
     with pytest.raises(ValueError, match="grid"):
         K.contract_plan(1, 1, n, 1)
+    with pytest.raises(ValueError, match="grid"):  # one row tile past its z limit
+        K.contract_plan(K.TILE_B * K.GRID_Y_MAX + 1, 1, 1, 1)
     with pytest.raises(ValueError, match="empty"):
         K.contract_plan(0, 1, 1, 1)
     # the wrapper's CUDA path plans before it reaches the library
@@ -182,4 +204,8 @@ def test_wrapper_raises_where_the_plan_cannot_launch():
     with pytest.raises(ValueError, match="grid"):
         K._launch("uno_cmul_bwd_x", "bwd_x", x.expand(1, n, 1).contiguous(),
                   w.reshape(n, 1, 1), (1, n, 1), 1, n, 1, 1)
+    ci = K.TILE_B * K.GRID_Y_MAX + 1  # dw's rows are Ci
+    with pytest.raises(ValueError, match="grid"):
+        K._launch("uno_cmul_bwd_w", "bwd_w", torch.zeros(1, ci, 1, dtype=torch.complex64),
+                  x, (ci, 1, 1), 1, ci, 1, 1)
     assert K.LAUNCHES == before

@@ -40,13 +40,15 @@ def _rand_c(g, *shape):
 
 
 # Shapes at every edge of the contraction kernel's plan (B, Ci, Co, M): one
-# batch row; 9, 17 and 33 rows (a partial tile, batch tiles over weights
-# kept in shared memory); odd M (8-byte copies) and M not a multiple of the
-# block's 4 modes; Ci or Co of 1; channel counts that the split does not
-# divide.  Then the five path shapes.
+# batch row; 9, 17 and 33 rows (a partial tile, row tiles along the grid's
+# z); odd M (8-byte copies) and M not a multiple of the block's 4 modes; Ci
+# or Co of 1; channel counts that the split does not divide, or (dw, whose
+# rows are Ci and whose channels are the batch) not a multiple of the 16-row
+# tile.  Then the five path shapes.
 EDGES = [(2, 3, 5, 7), (4, 8, 8, 128), (2, 4, 6, 200), (3, 6, 7, 200), (9, 5, 3, 33),
          (1, 1, 1, 1), (1, 7, 1, 33), (17, 1, 40, 7), (16, 9, 17, 64), (17, 128, 64, 128),
-         (33, 9, 19, 33), (33, 130, 70, 40), (16, 37, 1, 648)]
+         (33, 9, 19, 33), (33, 130, 70, 40), (16, 37, 1, 648), (1, 20, 33, 9),
+         (9, 33, 1, 65), (17, 1, 18, 31), (33, 17, 20, 31)]
 
 
 def _misaligned(t):
@@ -84,14 +86,16 @@ def test_cmul_backward_kernels_match_plain(cuda, b, ci, co, m):
     g = _rand_c(g_, b, co, m).to(cuda)
     before = dict(C.LAUNCHES)
     gx, gw = C.cmul_bwd_x(g, w), C.cmul_bwd_w(x, g)
-    gx2 = C.cmul_bwd_x(g, w)
+    gx2, gw2 = C.cmul_bwd_x(g, w), C.cmul_bwd_w(x, g)
     torch.cuda.synchronize()
     assert C.LAUNCHES["bwd_x"] == before["bwd_x"] + 2
-    assert C.LAUNCHES["bwd_w"] == before["bwd_w"] + 1
+    assert C.LAUNCHES["bwd_w"] == before["bwd_w"] + 2
     torch.testing.assert_close(gx, C.cmul_bwd_x_plain(g, w), rtol=0, atol=1e-4)
     torch.testing.assert_close(gw, C.cmul_bwd_w_plain(x, g), rtol=0, atol=1e-4)
-    assert torch.equal(gx, gx2)
+    assert torch.equal(gx, gx2) and torch.equal(gw, gw2)  # the split adds in a fixed order
     torch.testing.assert_close(C.cmul_bwd_x(g, _misaligned(w)), gx, rtol=0, atol=1e-6)
+    torch.testing.assert_close(C.cmul_bwd_w(_misaligned(x), _misaligned(g)), gw, rtol=0,
+                               atol=1e-6)
     # autograd through the Function reaches the same kernels
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     (C.cmul(xr, wr) * g.conj()).real.sum().backward()
@@ -158,6 +162,46 @@ def test_mlp_head_backward_kernel_matches_plain(cuda, shape, h, o):
     # the weight-gradient reduction is deterministic: the same bits again
     again = H.mlp_head_bwd(x, g, k1, b1, k2)
     for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+# (B, C, N, H, O) at the edges of the backward's plan: N shorter than one
+# tile, odd N, B*N ending inside a tile, C of 5 (odd: a zero pad row), 8
+# and 64 (two gk1 shares per thread at H 64), H of 32, 40 (padded to 64) and
+# 64, O of 1 to 4
+HEAD_BWD_EDGES = [(1, 5, 7, 32, 1), (3, 8, 131, 40, 2), (2, 64, 257, 64, 3),
+                  (1, 64, 100, 32, 4), (5, 5, 99, 64, 4), (2, 8, 127, 40, 1), (4, 64, 4001, 32, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,n,h,o", HEAD_BWD_EDGES)
+def test_mlp_head_backward_kernel_at_the_plans_edges(cuda, b, c, n, h, o):
+    """The cotangent is that of a mean-like loss, 1 plus noise: gb2 is then
+    not a sum of random signs that cancels to near 0, whose rel-L2 would
+    measure f32 cancellation rather than the kernel."""
+    g_ = torch.Generator().manual_seed(5)
+    x = torch.randn(b, c, n, generator=g_).to(cuda, torch.bfloat16)
+    k1, b1, k2 = [t.to(cuda) for t in (torch.randn(c, h, generator=g_) / c**0.5,
+                                       torch.randn(h, generator=g_),
+                                       torch.randn(h, o, generator=g_) / h**0.5)]
+    g = (1 + torch.randn(b, o, n, generator=g_)).to(cuda)
+    before = H.LAUNCHES["bwd"]
+    got = H.mlp_head_bwd(x, g, k1, b1, k2)
+    again = H.mlp_head_bwd(x, g, k1, b1, k2)
+    torch.cuda.synchronize()
+    assert H.LAUNCHES["bwd"] == before + 2
+    want = H.mlp_head_bwd_plain(x, g, k1, b1, k2)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == x.shape
+    assert _rel(got[0], want[0]) <= 4e-3
+    for gk, wk in zip(got[1:], want[1:]):
+        assert gk.shape == wk.shape and _rel(gk, wk) <= 1e-5
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+    # x off a 16-byte boundary: the wrapper copies it, the same bits come out
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    for a, b_ in zip(H.mlp_head_bwd(xm, g, k1, b1, k2), got):
         assert torch.equal(a, b_)
 
 

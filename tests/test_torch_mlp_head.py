@@ -10,8 +10,12 @@ runs its backward kernel in interpret mode, with the fixed cotangent of
 tests/test_fused_head.py.  Bounds: rel-L2 <= 1e-5 for the f32 weight
 gradients; <= 4e-3 for the bf16 input gradient (one bf16 ulp: the two sides
 round f32 values that differ in the last bits).  The CUDA kernels are held
-against the plain versions on the card by tests/test_torch_cuda.py.
+against the plain versions on the card by tests/test_torch_cuda.py; here the
+backward's launch plan is checked against the kernel's index maps.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -119,3 +123,124 @@ def test_plain_backward_matches_autograd_of_plain_forward(shape, h, o):
     assert got[0].dtype == torch.bfloat16
     for gp, a in zip(got, args):
         assert _rel(gp.float().numpy(), a.grad.float().numpy()) <= (4e-3 if gp is got[0] else 1e-5)
+
+
+# (B, C, N, H, O) of the backward's launch plan: the darcy_s211 path shape,
+# the card tests' shapes, then edges: N shorter than a tile, odd N with B*N
+# ending inside a tile, H padded to a power-of-two group count (40 -> 64),
+# C odd (a zero pad row), two and four gk1 shares per thread, a smaller tile
+BWD_PLAN_SHAPES = [(16, 64, 211 * 211, 32, 1), (2, 8, 37 * 45, 32, 1), (1, 16, 4096, 64, 3),
+                   (3, 5, 2100, 40, 4), (1, 5, 7, 32, 2), (3, 8, 131, 40, 1),
+                   (2, 64, 257, 64, 4), (1, 64, 100, 128, 4), (3, 128, 50, 64, 1)]
+
+
+@pytest.mark.parametrize("b,c,n,h,o", BWD_PLAN_SHAPES)
+def test_bwd_plan_covers_each_point_once(b, c, n, h, o):
+    """As the kernel maps them: every grid point falls in exactly one tile
+    of one block; within a tile every (point, hidden group) of Z, every
+    (point, channel group) of GX and every gk1 entry has exactly one
+    thread; the gx store writes each point of a row once, whatever the
+    row's offset in a 16-byte vector."""
+    p = K.bwd_plan(b, c, n, h, o)
+    tpr = -(-n // p.tile)
+    count = np.zeros((b, n), np.int32)
+    for blk in range(p.blocks):
+        for t in range(blk, b * tpr, p.blocks):
+            n0 = t % tpr * p.tile
+            count[t // tpr, n0:n0 + p.tile] += 1
+    assert (count == 1).all()
+    nhq, npq, nco, nrq = p.hidden // 4, p.tile // 4, -(-c // 8), -(-c // 4)
+    z, gx = np.zeros((npq, nhq)), np.zeros((npq, nco))
+    gk1 = np.zeros((2, 4 * nrq, p.hidden))  # per half of the tile's points
+    for tid in range(p.threads):
+        hq = tid % nhq
+        for pq in range(tid // nhq, npq, p.threads // nhq):
+            z[pq, hq] += 1
+        for it in range(tid, npq * nco, p.threads):
+            gx[it // nco, it % nco] += 1
+        half, u = divmod(tid, p.threads // 2)
+        for j in range(p.shares):
+            rq = (u + j * (p.threads // 2)) // nhq
+            assert (u + j * (p.threads // 2)) % nhq == hq
+            if rq < nrq:
+                for r in range(4):
+                    for k in range(4):
+                        gk1[half, rq + nrq * r, hq + nhq * k] += 1
+    assert (z == 1).all() and (gx == 1).all() and (gk1 == 1).all()
+    for s in range(8):
+        for length in {1, 2, 7, 8, 9, min(n, p.tile), p.tile - 1, p.tile}:
+            end, last = s + length, (s + length - 1) // 8
+            written = np.zeros(p.tile + 8, np.int32)
+            for lane in range(32):  # whole vectors, then the first and last vectors' rest
+                lo = 8 * lane
+                if lo >= s and lo + 8 <= end:
+                    written[lo:lo + 8] += 1
+                q = lane if lane < 8 else 8 * last + lane - 8
+                v = q // 8
+                if (lane < 16 and s <= q < end and (lane < 8 or v > 0)
+                        and (8 * v < s or 8 * v + 8 > end)):
+                    written[q] += 1
+            assert (written[s:end] == 1).all() and written.sum() == length, (s, length)
+
+
+@pytest.mark.parametrize("b,c,n,h,o", BWD_PLAN_SHAPES)
+def test_bwd_plan_fits_the_card(b, c, n, h, o):
+    p = K.bwd_plan(b, c, n, h, o)
+    assert p.hidden >= h and (p.hidden // 4) & (p.hidden // 4 - 1) == 0
+    assert p.shares in (1, 2, K.BWD_MAX_MT)
+    assert p.shares * p.threads // 2 * 16 >= -(-c // 4) * 4 * p.hidden
+    assert p.smem == K.bwd_smem(c, p.hidden, p.tile, p.shares) <= K.CARD_SMEM
+    assert 1 <= p.blocks <= min(b * -(-n // p.tile), 2 * K.SMS) and p.blocks < 2**31
+    if p.shares < K.BWD_MAX_MT and 2 * p.smem <= K.CARD_SMEM:
+        assert p.blocks == min(b * -(-n // p.tile), 2 * K.SMS)
+
+
+def test_bwd_plan_of_the_path_fills_the_card():
+    """At the darcy_s211 head (C 64, H 32, O 1) two blocks of 8 warps fit
+    on each H100 SM, each thread holds one 4 x 4 share of gk1 over half the
+    points (2048 entries over each half's 128 threads), and the grid has
+    two blocks per SM."""
+    p = K.bwd_plan(16, 64, 211 * 211, 32, 1)
+    assert (p.tile, p.threads, p.hidden, p.shares) == (128, 256, 32, 1)
+    assert 2 * p.smem <= K.CARD_SMEM and p.blocks == 2 * K.SMS
+
+
+def test_bwd_plan_follows_the_cards_limits(monkeypatch):
+    """A launch plans for its own card: half the SMs give half the blocks;
+    less shared memory gives a smaller tile and one block per SM; too
+    little raises."""
+    path = (16, 64, 211 * 211, 32, 1)
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS // 2, K.CARD_SMEM))
+    assert K.bwd_plan(*path, device=0).blocks == K.SMS
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS, 100 * 1024))
+    small = K.bwd_plan(*path, device=0)
+    assert small.tile == 64 and small.smem <= 100 * 1024 and small.blocks == K.SMS
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS, 16 * 1024))
+    with pytest.raises(ValueError, match="shared memory"):
+        K.bwd_plan(*path, device=0)
+
+
+def test_bwd_constants_match_the_kernel_source():
+    src = (Path(K.__file__).resolve().parents[2] / "csrc" / "mlp_head.cu").read_text()
+    for name, value in (("BT", K.BWD_THREADS), ("MAX_MT", K.BWD_MAX_MT),
+                        ("MAX_NHQ", K.BWD_MAX_NHQ), ("OMAX", K.MAX_OUT)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert "NS = 4 + 4 * OMAX + OMAX;" in src and K.BWD_SMALL_SUMS == 4 + 5 * K.MAX_OUT
+    for h, want in ((1, 4), (4, 4), (5, 8), (32, 32), (33, 64), (40, 64), (128, 128)):
+        assert K.bwd_hidden(h) == want
+
+
+def test_bwd_wrapper_raises_where_the_plan_cannot_launch():
+    def launch(c, h, o=1):
+        x = torch.zeros(1, c, 5, dtype=torch.bfloat16)
+        return K._bwd_launch(x, torch.zeros(1, o, 5), torch.zeros(c, h), torch.zeros(h),
+                             torch.zeros(h, o))
+
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="hidden units"):
+        launch(8, 129)
+    with pytest.raises(ValueError, match="register shares"):
+        launch(96, 96)
+    with pytest.raises(ValueError, match="outputs"):
+        launch(8, 32, 5)
+    assert K.LAUNCHES == before

@@ -30,52 +30,74 @@
 //     OMAX output accumulators.  H > HT takes several passes over x;
 //   * the tail of N is masked by an early return after the weights load.
 //
+//
 // Backward, given g = dL/dout (B, O, N) f32:
 //     dz[h] = (sum_o k2[h, o] g[o]) * gelu'(z[h])
 //     gx[c] = sum_h k1[c, h] dz[h]                       (rounded to bf16)
 //     gk1[c, h] = sum x[c] dz[h],  gb1[h] = sum dz[h],
 //     gk2[h, o] = sum gelu(z[h]) g[o],  gb2[o] = sum g[o]
-// with the weight-gradient sums over all B*N grid points.  It reads x (91
-// MB) and g and writes gx (91 MB), and does ~3x the forward's multiply-adds
-// (z, gx, and the gk1 outer products); measured, 1.63 ms (~0.11 TB/s), so
-// bytes do not bound it either.  The TPU kernel summed the weight gradients
-// in VMEM across its sequential grid; Hopper runs blocks in parallel and in
-// no order, so the backward is two passes:
-//   * pass 1, a fixed grid of `blocks` blocks of `threads` threads, each
-//     block walking tiles of `threads` grid points (tile = block, block +
-//     blocks, ...).  A thread recomputes its point's z from x and the
-//     shared-memory weights, writes gx, and stages x, dz, gelu(z) and g in
-//     shared memory.  After a barrier, each thread owns a fixed set of
-//     weight-gradient entries and adds the tile's points to them in order,
-//     into the block's running sums in shared memory.  Points past B*N
-//     contribute zeros (x = g = 0 gives dz = 0), and no thread leaves the
-//     loop early, so every barrier is reached by the whole block.  At the
-//     end each block writes its sums to one row of `partial`;
-//   * pass 2, one thread per entry, sums the `blocks` rows in order.
-// No atomics: the same inputs give the same bits.  Staging takes
-// 4*threads*(C + 2H + O + 3) bytes of shared memory, the weights and the
-// running sums 4*(2(CH + H + HO) + O) more: 84 KB at threads=128, C=64,
-// H=32, O=1.  That is above the 48 KB a block gets without opting in, so the
-// launcher raises the kernel's dynamic shared-memory limit.
+// with the weight-gradient sums over all B*N grid points.  What bounds it
+// on an H100: operations.  Per point it recomputes z (C*H multiply-adds),
+// then gx (C*H) and the gk1 outer product (C*H), plus 2*H*O for dz and gk2:
+// 8.84 GFLOP at the Darcy S=211 shapes (B=16, C=64, N=44521, H=32, O=1),
+// 0.132 ms at 67 TFLOP/s of f32 outside the tensor cores, against 0.055 ms
+// for its bytes (x read, gx written, both bf16, and g).  Tensor cores stay
+// out: TF32 or bf16 operands would break the head's f32-dot contract.
+//
+// The first design (one thread per point, every multiply-add fed by a
+// shared-memory load, the gk1 sums two shared loads per FMA in a dependent
+// chain, running sums in shared memory, 8 warps per SM) took 1.61 ms, 12x
+// the bound.  This one treats a tile of TP = 128 points of one batch row as
+// three small matrix products, each from register micro-tiles in which one
+// shared-memory load feeds 8 FMAs or more:
+//   * Z[TP x H] = X^T K1 + b1: a thread item is 4 points x 4 hidden units
+//     (one float4 of x and one of k1 per channel for 16 FMAs); then dz and
+//     gelu(z) in registers, dz to shared memory, and the thread's running
+//     sums of gb1, gk2 and gb2 for its fixed 4 hidden units in registers;
+//   * GX[TP x C] = DZ K1^T: an item is 4 points x 8 channels (3 float4 per
+//     hidden unit for 32 FMAs), rounded to bf16 into a staging tile;
+//   * GK1[C x H] += X DZ^T: each thread keeps a fixed 4 x 4 (c, h) share of
+//     gk1 (MT shares where C*H is larger) in registers across every tile its
+//     block walks, over one half of each tile's points (8 float4 loads for
+//     64 FMAs per 4 points); the halves are added at the end.
+// The tiles run along n within one batch row.  N = 44521 is odd, so a row
+// starts anywhere in a 16-byte vector: a warp copies each row of the x tile
+// with 16-byte cp.async from the vector below its start (a lane per vector)
+// into a bf16 ring of two tiles, so the next tile's loads overlap this
+// tile's products; the row's offset goes to shared memory, and once the
+// copy lands the tile is unpacked to f32 without it.  gx leaves the same
+// way: a lane per whole 16-byte vector, then one lane per element of a
+// row's first and last vectors where those are not whole.  Points past a
+// row's end are zeros and add nothing.  Hidden units are padded to a
+// power-of-two count of 4-unit groups with zero weights, so every thread
+// owns whole groups.  At the end each block adds its threads' small sums in
+// thread order and writes one row of `partial`; pass 2 adds the rows, each
+// warp of a block over a fixed slice of them, in warp order.  No atomics:
+// the same inputs give the same bits.  The launch plan (ops/kernels/
+// mlp_head.py: bwd_plan) picks TP, MT, the shared memory (105 KB at the
+// path's shapes: two blocks of 8 warps per SM, at 128 registers a thread)
+// and the grid from the card's SMs and shared memory.
+// Measured on an H100 80GB HBM3 (700 W), the L2 flushed before each launch:
+// 0.496 ms, 3.8x the bound, against 1.61 ms for the first design and 2.01
+// ms for the plain f32 version.  A trial build without the three
+// products still took a large share of that (copies, unpacking, GELU,
+// stores), and one with a block per SM (more registers) ran slower: what
+// holds it is instructions per clock and warps per SM, not bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int HT = 32;   // hidden units per pass, held in registers
 constexpr int OMAX = 4;  // output channels the accumulators cover
-constexpr int BWD_MAX_THREADS = 256;
 
 __device__ __forceinline__ float gelu_f(float z) {
   return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
-}
-
-// d/dz [z * Phi(z)] = Phi(z) + z * phi(z)
-__device__ __forceinline__ float dgelu_f(float z) {
-  const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
-  return fmaf(z, expf(-0.5f * z * z) * 0.39894228040143268f, cdf);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -135,10 +157,77 @@ mlp_head_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---- backward ----------------------------------------------------------------
+constexpr int BT = 256;       // threads of a pass-1 block
+constexpr int MAX_MT = 4;     // gk1 shares per thread
+constexpr int MAX_NHQ = 32;   // 4-unit hidden groups (H <= 128)
+constexpr int NS = 4 + 4 * OMAX + OMAX;  // a thread's small sums: gb1, gk2, gb2
+constexpr float RSQRT2 = 0.70710678118654752f;
+constexpr float RSQRT_2PI = 0.39894228040143268f;
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+__host__ __device__ constexpr int hidden_padded(int H) {  // 4 * the power of two >= H / 4
+  int q = 1;
+  while (4 * q < H) q *= 2;
+  return 4 * q;
+}
+// gk1 shares of 4 channels x 4 hidden units per thread of each half block:
+// (C rounded to 4) / 4 channel groups x hp / 4 hidden groups over BT / 2
+// threads, rounded up to 1, 2 or 4 (more is past the kernel's registers)
+__host__ __device__ constexpr int bwd_mt(int C, int hp) {
+  const int need = (round_up(C, 4) / 4 * (hp / 4) + BT / 2 - 1) / (BT / 2);
+  return need <= 1 ? 1 : need <= 2 ? 2 : need <= MAX_MT ? MAX_MT : need;
+}
+
+// Shared-memory layout of pass 1, byte offsets (all multiples of 16).  The
+// launch plan computes the same bytes (mlp_head.py: bwd_smem).
+struct BwdSmem {
+  int k1, k1t, b1, k2, sh, raw, sg, xf, dz, end, bytes;
+  __host__ __device__ BwdSmem(int C, int hp, int tp, int mt) {
+    const int rs = tp + 8, xs = tp + 4;
+    k1 = 0;                                          // [C][hp]        f32
+    k1t = k1 + 4 * C * hp;                           // [hp][C8]       f32
+    b1 = k1t + 4 * hp * round_up(C, 8);              // [hp]           f32
+    k2 = b1 + 4 * hp;                                // [hp][OMAX]     f32
+    sh = k2 + 4 * hp * OMAX;                         // 2 x [C]        int: rows' offsets
+    raw = sh + round_up(2 * 4 * C, 16);              // 2 x [C][tp+8]  bf16
+    sg = raw + 2 * 2 * C * rs;                       // 2 x [OMAX][tp] f32
+    xf = sg + 2 * 4 * OMAX * tp;                     // [C4][tp+4]     f32
+    dz = xf + 4 * round_up(C, 4) * xs;               // [hp][tp+4]     f32
+    end = dz + 4 * hp * xs;
+    // at the end: the threads' small sums, then the second half's gk1 shares
+    const int red = raw + 4 * (BT * NS + mt * 16 * (BT / 2));
+    bytes = end > red ? end : red;
+  }
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// A 16- or 4-byte copy of which the first n bytes are read, the rest zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Pass 1 of the backward: gx, and one row of per-block weight-gradient sums
 // in `partial` (gridDim.x rows of E = C*H + H + H*O + O floats, laid out as
-// [gk1 | gb1 | gk2 | gb2]).
-__global__ void __launch_bounds__(BWD_MAX_THREADS)
+// [gk1 | gb1 | gk2 | gb2]).  Block tiles: TP points of one batch row, tile
+// t = (b, n0) = (t / tpr, t % tpr * TP), walked t = blockIdx.x, + gridDim.x..
+// x and gx are 16-byte aligned (the wrapper sees to it).  MT: gk1 shares per
+// thread; OM: output channels held in registers (1, or OMAX for O > 1).
+template <int MT, int OM>
+__global__ void __launch_bounds__(BT, MT == MAX_MT ? 1 : 2)
 mlp_head_bwd_partial_kernel(const __nv_bfloat16* __restrict__ x,
                             const float* __restrict__ g,
                             const float* __restrict__ k1,
@@ -146,133 +235,348 @@ mlp_head_bwd_partial_kernel(const __nv_bfloat16* __restrict__ x,
                             const float* __restrict__ k2,
                             __nv_bfloat16* __restrict__ gx,
                             float* __restrict__ partial,
-                            int B, int C, int N, int H, int O) {
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int CH = C * H, HO = H * O;
-  const int E = CH + H + HO + O;
-  const int XS = C + 1, HS = H + 1;  // padded rows: no bank conflicts
-  extern __shared__ float smem[];
-  float* sk1 = smem;           // [C, H]
-  float* sb1 = sk1 + CH;       // [H]
-  float* sk2 = sb1 + H;        // [H, O]
-  float* sx = sk2 + HO;        // [T, C+1]  the tile's x, f32
-  float* sdz = sx + T * XS;    // [T, H+1]  dz
-  float* sa = sdz + T * HS;    // [T, H+1]  gelu(z)
-  float* sg = sa + T * HS;     // [T, O]    g
-  float* sacc = sg + T * O;    // [E]       this block's running sums
-  for (int t = tid; t < CH; t += T) sk1[t] = k1[t];
-  for (int t = tid; t < H; t += T) sb1[t] = b1[t];
-  for (int t = tid; t < HO; t += T) sk2[t] = k2[t];
-  for (int e = tid; e < E; e += T) sacc[e] = 0.f;
-  __syncthreads();
+                            int B, int C, int N, int H, int O, int TP, int hp) {
+  extern __shared__ __align__(16) unsigned char bsmem[];  // the forward's is f32
+  unsigned char* smem = bsmem;
+  const BwdSmem L(C, hp, TP, MT);
+  float* k1s = reinterpret_cast<float*>(smem + L.k1);
+  float* k1t = reinterpret_cast<float*>(smem + L.k1t);
+  float* b1s = reinterpret_cast<float*>(smem + L.b1);
+  float* k2s = reinterpret_cast<float*>(smem + L.k2);
+  int* shs = reinterpret_cast<int*>(smem + L.sh);
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(smem + L.raw);
+  float* sg = reinterpret_cast<float*>(smem + L.sg);
+  float* xf = reinterpret_cast<float*>(smem + L.xf);
+  float* dzs = reinterpret_cast<float*>(smem + L.dz);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int lg = __ffs(TP) - 1;       // TP is a power of two
+  const int RS = TP + 8, XS = TP + 4, C8 = round_up(C, 8), C4 = round_up(C, 4);
+  const int NCH = RS / 8;             // 16-byte vectors per staged row
+  const int nhq = hp / 4, npq = TP / 4, nrq = C4 / 4;
+  const int hq = tid % nhq;           // this thread's hidden group, in Z and GK1
+  const int half = tid / (BT / 2), u = tid % (BT / 2);  // GK1: which half of the points
+  const long long total = (long long)B * C * N;
+  const int tpr = (N + TP - 1) / TP;  // tiles per batch row
+  const int tiles = B * tpr;
 
-  const long long P = (long long)B * N;
-  const long long n_tiles = (P + T - 1) / T;
-  float* xs = sx + tid * XS;
-  float* dzs = sdz + tid * HS;
-  float* as = sa + tid * HS;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long p = tile * T + tid;
-    const bool valid = p < P;
-    const int b = valid ? (int)(p / N) : 0;
-    const int n = valid ? (int)(p % N) : 0;
+  // weights, zero-padded to hp hidden units and C8 channels
+  for (int e = tid; e < C * hp; e += BT) {
+    const int c = e / hp, h = e % hp;
+    k1s[e] = h < H ? k1[c * H + h] : 0.f;
+  }
+  for (int e = tid; e < hp * C8; e += BT) {
+    const int h = e / C8, c = e % C8;
+    k1t[e] = (h < H && c < C) ? k1[c * H + h] : 0.f;
+  }
+  for (int h = tid; h < hp; h += BT) b1s[h] = h < H ? b1[h] : 0.f;
+  for (int e = tid; e < hp * OMAX; e += BT) {
+    const int h = e / OMAX, o = e % OMAX;
+    k2s[e] = (h < H && o < O) ? k2[h * O + o] : 0.f;
+  }
+  for (int e = C * XS + tid; e < C4 * XS; e += BT) xf[e] = 0.f;  // pad channels
 
-    const __nv_bfloat16* xp = x + (size_t)b * C * N + n;
-    for (int c = 0; c < C; ++c) {
-      xs[c] = valid ? __bfloat162float(xp[(size_t)c * N]) : 0.f;
+  // Copy tile t into ring slot `buf`: a warp per x row, a lane per 16-byte
+  // vector, from the vector below the row's start (its offset in that
+  // vector, s = e0 % 8 elements, goes to shs); then the g rows, zero past
+  // the row's end.
+  auto load = [&](int t, int buf) {
+    const int b = t / tpr, n0 = t % tpr * TP, len = min(TP, N - n0);
+    __nv_bfloat16* rd = raw + buf * C * RS;
+    for (int c = warp; c < C; c += BT / 32) {
+      const long long e0 = ((long long)b * C + c) * N + n0;
+      const int s = static_cast<int>(e0 & 7);
+      if (lane == 0) shs[buf * C + c] = s;
+      for (int j = lane; j < NCH && 8 * j < s + len; j += 32) {
+        const long long src = e0 - s + 8 * j;
+        const long long left = 2 * (total - src);  // bytes to the end of x
+        cp_async16(rd + c * RS + 8 * j, x + src, left < 16 ? static_cast<int>(left) : 16);
+      }
     }
-    float gv[OMAX];
-#pragma unroll
-    for (int o = 0; o < OMAX; ++o) {
-      gv[o] = (valid && o < O) ? g[((size_t)b * O + o) * N + n] : 0.f;
-      if (o < O) sg[tid * O + o] = gv[o];
+    float* gd = sg + buf * OMAX * TP;
+    for (int q = tid; q < O * TP; q += BT) {
+      const int o = q >> lg, p = q & (TP - 1);
+      const bool ok = p < len;
+      cp_async4(gd + o * TP + p, ok ? g + ((long long)b * O + o) * N + n0 + p : g, ok ? 4 : 0);
     }
+  };
 
-    // recompute z, HT hidden units at a time; dz and gelu(z) to shared
-    for (int h0 = 0; h0 < H; h0 += HT) {
-      float z[HT];
+  float acc1[MT][4][4];  // this thread's gk1 shares over its half of every tile
+  float sb1[4], sk2[4][OM], sb2[OM];
 #pragma unroll
-      for (int t = 0; t < HT; ++t) z[t] = (h0 + t < H) ? sb1[h0 + t] : 0.f;
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc1[j][r][k] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    sb1[k] = 0.f;
+#pragma unroll
+    for (int o = 0; o < OM; ++o) sk2[k][o] = 0.f;
+  }
+#pragma unroll
+  for (int o = 0; o < OM; ++o) sb2[o] = 0.f;
+
+  if ((int)blockIdx.x < tiles) load(blockIdx.x, 0);
+  cp_async_commit();
+  int cb = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, cb ^= 1) {
+    const int b = t / tpr, n0 = t % tpr * TP, len = min(TP, N - n0);
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed; the last tile's gx has been stored
+    if (t + (int)gridDim.x < tiles) {
+      load(t + gridDim.x, cb ^ 1);
+      cp_async_commit();
+    }
+    __nv_bfloat16* rd = raw + cb * C * RS;
+    const int* sh = shs + cb * C;
+    const float* gt = sg + cb * OMAX * TP;
+
+    // unpack x to f32 [c][p], without the row's offset; zero past the end.
+    // TP divides BT, so each thread keeps one point p
+    {
+      const int p = tid & (TP - 1);
+      const bool in = p < len;
+      for (int c = tid >> lg; c < C; c += BT >> lg)
+        xf[c * XS + p] = in ? __bfloat162float(rd[c * RS + sh[c] + p]) : 0.f;
+    }
+    __syncthreads();
+
+    // Z: items of 4 points x the hidden group hq; dz to shared memory, the
+    // small sums in registers
+    for (int pq = tid / nhq; pq < npq; pq += BT / nhq) {
+      float z[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float bk = b1s[4 * hq + k];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) z[p][k] = bk;
+      }
       for (int c = 0; c < C; ++c) {
-        const float xc = xs[c];
-        const float* kr = sk1 + c * H + h0;
+        const float4 xv = *reinterpret_cast<const float4*>(xf + c * XS + 4 * pq);
+        const float4 kv = *reinterpret_cast<const float4*>(k1s + c * hp + 4 * hq);
+        const float xa[4] = {xv.x, xv.y, xv.z, xv.w}, ka[4] = {kv.x, kv.y, kv.z, kv.w};
 #pragma unroll
-        for (int t = 0; t < HT; ++t) {
-          if (h0 + t < H) z[t] = fmaf(kr[t], xc, z[t]);
-        }
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) z[p][k] = fmaf(xa[p], ka[k], z[p][k]);
+      }
+      float gv[OM][4];
+#pragma unroll
+      for (int o = 0; o < OM; ++o) {
+        const float4 v = o < O ? *reinterpret_cast<const float4*>(gt + o * TP + 4 * pq)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        gv[o][0] = v.x, gv[o][1] = v.y, gv[o][2] = v.z, gv[o][3] = v.w;
       }
 #pragma unroll
-      for (int t = 0; t < HT; ++t) {
-        if (h0 + t < H) {
-          const float* k2r = sk2 + (h0 + t) * O;
+      for (int k = 0; k < 4; ++k) {
+        const int h = 4 * hq + k;
+        float d[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const float zz = z[p][k];
+          const float cdf = 0.5f * (1.f + erff(zz * RSQRT2));
+          const float a = zz * cdf;
+          const float dg = fmaf(zz, expf(-0.5f * zz * zz) * RSQRT_2PI, cdf);
           float dzp = 0.f;
 #pragma unroll
-          for (int o = 0; o < OMAX; ++o) {
-            if (o < O) dzp = fmaf(k2r[o], gv[o], dzp);
+          for (int o = 0; o < OM; ++o) {
+            dzp = fmaf(k2s[h * OMAX + o], gv[o][p], dzp);
+            sk2[k][o] = fmaf(a, gv[o][p], sk2[k][o]);
           }
-          dzs[h0 + t] = dzp * dgelu_f(z[t]);
-          as[h0 + t] = gelu_f(z[t]);
+          d[p] = dzp * dg;
+          sb1[k] += d[p];
+        }
+        *reinterpret_cast<float4*>(dzs + h * XS + 4 * pq) = make_float4(d[0], d[1], d[2], d[3]);
+      }
+      if (hq == 0) {
+#pragma unroll
+        for (int o = 0; o < OM; ++o)
+#pragma unroll
+          for (int p = 0; p < 4; ++p) sb2[o] += gv[o][p];
+      }
+    }
+    __syncthreads();
+
+    // GX: items of 4 points x 8 channels, rounded to bf16 into the x ring
+    // slot (free since the unpack), at the row's offset
+    const int nco = C8 / 8;
+    for (int it = tid; it < npq * nco; it += BT) {
+      const int co = it % nco, pq = it / nco;
+      float a[4][8];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) a[p][j] = 0.f;
+      for (int h = 0; h < hp; ++h) {
+        const float4 dv = *reinterpret_cast<const float4*>(dzs + h * XS + 4 * pq);
+        const float4 ka = *reinterpret_cast<const float4*>(k1t + h * C8 + 8 * co);
+        const float4 kb = *reinterpret_cast<const float4*>(k1t + h * C8 + 8 * co + 4);
+        const float da[4] = {dv.x, dv.y, dv.z, dv.w};
+        const float kk[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) a[p][j] = fmaf(da[p], kk[j], a[p][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * co + j;
+        if (c < C) {
+          __nv_bfloat16* dst = rd + c * RS + sh[c] + 4 * pq;
+#pragma unroll
+          for (int p = 0; p < 4; ++p) dst[p] = __float2bfloat16(a[p][j]);
         }
       }
     }
 
-    // input gradient, rounded to x's dtype
-    if (valid) {
-      __nv_bfloat16* gp = gx + (size_t)b * C * N + n;
-      for (int c = 0; c < C; ++c) {
-        const float* kr = sk1 + c * H;
-        float s = 0.f;
-        for (int h = 0; h < H; ++h) s = fmaf(kr[h], dzs[h], s);
-        gp[(size_t)c * N] = __float2bfloat16(s);
+    // GK1: this thread's shares, channels rq + nrq * r by hidden units
+    // hq + nhq * k, over its half of the tile's points, 4 points at a time
+    for (int p4 = half * npq / 2; p4 < (half + 1) * npq / 2; ++p4) {
+      float4 dv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        dv[k] = *reinterpret_cast<const float4*>(dzs + (hq + nhq * k) * XS + 4 * p4);
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        const int rq = (u + j * (BT / 2)) / nhq;
+        if (rq < nrq) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float4 xv = *reinterpret_cast<const float4*>(xf + (rq + nrq * r) * XS + 4 * p4);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              float s = acc1[j][r][k];
+              s = fmaf(xv.x, dv[k].x, s);
+              s = fmaf(xv.y, dv[k].y, s);
+              s = fmaf(xv.z, dv[k].z, s);
+              acc1[j][r][k] = fmaf(xv.w, dv[k].w, s);
+            }
+          }
+        }
       }
     }
     __syncthreads();
 
-    // weight gradients: thread tid owns entries tid, tid + T, ... and adds
-    // the tile's points in order
-    for (int e = tid; e < E; e += T) {
-      float s = 0.f;
-      if (e < CH) {
-        const int c = e / H, h = e - (e / H) * H;
-        for (int t = 0; t < T; ++t) s = fmaf(sx[t * XS + c], sdz[t * HS + h], s);
-      } else if (e < CH + H) {
-        const int h = e - CH;
-        for (int t = 0; t < T; ++t) s += sdz[t * HS + h];
-      } else if (e < CH + H + HO) {
-        const int r = e - CH - H;
-        const int h = r / O, o = r - (r / O) * O;
-        for (int t = 0; t < T; ++t) s = fmaf(sa[t * HS + h], sg[t * O + o], s);
-      } else {
-        const int o = e - CH - H - HO;
-        for (int t = 0; t < T; ++t) s += sg[t * O + o];
-      }
-      sacc[e] += s;
+    // store gx: a warp per row, a lane per 16-byte vector inside the row's
+    // positions [s, s + len) of the staged row; then the elements of its
+    // first and last vectors where they are not whole, one per lane
+    for (int c = warp; c < C; c += BT / 32) {
+      const int s = sh[c], end = s + len, last = (end - 1) / 8;
+      __nv_bfloat16* dst = gx + (((long long)b * C + c) * N + n0 - s);
+      const __nv_bfloat16* src = rd + c * RS;
+      const int lo = 8 * lane;
+      if (lo >= s && lo + 8 <= end)
+        *reinterpret_cast<uint4*>(dst + lo) = *reinterpret_cast<const uint4*>(src + lo);
+      const int q = lane < 8 ? lane : 8 * last + lane - 8;  // lanes 0-7 first, 8-15 last
+      const int v = q / 8;
+      if (lane < 16 && q >= s && q < end && (lane < 8 || v > 0) && (8 * v < s || 8 * v + 8 > end))
+        dst[q] = src[q];
     }
-    __syncthreads();
   }
 
-  float* row = partial + (size_t)blockIdx.x * E;
-  for (int e = tid; e < E; e += T) row[e] = sacc[e];
+  // This block's row of `partial`: the gk1 shares of the two halves added,
+  // first half first; the small sums of the threads that share a hidden
+  // group, added in thread order.
+  cp_async_wait_all();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + L.raw);  // [NS][BT]
+  float* red1 = red + NS * BT;                          // [MT * 16][BT / 2]
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    red[k * BT + tid] = sb1[k];
+#pragma unroll
+    for (int o = 0; o < OM; ++o) red[(4 + k * OMAX + o) * BT + tid] = sk2[k][o];
+  }
+#pragma unroll
+  for (int o = 0; o < OM; ++o) red[(4 + 4 * OMAX + o) * BT + tid] = sb2[o];
+  if (half == 1) {
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) red1[(j * 16 + r * 4 + k) * (BT / 2) + u] = acc1[j][r][k];
+  }
+  __syncthreads();
+
+  float* row = partial + (size_t)blockIdx.x * (C * H + H + H * O + O);
+  if (half == 0) {
+#pragma unroll
+    for (int j = 0; j < MT; ++j) {
+      const int rq = (u + j * (BT / 2)) / nhq;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int c = rq + nrq * r, h = hq + nhq * k;
+          if (rq < nrq && c < C && h < H)
+            row[c * H + h] = acc1[j][r][k] + red1[(j * 16 + r * 4 + k) * (BT / 2) + u];
+        }
+    }
+  }
+  for (int e = tid; e < H + H * O + O; e += BT) {
+    int slot, group;
+    if (e < H) {
+      slot = e % 4, group = e / 4;
+    } else if (e < H + H * O) {
+      const int h = (e - H) / O, o = (e - H) % O;
+      slot = 4 + h % 4 * OMAX + o, group = h / 4;
+    } else {
+      slot = 4 + 4 * OMAX + (e - H - H * O), group = 0;
+    }
+    float s = 0.f;
+    for (int v = group; v < BT; v += nhq) s += red[slot * BT + v];
+    row[C * H + e] = s;
+  }
 }
 
-// Pass 2: sum the per-block rows in order, one thread per entry.
-__global__ void mlp_head_bwd_reduce_kernel(const float* __restrict__ partial,
-                                           int rows, int C, int H, int O,
-                                           float* __restrict__ gk1,
-                                           float* __restrict__ gb1,
-                                           float* __restrict__ gk2,
-                                           float* __restrict__ gb2) {
+// Pass 2: sum the per-block rows, a block per 32 entries: each of its RW
+// warps adds its own contiguous slice of the rows in order, then the
+// slices' sums are added in warp order.
+constexpr int RW = 8;
+__global__ void __launch_bounds__(32 * RW)
+mlp_head_bwd_reduce_kernel(const float* __restrict__ partial, int rows, int C, int H, int O,
+                           float* __restrict__ gk1, float* __restrict__ gb1,
+                           float* __restrict__ gk2, float* __restrict__ gb2) {
+  __shared__ float slice[RW][32];
   const int CH = C * H, HO = H * O;
   const int E = CH + H + HO + O;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int e = blockIdx.x * 32 + lane;
+  const int per = (rows + RW - 1) / RW, end = min(rows, (w + 1) * per);
   float s = 0.f;
-  for (int r = 0; r < rows; ++r) s += partial[(size_t)r * E + e];
+  if (e < E) {
+#pragma unroll 4
+    for (int r = w * per; r < end; ++r) s += partial[(size_t)r * E + e];
+  }
+  slice[w][lane] = s;
+  __syncthreads();
+  if (w != 0 || e >= E) return;
+  for (int k = 1; k < RW; ++k) s += slice[k][lane];
   if (e < CH) gk1[e] = s;
   else if (e < CH + H) gb1[e - CH] = s;
   else if (e < CH + H + HO) gk2[e - CH - H] = s;
   else gb2[e - CH - H - HO] = s;
+}
+
+// Opts mlp_head_bwd_partial_kernel<MT, OM> in to all the shared memory a
+// block may have on the current device, once per device (a bit each for
+// devices 0-63; others ask every launch).
+template <int MT, int OM>
+cudaError_t opt_in_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mlp_head_bwd_partial_kernel<MT, OM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 }  // namespace
@@ -291,29 +595,47 @@ extern "C" int uno_mlp_head_fwd(const void* x, const void* k1, const void* b1,
 }
 
 // partial: blocks x (C*H + H + H*O + O) f32 scratch, allocated by the caller.
+// The plan arguments (tile .. blocks) come from bwd_plan in
+// ops/kernels/mlp_head.py; a plan this file does not expect, or x or gx off
+// a 16-byte boundary, returns cudaErrorInvalidValue without launching.
 extern "C" int uno_mlp_head_bwd(const void* x, const void* g, const void* k1,
                                 const void* b1, const void* k2, void* gx,
                                 void* gk1, void* gb1, void* gk2, void* gb2,
-                                void* partial, int B, int C, int N, int H,
-                                int O, int threads, int blocks, void* stream) {
+                                void* partial, int B, int C, int N, int H, int O,
+                                int tile, int threads, int hp, int mt, int smem,
+                                int blocks, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem =
-      sizeof(float) * (2 * ((size_t)C * H + H + (size_t)H * O) + O +
-                       (size_t)threads * (C + 2 * H + O + 3));
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_head_bwd_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const int hp_want = hidden_padded(H);
+  if ((tile != 32 && tile != 64 && tile != 128) || threads != BT || hp != hp_want ||
+      hp / 4 > MAX_NHQ || O < 1 || O > OMAX || mt != bwd_mt(C, hp) ||
+      smem != BwdSmem(C, hp, tile, mt).bytes || blocks < 1 ||
+      (long long)blocks > (long long)B * ((N + tile - 1) / tile) ||
+      reinterpret_cast<std::uintptr_t>(x) % 16 || reinterpret_cast<std::uintptr_t>(gx) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Kernel = decltype(&mlp_head_bwd_partial_kernel<1, 1>);
+  Kernel kernel;
+  cudaError_t err;
+  if (O == 1) {
+    kernel = mt == 1 ? &mlp_head_bwd_partial_kernel<1, 1>
+             : mt == 2 ? &mlp_head_bwd_partial_kernel<2, 1> : &mlp_head_bwd_partial_kernel<4, 1>;
+    err = mt == 1 ? opt_in_smem<1, 1>() : mt == 2 ? opt_in_smem<2, 1>() : opt_in_smem<4, 1>();
+  } else {
+    kernel = mt == 1 ? &mlp_head_bwd_partial_kernel<1, OMAX>
+             : mt == 2 ? &mlp_head_bwd_partial_kernel<2, OMAX>
+                       : &mlp_head_bwd_partial_kernel<4, OMAX>;
+    err = mt == 1 ? opt_in_smem<1, OMAX>()
+          : mt == 2 ? opt_in_smem<2, OMAX>() : opt_in_smem<4, OMAX>();
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_head_bwd_partial_kernel<<<blocks, threads, smem, st>>>(
+  kernel<<<blocks, BT, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g),
       static_cast<const float*>(k1), static_cast<const float*>(b1),
       static_cast<const float*>(k2), static_cast<__nv_bfloat16*>(gx),
-      static_cast<float*>(partial), B, C, N, H, O);
+      static_cast<float*>(partial), B, C, N, H, O, tile, hp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int E = C * H + H + H * O + O;
-  constexpr int RT = 256;
-  mlp_head_bwd_reduce_kernel<<<(E + RT - 1) / RT, RT, 0, st>>>(
+  mlp_head_bwd_reduce_kernel<<<(E + 31) / 32, 32 * RW, 0, st>>>(
       static_cast<const float*>(partial), blocks, C, H, O,
       static_cast<float*>(gk1), static_cast<float*>(gb1),
       static_cast<float*>(gk2), static_cast<float*>(gb2));

@@ -12,6 +12,7 @@ built when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,12 +37,17 @@ _SIGNATURES = {
     # B, Ci, Co, M, then the launch plan (cmul.py: ContractPlan.args)
     "uno_cmul_fwd": [_P, _P, _P] + [_I] * 11 + [_P],
     "uno_cmul_bwd_x": [_P, _P, _P] + [_I] * 11 + [_P],
-    "uno_cmul_bwd_w": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "uno_cmul_bwd_w": [_P, _P, _P] + [_I] * 11 + [_P],
     "uno_mlp_head_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "uno_mlp_head_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    # B, C, N, H, O, then the launch plan (mlp_head.py: BwdPlan.args)
+    "uno_mlp_head_bwd": [_P] * 11 + [_I] * 11 + [_P],
     # device, then where to write its SM count and opt-in shared memory
     "uno_device_limits": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }
+
+# an H100's SM count and opt-in shared memory per block (227 KB): the launch
+# plans' limits when no device is named; a launch reads its own card's
+SMS, MAX_SMEM = 132, 232448
 
 _LIB = None
 BUILD_LOG = ""        # nvcc's output (ptxas register / shared-memory report)
@@ -115,3 +121,13 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().uno_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: {msg} (cudaError_t {err})")
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple:
+    """(SM count, shared-memory bytes a block may opt in to) of CUDA device
+    ``index``, as the runtime reports them."""
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    check(library().uno_device_limits(index, ctypes.byref(sms), ctypes.byref(smem)),
+          "uno_device_limits")
+    return sms.value, smem.value

@@ -8,12 +8,12 @@ against the spectral weights (one small complex (B x Ci) @ (Ci x Co) product
 per mode), and the two backward contractions, dx and dw
 (``uno_tpu/ops/pallas/cmul.py: _bwd``).
 
-The forward and dx run one CUDA kernel, ``contract_kernel`` in
-``uno_tpu_torch/csrc/cmul.cu``, which reads each weight once (for B <= 16),
-splits the channel reduction over the warps of a block and adds their
-partial sums in a fixed order; ``contract_plan`` below picks its tiles,
-split, shared memory and grid, and the source says more.  dw has its own
-kernel.
+The three uses run one CUDA kernel, ``contract_kernel`` in
+``uno_tpu_torch/csrc/cmul.cu``, which stages both operands in shared memory,
+computes register tiles of 4 rows x 4 outputs x 2 modes, splits the channel
+reduction over the warps of a block and adds their partial sums in a fixed
+order; ``contract_plan`` below picks its split, shared memory and grid, and
+the source says more.
 
 ``cmul`` is differentiable: when grad mode is on and an input requires grad
 it runs as a ``torch.autograd.Function`` whose backward calls ``cmul_bwd_x``
@@ -28,14 +28,12 @@ A tensor on the CPU goes to the plain versions (complex64, or complex128 for
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from dataclasses import dataclass
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from uno_tpu_torch.ops.kernels._build import check, library
+from uno_tpu_torch.ops.kernels._build import MAX_SMEM, SMS, check, device_limits, library
 
 # kernel launches per entry point since the counts were last set to 0
 LAUNCHES = {"fwd": 0, "bwd_x": 0, "bwd_w": 0}
@@ -78,94 +76,74 @@ def _validate(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
 
 # the kernel's constants (csrc/cmul.cu: CB, TN, TM2, STAGES, MAX_SPLIT)
 TILE_B, TILE_N, TILE_M, STAGES, MAX_SPLIT = 16, 16, 4, 4, 8
-GRID_Y_MAX = 65535
+GRID_Y_MAX = 65535           # CUDA's limit on the grid's y and z
 WARPS_PER_SM = 8             # the split aims at 8 warps per SM
 MIN_K_PER_WARP = 4
-# an H100's SM count and opt-in shared memory per block (227 KB): the plan's
-# limits when no device is named; a launch reads its own card's
-SMS, MAX_SMEM = 132, 232448
-
-
-@functools.lru_cache(maxsize=None)
-def device_limits(index: int) -> tuple:
-    """(SM count, shared-memory bytes a block may opt in to) of CUDA device
-    ``index``, as the runtime reports them."""
-    sms, smem = ctypes.c_int(), ctypes.c_int()
-    check(library().uno_device_limits(index, ctypes.byref(sms), ctypes.byref(smem)),
-          "uno_device_limits")
-    return sms.value, smem.value
 
 
 @dataclass(frozen=True)
 class ContractPlan:
-    """How ``contract_kernel`` covers ``out[b,n,m] = sum_k a[b,k,m] w'[k,n,m]``.
+    """How ``contract_kernel`` covers ``out[r,n,m] = sum_k a'[r,k,m] w'[k,n,m]``.
 
-    Block ``(gx, gy)`` owns modes ``[gx*TILE_M, +TILE_M)`` and outputs
-    ``[gy*TILE_N, +TILE_N)`` for every batch row, TILE_B rows at a time; its
-    warp ``kg`` of ``split`` contracts k in ``[kg*k_per_warp, +k_per_warp)``.
+    Block ``(gx, gy, gz)`` owns modes ``[gx*TILE_M, +TILE_M)``, outputs
+    ``[gy*TILE_N, +TILE_N)`` and rows ``[gz*TILE_B, +TILE_B)``; its warp
+    ``kg`` of ``split`` contracts k in ``[kg*k_per_warp, +k_per_warp)``.
     """
 
     split: int       # warps per block, one slice of K each
     k_per_warp: int
-    resident: bool   # the block's w tile stays in shared memory over batch tiles
     vec: int         # bytes per copy: 16 (two modes) or 8
     smem: int        # dynamic shared memory per block, bytes
-    grid: tuple      # (ceil(M / TILE_M), ceil(N / TILE_N))
+    grid: tuple      # (ceil(M / TILE_M), ceil(N / TILE_N), ceil(R / TILE_B))
 
     def args(self) -> tuple:
-        """The plan arguments of ``uno_cmul_fwd`` / ``uno_cmul_bwd_x``."""
-        return (self.split, self.k_per_warp, int(self.resident), self.vec, self.smem,
-                *self.grid)
+        """The plan arguments of ``uno_cmul_fwd``, ``uno_cmul_bwd_x`` and
+        ``uno_cmul_bwd_w``."""
+        return (self.split, self.k_per_warp, self.vec, self.smem, *self.grid)
 
 
-def contract_smem(split: int, k_per_warp: int, resident: bool) -> int:
+def contract_smem(split: int) -> int:
     """Shared-memory bytes of a block (csrc/cmul.cu: contract_smem): per warp
-    an a ring and a w ring (or, resident, its whole w slice); the warps'
-    partial sums reuse the front."""
-    x_ring = STAGES * TILE_B * TILE_M * 8
-    w_stage = TILE_N * TILE_M * 8
+    an a ring and a w ring, or its partial sums, whichever is larger."""
+    rings = STAGES * (TILE_B + TILE_N) * TILE_M * 8
     red = TILE_B * TILE_N * TILE_M * 8
-    w_slots = k_per_warp if resident else STAGES
-    end = split * (max(x_ring, red) if resident else x_ring) + split * w_slots * w_stage
-    return max(end, split * red)
+    return split * max(rings, red)
 
 
-def contract_plan(bsz: int, k: int, n: int, m: int, aligned: bool = True,
+def contract_plan(rows: int, k: int, n: int, m: int, aligned: bool = True,
                   device: int | None = None) -> ContractPlan:
-    """The launch plan of ``contract_kernel`` for a (bsz, k, m) ``a`` and n
-    outputs per mode; ``aligned``: every pointer is 16-byte aligned;
+    """The launch plan of ``contract_kernel`` for a (rows, k, m) ``a`` and n
+    outputs per mode: (B, Ci, Co) for the forward, (B, Co, Ci) for dx,
+    (Ci, B, Co) for dw.  ``aligned``: every pointer is 16-byte aligned;
     ``device``: the CUDA device whose SMs and shared memory the plan fills
     (None: an H100's).  Raises ValueError where the grid cannot take the
     shape."""
-    if min(bsz, k, n, m) < 1:
-        raise ValueError(f"contraction: empty shape {(bsz, k, n, m)}")
-    grid = (-(-m // TILE_M), -(-n // TILE_N))
-    if grid[1] > GRID_Y_MAX:
-        raise ValueError(f"contraction: {n} outputs need {grid[1]} blocks along the grid's "
-                         f"y axis > {GRID_Y_MAX}")
+    if min(rows, k, n, m) < 1:
+        raise ValueError(f"contraction: empty shape {(rows, k, n, m)}")
+    grid = (-(-m // TILE_M), -(-n // TILE_N), -(-rows // TILE_B))
+    if max(grid[1:]) > GRID_Y_MAX:
+        raise ValueError(f"contraction: {n} outputs and {rows} rows need a grid of {grid}, "
+                         f"past {GRID_Y_MAX} blocks along y or z")
     sms, max_smem = (SMS, MAX_SMEM) if device is None else device_limits(device)
+    if contract_smem(1) > max_smem:
+        raise ValueError(f"contraction: a block needs {contract_smem(1)} B of shared memory "
+                         f"> the card's {max_smem}")
     split = 1
-    while (split < MAX_SPLIT and grid[0] * grid[1] * split < sms * WARPS_PER_SM
-           and k >= 2 * split * MIN_K_PER_WARP):
+    while (split < MAX_SPLIT and grid[0] * grid[1] * grid[2] * split < sms * WARPS_PER_SM
+           and k >= 2 * split * MIN_K_PER_WARP and contract_smem(2 * split) <= max_smem):
         split *= 2
     k_per_warp = -(-k // split)
     split = -(-k // k_per_warp)  # no warp without channels
-    resident = bsz > TILE_B and contract_smem(split, k_per_warp, True) <= max_smem
     vec = 16 if aligned and m % 2 == 0 else 8
-    return ContractPlan(split, k_per_warp, resident, vec,
-                        contract_smem(split, k_per_warp, resident), grid)
+    return ContractPlan(split, k_per_warp, vec, contract_smem(split), grid)
 
 
 def _launch(entry: str, key: str, a, b, out_shape, bsz, ci, co, m):
-    plan = ()
-    if key == "bwd_w":  # grid (M / 32, Co / 4, Ci / 4)
-        if max(ci, co) > 4 * GRID_Y_MAX:
-            raise ValueError(f"{entry}: channels {ci}, {co} exceed the grid")
-    else:  # the forward and dx kernel takes a launch plan
-        k, n = (ci, co) if key == "fwd" else (co, ci)
-        # out comes from the caching allocator, aligned to 512 bytes
-        aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-        plan = contract_plan(bsz, k, n, m, aligned, a.device.index).args()
+    # (rows, k, n) of the kernel's product for each use
+    rows, k, n = {"fwd": (bsz, ci, co), "bwd_x": (bsz, co, ci), "bwd_w": (ci, bsz, co)}[key]
+    # out comes from the caching allocator, aligned to 512 bytes
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    plan = contract_plan(rows, k, n, m, aligned, a.device.index).args()
     out = torch.empty(out_shape, dtype=torch.complex64, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -4,14 +4,16 @@ and its backward.
 Replaces the TPU kernels ``uno_tpu/ops/pallas/mlp_head.py: _fwd_kernel``
 (launched by ``_fwd_call``; public entry ``fused_mlp_head``) and
 ``_bwd_kernel`` (launched by ``_bwd_call``; the VJP ``_fused_bwd``).  The
-hidden activation is never written to device memory: each thread of the
-CUDA kernels in ``uno_tpu_torch/csrc/mlp_head.cu`` computes one grid point's
-hidden layer in registers, from weights held in shared memory, and the
-backward recomputes it from x.
+hidden activation is never written to device memory: in the CUDA kernels of
+``uno_tpu_torch/csrc/mlp_head.cu`` the forward computes one grid point's
+hidden layer per thread in registers, from weights held in shared memory,
+and the backward recomputes it from x, as register-blocked products over
+tiles of grid points laid out by ``bwd_plan`` below.
 
-On an H100 the head is bound by reading x (bf16, B*C*N*2 bytes) and, in the
-backward, writing gx of the same size; the unfused composition would also
-write and re-read an f32 (B, N, H) hidden tensor.  Contract, as in
+On an H100 both kernels are bound by their f32 multiply-adds (C*H per grid
+point forward, 3*C*H backward), not by reading x and writing gx (bf16,
+B*C*N*2 bytes each); the unfused composition would also write and re-read
+an f32 (B, N, H) hidden tensor.  Contract, as in
 ``uno_tpu``'s default f32-dot branch: x is bf16; weights, dots, the
 exact-erf GELU, the output and every weight gradient are f32; only gx is
 rounded, to x's dtype.
@@ -28,20 +30,23 @@ kernels.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from uno_tpu_torch.ops.kernels._build import check, library
+from uno_tpu_torch.ops.kernels._build import MAX_SMEM as CARD_SMEM
+from uno_tpu_torch.ops.kernels._build import SMS, check, device_limits, library
 
 # kernel launches per entry point since the counts were last set to 0
 LAUNCHES = {"fwd": 0, "bwd": 0}
 MAX_OUT = 4  # output channels the kernels' register accumulators cover
 MAX_SMEM = 48 * 1024  # forward: weights live in shared memory without an opt-in
-BWD_MAX_SMEM = 232448  # backward opts in up to the H100's 227 KB per block
-BWD_THREADS = 128  # backward: grid points per tile, one per thread
-BWD_BLOCKS = 264  # backward pass 1: a fixed grid (two blocks per H100 SM)
+# the backward's constants (csrc/mlp_head.cu: BT, MAX_MT, MAX_NHQ)
+BWD_THREADS, BWD_MAX_MT, BWD_MAX_NHQ = 256, 4, 32
+BWD_TILES = (128, 64, 32)  # grid points per tile, largest first
+BWD_SMALL_SUMS = 4 + 5 * MAX_OUT  # a thread's running gb1, gk2 and gb2 sums (csrc: NS)
 
 
 def mlp_head_plain(x, k1, b1, k2, b2):
@@ -119,6 +124,83 @@ def _mlp_head_fwd(x, k1, b1, k2, b2):
     return out
 
 
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def bwd_hidden(h: int) -> int:
+    """H padded to 4 times a power of two (csrc/mlp_head.cu: hidden_padded):
+    every thread of the backward owns whole 4-unit hidden groups."""
+    q = 1
+    while 4 * q < h:
+        q *= 2
+    return 4 * q
+
+
+def bwd_shares(c: int, hp: int) -> int:
+    """gk1 shares of 4 channels x 4 hidden units per thread of each half of
+    the block, rounded up to 1, 2 or 4 (csrc/mlp_head.cu: bwd_mt)."""
+    need = -(-(_up(c, 4) // 4) * (hp // 4) // (BWD_THREADS // 2))
+    return next((m for m in (1, 2, BWD_MAX_MT) if need <= m), need)
+
+
+def bwd_smem(c: int, hp: int, tile: int, shares: int) -> int:
+    """Shared-memory bytes of a backward block (csrc/mlp_head.cu: BwdSmem):
+    k1 as [C][Hp] and [Hp][C8], b1, k2, the rows' offsets, a ring of two
+    bf16 x tiles and two g tiles, the f32 x tile and dz; at the end the
+    threads' small sums and half the gk1 shares reuse the tiles."""
+    weights = 4 * (c * hp + hp * _up(c, 8) + hp + hp * MAX_OUT) + _up(8 * c, 16)
+    tiles = (2 * 2 * c * (tile + 8) + 2 * 4 * MAX_OUT * tile
+             + 4 * (_up(c, 4) + hp) * (tile + 4))
+    red = 4 * (BWD_THREADS * BWD_SMALL_SUMS + shares * 16 * BWD_THREADS // 2)
+    return weights + max(tiles, red)
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the backward's pass 1 covers the B*N grid points: tiles of
+    ``tile`` points of one batch row, tile t at (t // tiles_per_row,
+    t % tiles_per_row * tile), walked by block ``i`` as t = i, i + blocks, ..."""
+
+    tile: int      # grid points per tile
+    threads: int
+    hidden: int    # H padded (bwd_hidden)
+    shares: int    # gk1 shares of 4 x 4 entries per thread (bwd_shares)
+    smem: int      # dynamic shared memory per block, bytes
+    blocks: int    # pass 1's grid, and the rows of its partial sums
+
+    def args(self) -> tuple:
+        """The plan arguments of ``uno_mlp_head_bwd``."""
+        return self.tile, self.threads, self.hidden, self.shares, self.smem, self.blocks
+
+
+def bwd_plan(bsz: int, c: int, n: int, h: int, o: int, device: int | None = None) -> BwdPlan:
+    """The launch plan of the backward for x (bsz, c, n) and k2 (h, o):
+    the largest tile whose shared memory fits the card, and two blocks per
+    SM where two fit.  ``device``: the CUDA device whose SMs and shared
+    memory the plan fills (None: an H100's).  Raises ValueError for a shape
+    the kernel does not cover."""
+    if min(bsz, c, n, h, o) < 1:
+        raise ValueError(f"mlp_head_bwd: empty shape {(bsz, c, n, h, o)}")
+    hp = bwd_hidden(h)
+    if hp // 4 > BWD_MAX_NHQ or o > MAX_OUT:
+        raise ValueError(f"mlp_head_bwd covers up to {4 * BWD_MAX_NHQ} hidden units and "
+                         f"{MAX_OUT} outputs, got {h} and {o}")
+    shares = bwd_shares(c, hp)
+    if shares > BWD_MAX_MT:
+        raise ValueError(f"mlp_head_bwd: gk1 ({c} x {h}, padded {_up(c, 4)} x {hp}) needs "
+                         f"{shares} register shares per thread > {BWD_MAX_MT}")
+    sms, max_smem = (SMS, CARD_SMEM) if device is None else device_limits(device)
+    tile = next((t for t in BWD_TILES if bwd_smem(c, hp, t, shares) <= max_smem), None)
+    if tile is None:
+        raise ValueError(f"mlp_head_bwd needs {bwd_smem(c, hp, BWD_TILES[-1], shares)} B of "
+                         f"shared memory > the card's {max_smem}")
+    smem = bwd_smem(c, hp, tile, shares)
+    per_sm = 2 if shares < BWD_MAX_MT and 2 * smem <= max_smem else 1
+    blocks = min(bsz * -(-n // tile), per_sm * sms)
+    return BwdPlan(tile, BWD_THREADS, hp, shares, smem, blocks)
+
+
 def mlp_head_bwd(x, g, k1, b1, k2):
     """Gradients of ``mlp_head`` for the output cotangent g.
 
@@ -137,11 +219,15 @@ def mlp_head_bwd(x, g, k1, b1, k2):
         raise ValueError(f"mlp_head_bwd: x on {x.device}, g on {g.device}")
     if x.device.type == "cpu":
         return mlp_head_bwd_plain(x, g, k1, b1, k2)
-    t = BWD_THREADS
-    smem = 4 * (2 * (c * h + h + h * o) + o + t * (c + 2 * h + o + 3))
-    if smem > BWD_MAX_SMEM:
-        raise ValueError(f"mlp_head_bwd needs {smem} B of shared memory > {BWD_MAX_SMEM}")
-    blocks = min(BWD_BLOCKS, -(-bsz * n // t))
+    return _bwd_launch(x, g, k1, b1, k2)
+
+
+def _bwd_launch(x, g, k1, b1, k2):
+    bsz, c, n = x.shape
+    h, o = k2.shape
+    plan = bwd_plan(bsz, c, n, h, o, x.device.index)
+    if x.data_ptr() % 16:  # the kernel copies 16-byte vectors of x and gx
+        x = x.clone()
     n_grad = c * h + h + h * o + o
     dev = x.device
     gx = torch.empty_like(x)
@@ -149,14 +235,14 @@ def mlp_head_bwd(x, g, k1, b1, k2):
     gb1 = torch.empty((h,), dtype=torch.float32, device=dev)
     gk2 = torch.empty((h, o), dtype=torch.float32, device=dev)
     gb2 = torch.empty((o,), dtype=torch.float32, device=dev)
-    partial = torch.empty((blocks, n_grad), dtype=torch.float32, device=dev)
+    partial = torch.empty((plan.blocks, n_grad), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().uno_mlp_head_bwd(
             x.data_ptr(), g.data_ptr(), k1.data_ptr(), b1.data_ptr(),
             k2.data_ptr(), gx.data_ptr(), gk1.data_ptr(), gb1.data_ptr(),
             gk2.data_ptr(), gb2.data_ptr(), partial.data_ptr(),
-            bsz, c, n, h, o, t, blocks, stream,
+            bsz, c, n, h, o, *plan.args(), stream,
         )
     check(err, "uno_mlp_head_bwd")
     LAUNCHES["bwd"] += 1
