@@ -24,10 +24,11 @@ inference) and training.
    that time is also their ``library_ms``; the head has none).  A
    one-element add timed the same way gives the floor of this timing;
 4. runs ``python -m uno_tpu_torch.cli predict`` over a synthetic six-key
-   darcy_s211 split (16 test samples) once to warm up and once measured,
-   with the launch counts set to 0 just before the measured run; checks the
-   output, that the forward kernels launched and that no backward kernel
-   did;
+   darcy_s211 split (128 test samples: 8 batches of 16) once to warm up and
+   once measured, with the launch counts set to 0 just before the measured
+   run; checks the output, that the contraction launched 5 times and the
+   head once per batch and that no backward kernel did; prints the median,
+   fastest and slowest of the measured run's 8 warm batches;
 5. runs ``python -m uno_tpu_torch.cli train`` for 3 epochs of 4 steps on a
    synthetic split (64 train, 16 val, 16 test) with a learnable target, the
    counts set to 0 just before; checks that the losses are finite and fall
@@ -69,6 +70,7 @@ from uno_tpu_torch.ops.spectral import spectral_weight_init
 
 PRESET = "darcy_s211"
 S, BATCH, NTEST = 211, 16, 16
+NPREDICT = 8 * BATCH  # the predict phase's test split: 8 batches
 NTRAIN, NVAL, EPOCHS = 64, 16, 3  # the train phase: 4 steps per epoch
 # (B, Ci, Co, M = 2*m1*m2) of uno9's five spectral contractions at darcy_s211
 CMUL_SHAPES = [(16, 32, 64, 648), (16, 64, 128, 128), (16, 128, 128, 128),
@@ -281,18 +283,18 @@ def phase_kernels(dev) -> dict:
     return res
 
 
-def _write_split(path: str, rng, ntrain: int = 0, nval: int = 0) -> None:
+def _write_split(path: str, rng, ntrain: int = 0, nval: int = 0, ntest: int = NTEST) -> None:
     """A six-key darcy_s211 split with the signature uno_tpu's cli writes.
     Test inputs are 3/12 coefficient fields; train and val inputs are
     standard normal with a learnable target, the local average of
     tests/test_train.py."""
-    a = np.where(rng.standard_normal((NTEST, S, S, 1)) > 0, 12.0, 3.0).astype(np.float32)
-    u = (0.01 * rng.standard_normal((NTEST, S, S))).astype(np.float32)
+    a = np.where(rng.standard_normal((ntest, S, S, 1)) > 0, 12.0, 3.0).astype(np.float32)
+    u = (0.01 * rng.standard_normal((ntest, S, S))).astype(np.float32)
     x = rng.standard_normal((ntrain + nval, S, S, 1)).astype(np.float32)
     y = ((x[..., 0] + np.roll(x[..., 0], 1, 1) + np.roll(x[..., 0], 1, 2)) / 3.0)
     y = y.astype(np.float32)
     seed = get_preset(PRESET).train.seed
-    sig = f"task=darcy,sub=2,ntrain={ntrain},nval={nval},ntest={NTEST},seed={seed}"
+    sig = f"task=darcy,sub=2,ntrain={ntrain},nval={nval},ntest={ntest},seed={seed}"
     np.savez(path, train_a=x[:ntrain], train_u=y[:ntrain], val_a=x[ntrain:],
              val_u=y[ntrain:], test_a=a, test_u=u, config_sig=np.asarray(sig))
 
@@ -310,23 +312,27 @@ def _run_cli(argv) -> list:
 
 def phase_predict(tmp: str) -> dict:
     data, out = os.path.join(tmp, "darcy_s211.npz"), os.path.join(tmp, "preds.npz")
-    _write_split(data, np.random.default_rng(0))
+    _write_split(data, np.random.default_rng(0), ntest=NPREDICT)
     argv = ["predict", "--preset", PRESET, "--dtype", "bfloat16", "--init-seed", "0",
-            "--data-cache", data, "--ntrain", "0", "--nval", "0", "--ntest", str(NTEST),
+            "--data-cache", data, "--ntrain", "0", "--nval", "0", "--ntest", str(NPREDICT),
             "--split", "test", "--out", out, "--device", "cuda"]
     warm = _run_cli(argv)[-1]  # first run: cuFFT plans, cuBLAS handles, allocator
     _zero_launches()
     report = _run_cli(argv)[-1]
     launches = _launches()
-    batches = len(report["batch_ms"])
+    ms = report["batch_ms"]
+    batches = len(ms)
     pred = np.load(out)["pred"]
-    if pred.shape != (NTEST, S, S) or not np.isfinite(pred).all():
+    if pred.shape != (NPREDICT, S, S) or not np.isfinite(pred).all():
         raise AssertionError(f"predict output: shape {pred.shape}, finite {np.isfinite(pred).all()}")
-    if (launches["cmul_fwd"] < 5 * batches or launches["mlp_head_fwd"] != batches
+    if (batches != NPREDICT // BATCH or launches["cmul_fwd"] != 5 * batches
+            or launches["mlp_head_fwd"] != batches
             or launches["cmul_bwd_x"] or launches["cmul_bwd_w"] or launches["mlp_head_bwd"]):
         raise AssertionError(f"predict kernel launches {launches} over {batches} batches")
-    print(f"[predict] {PRESET} uno9 bf16 b{BATCH}: {batches} batch(es), ms per batch "
-          f"{report['batch_ms']} (first run {warm['batch_ms']}); launches {launches}")
+    print(f"[predict] {PRESET} uno9 bf16 b{BATCH}: {batches} warm batches, ms per batch "
+          f"median {statistics.median(ms):.3f} fastest {min(ms):.3f} slowest {max(ms):.3f} "
+          f"({[round(v, 3) for v in ms]}; first run {[round(v, 3) for v in warm['batch_ms']]}); "
+          f"launches {launches}")
     return launches
 
 

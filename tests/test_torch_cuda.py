@@ -52,11 +52,12 @@ EDGES = [(2, 3, 5, 7), (4, 8, 8, 128), (2, 4, 6, 200), (3, 6, 7, 200), (9, 5, 3,
 
 
 def _misaligned(t):
-    """The same values at an address 8 bytes past a 16-byte boundary."""
+    """The same values at an address one element past a 16-byte boundary
+    (8 bytes for complex64, 2 for bf16)."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = buf[1:].view(t.shape)
     out.copy_(t)
-    assert out.data_ptr() % 16 == 8
+    assert out.data_ptr() % 16 == t.element_size()
     return out
 
 
@@ -137,6 +138,39 @@ def test_mlp_head_kernel_matches_plain(cuda, shape, h, o):
     assert got.shape == (shape[0], o) + shape[2:] and got.dtype == torch.float32
     want = H.mlp_head_plain(x.reshape(shape[0], c, -1), *w).reshape(got.shape)
     assert _rel(got, want) <= 1e-5
+    assert torch.equal(H.mlp_head(x, *w), got)  # the shuffles add in a fixed order
+
+
+# (B, C, N, H, O) at the edges of the forward's plan: N of 1, N shorter than
+# one tile, odd N with B*N ending inside a tile, C of 1, 5, 8 and 128, H of
+# 1, 40 (padded to 64), 64 and 128, O of 1 to 4; then the heads of uno9 at
+# width 64, uno at 32 and 64 (C 128, H 256: 32-point tiles, each thread two
+# hidden groups) and uno_demo at 32 and 64
+HEAD_FWD_EDGES = [(1, 1, 1, 1, 1), (1, 5, 7, 40, 2), (3, 8, 131, 64, 3), (2, 128, 257, 128, 4),
+                  (5, 5, 99, 1, 4), (2, 8, 127, 40, 1), (1, 1, 300, 128, 2), (4, 64, 4001, 32, 1),
+                  (2, 128, 4097, 64, 1), (2, 64, 4097, 128, 1), (2, 128, 4097, 256, 1),
+                  (2, 32, 4097, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,n,h,o", HEAD_FWD_EDGES)
+def test_mlp_head_kernel_at_the_plans_edges(cuda, b, c, n, h, o):
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(b, c, n, generator=g).to(cuda, torch.bfloat16)
+    w = [t.to(cuda) for t in (torch.randn(c, h, generator=g) / c**0.5,
+                              torch.randn(h, generator=g),
+                              torch.randn(h, o, generator=g) / h**0.5,
+                              torch.randn(o, generator=g))]
+    before = H.LAUNCHES["fwd"]
+    got = H.mlp_head(x, *w)
+    again = H.mlp_head(x, *w)
+    torch.cuda.synchronize()
+    assert H.LAUNCHES["fwd"] == before + 2
+    assert got.shape == (b, o, n) and got.dtype == torch.float32
+    assert _rel(got, H.mlp_head_plain(x, *w)) <= 1e-5
+    assert torch.equal(got, again)
+    # x off a 16-byte boundary: the wrapper copies it, the same bits come out
+    assert torch.equal(H.mlp_head(_misaligned(x), *w), got)
 
 
 @pytest.mark.cuda

@@ -11,7 +11,8 @@ tests/test_fused_head.py.  Bounds: rel-L2 <= 1e-5 for the f32 weight
 gradients; <= 4e-3 for the bf16 input gradient (one bf16 ulp: the two sides
 round f32 values that differ in the last bits).  The CUDA kernels are held
 against the plain versions on the card by tests/test_torch_cuda.py; here the
-backward's launch plan is checked against the kernel's index maps.
+launch plans of the forward and the backward are checked against the
+kernels' index maps.
 """
 
 import re
@@ -28,7 +29,7 @@ from uno_tpu_torch.ops.kernels import mlp_head as K
 
 SHAPES = [
     ((2, 8, 37, 45), 32, 1),   # uneven grid: a masked tail
-    ((1, 16, 64, 64), 64, 3),  # several outputs, H > the kernel's 32-unit pass
+    ((1, 16, 64, 64), 64, 3),  # several outputs, 16 hidden groups of 4
 ]
 
 
@@ -73,9 +74,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         K.mlp_head(xb.transpose(2, 3), k1, b1, k2, b2)
     with pytest.raises(ValueError, match="outputs"):
         K.mlp_head(xb, k1, b1, torch.zeros(8, 5), torch.zeros(5))
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="shared memory"):  # k1 alone needs 256 KB
         K.mlp_head(torch.zeros(1, 512, 4, dtype=torch.bfloat16),
-                   torch.zeros(512, 32), torch.zeros(32), torch.zeros(32, 1), b2)
+                   torch.zeros(512, 128), torch.zeros(128), torch.zeros(128, 1), b2)
     with pytest.raises(ValueError, match="flat"):
         K.mlp_head_bwd(xb, torch.zeros(1, 1, 5, 6), k1, b1, k2)
     with pytest.raises(ValueError, match="f32 g"):
@@ -243,4 +244,159 @@ def test_bwd_wrapper_raises_where_the_plan_cannot_launch():
         launch(96, 96)
     with pytest.raises(ValueError, match="outputs"):
         launch(8, 32, 5)
+    assert K.LAUNCHES == before
+
+
+# (B, C, N, H, O) of the forward's launch plan: every shape of the
+# backward's, then edges (N of 1, N under one tile, odd N with B*N ending
+# inside a tile, C of 1 and 128, H of 1 (one hidden group), 40 (padded to
+# 64) and 128, O of 1 to 4), then the heads the port's bf16 2-D models
+# build at widths 32 and 64 (uno9 and uno11 (64, 32) and (128, 64), uno
+# (64, 128) and (128, 256), uno_demo (32, 64) and (64, 128)) at 211 x 211
+FWD_PLAN_SHAPES = BWD_PLAN_SHAPES + [
+    (1, 1, 1, 1, 1), (1, 5, 7, 40, 2), (3, 8, 131, 64, 3), (2, 128, 257, 128, 4),
+    (5, 5, 99, 1, 4), (1, 128, 300, 1, 2)]
+MODEL_HEADS = [(64, 32), (128, 64), (64, 128), (128, 256), (32, 64)]
+
+
+def _lanes(p):
+    """Threads that share a point group (csrc/mlp_head.cu: lanes)."""
+    return min(p.hidden // 4, 32)
+
+
+def _fwd_items(p):
+    """As the kernel maps them: per (point group, hidden group) item of a
+    tile, the compute threads that compute it; per (point group, output
+    entry), the lane that stores it; and the xor partners of each shuffle
+    step."""
+    pts = 4 * K.FWD_POINT_GROUPS
+    nhq, npg, lanes = p.hidden // 4, p.tile // pts, _lanes(p)
+    items = np.zeros((npg, nhq), np.int32)
+    stores = np.zeros((npg, pts * K.MAX_OUT), np.int32)
+    for tid in range(K.FWD_COMPUTE):
+        hl, slot = tid % lanes, tid // lanes
+        for pg in range(slot, npg, K.FWD_COMPUTE // lanes):
+            for hq in range(hl, nhq, lanes):
+                items[pg, hq] += 1
+            for e in range(pts * K.MAX_OUT):  # entry e = pts o + p
+                stores[pg, e] += e % lanes == hl
+        m = 1
+        while m < lanes:  # each partner shares this thread's point groups and warp
+            partner = tid ^ m
+            assert partner // lanes == slot and partner // 32 == tid // 32
+            m *= 2
+    return items, stores
+
+
+@pytest.mark.parametrize("b,c,n,h,o", FWD_PLAN_SHAPES)
+def test_fwd_plan_covers_each_point_once(b, c, n, h, o):
+    """Every grid point falls in exactly one tile of one block; each row of
+    a tile is staged and unpacked by one producer warp; every (point group,
+    hidden group) item has exactly one compute thread, the lanes that add
+    their partial outputs by shuffles share a point group and a warp, and
+    each output of a point group is stored by one lane."""
+    p = K.fwd_plan(b, c, n, h, o)
+    tpr = -(-n // p.tile)
+    count = np.zeros((b, n), np.int32)
+    for blk in range(p.blocks):
+        for t in range(blk, b * tpr, p.blocks):
+            n0 = t % tpr * p.tile
+            count[t // tpr, n0:n0 + p.tile] += 1
+    assert (count == 1).all()
+    assert 32 % _lanes(p) == 0 and p.threads == K.FWD_COMPUTE + 32 * K.FWD_PRODUCERS
+    assert p.tile % (4 * K.FWD_POINT_GROUPS) == 0 and K.FWD_COMPUTE % 32 == 0
+    rows = np.zeros(c, np.int32)
+    for w in range(K.FWD_PRODUCERS):
+        rows[w::K.FWD_PRODUCERS] += 1
+    assert (rows == 1).all()
+    items, stores = _fwd_items(p)
+    assert (items == 1).all() and (stores == 1).all()
+
+
+@pytest.mark.parametrize("b,c,n,h,o", FWD_PLAN_SHAPES)
+def test_fwd_plan_fits_the_card(b, c, n, h, o):
+    p = K.fwd_plan(b, c, n, h, o)
+    assert p.hidden >= h and (p.hidden // 4) & (p.hidden // 4 - 1) == 0
+    assert p.tile in K.TILES and p.threads == K.FWD_COMPUTE + 32 * K.FWD_PRODUCERS
+    assert p.smem == K.fwd_smem(c, p.hidden, p.tile) <= K.CARD_SMEM
+    assert all(K.fwd_smem(c, p.hidden, t) > K.CARD_SMEM for t in K.TILES if t > p.tile)
+    tiles = b * -(-n // p.tile)
+    assert 1 <= p.blocks <= min(tiles, 2 * K.SMS) and p.blocks < 2**31
+    assert p.blocks == min(tiles, (2 if 2 * p.smem <= K.CARD_SMEM else 1) * K.SMS)
+
+
+@pytest.mark.parametrize("c,h", MODEL_HEADS)
+def test_fwd_plan_takes_every_head_of_the_models(c, h):
+    """The bf16 2-D models' heads at widths 32 and 64 launch: uno9 at
+    width 64 (C 128, H 64) with 64-point tiles, uno at width 64 (C 128, H
+    256) with 32, the others with 128."""
+    p = K.fwd_plan(16, c, 211 * 211, h, 1)
+    assert p.smem <= K.CARD_SMEM and p.hidden == K.bwd_hidden(h)
+    assert p.tile == {(128, 64): 64, (128, 256): 32}.get((c, h), 128)
+
+
+def test_fwd_plan_of_the_path_fills_the_card():
+    """At the darcy_s211 head (C 64, H 32, O 1): 128-point tiles, 8 lanes
+    per group of 8 points (one item per compute thread), two blocks of 4
+    compute and 4 producer warps per H100 SM in 109 KB of shared memory
+    each."""
+    p = K.fwd_plan(16, 64, 211 * 211, 32, 1)
+    assert (p.tile, p.threads, p.hidden, _lanes(p)) == (128, 256, 32, 8)
+    assert p.smem == 111760 and 2 * p.smem <= K.CARD_SMEM and p.blocks == 2 * K.SMS
+
+
+def test_fwd_plan_follows_the_cards_limits(monkeypatch):
+    """A launch plans for its own card: half the SMs give half the blocks;
+    less shared memory gives one block per SM, then a smaller tile; too
+    little raises."""
+    path = (16, 64, 211 * 211, 32, 1)
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS // 2, K.CARD_SMEM))
+    assert K.fwd_plan(*path, device=0).blocks == K.SMS
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS, 160 * 1024))
+    one = K.fwd_plan(*path, device=0)
+    assert one.tile == 128 and one.blocks == K.SMS
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS, 64 * 1024))
+    small = K.fwd_plan(*path, device=0)
+    assert small.tile == 64 and small.smem <= 64 * 1024 and small.blocks == K.SMS
+    monkeypatch.setattr(K, "device_limits", lambda index: (K.SMS, 16 * 1024))
+    with pytest.raises(ValueError, match="shared memory"):
+        K.fwd_plan(*path, device=0)
+
+
+def test_fwd_constants_match_the_kernel_source():
+    """The tiles the entry point takes, the block (compute threads and
+    producer warps), the shared-memory layout and the lanes of a point
+    group are the plan's."""
+    src = (Path(K.__file__).resolve().parents[2] / "csrc" / "mlp_head.cu").read_text()
+    entry = src[src.index('extern "C" int uno_mlp_head_fwd'):src.index('extern "C" int uno_mlp_head_bwd')]
+    assert sorted(int(t) for t in re.findall(r"tile != (\d+)", entry)) == sorted(K.TILES)
+    assert "threads != FT" in entry and "smem != FwdSmem(C, hp, tile).bytes" in entry
+    for name, value in (("CT", K.FWD_COMPUTE), ("PW", K.FWD_PRODUCERS),
+                        ("FNP", K.FWD_POINT_GROUPS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert "constexpr int FT = CT + 32 * PW;" in src
+    layout = src[src.index("struct FwdSmem"):src.index("struct BwdSmem")]
+    for line in ("b1 = k1 + 4 * C * hp;", "k2 = b1 + 4 * hp;", "b2 = k2 + 4 * OMAX * hp;",
+                 "sh = b2 + 4 * OMAX;", "raw = sh + round_up(2 * 4 * C, 16);",
+                 "xf = raw + 2 * 2 * C * (tp + 8);", "bytes = xf + 2 * 4 * C * (tp + 4);"):
+        assert line in layout, line
+    assert "const int lanes = nhq < 32 ? nhq : 32;" in src
+
+
+def test_fwd_wrapper_raises_where_the_plan_cannot_launch():
+    """On the CPU too, for an H100: a head whose padded k1 and x tiles do
+    not fit the card's shared memory, more outputs than the accumulators
+    cover, an empty x; nothing launches."""
+    def head(c, h, o=1, n=5):
+        return K.mlp_head(torch.zeros(1, c, n, dtype=torch.bfloat16), torch.zeros(c, h),
+                          torch.zeros(h), torch.zeros(h, o), torch.zeros(o))
+
+    before = dict(K.LAUNCHES)
+    assert head(128, 256).shape == (1, 1, 5)  # uno at width 64 fits
+    with pytest.raises(ValueError, match="shared memory"):
+        head(256, 256)
+    with pytest.raises(ValueError, match="outputs"):
+        head(8, 32, 5)
+    with pytest.raises(ValueError, match="non-empty"):
+        head(8, 32, n=0)
     assert K.LAUNCHES == before

@@ -13,23 +13,40 @@
 // recomputes z from x.  The TPU versions computed erf from a polynomial
 // because Pallas had no erf; these call erff and expf.
 //
-// Forward.  What bounds it on an H100: by bytes, the bf16 read of x
-// (B*C*N*2 bytes, 91 MB at the Darcy S=211 shapes, ~30 us at the card's
-// bandwidth) against ~2*C*H FLOPs per grid point (2.9 GFLOP there), ~32 FLOP
-// per byte.  Measured, it takes 0.30 ms (~0.3 TB/s): every multiply-add
-// also issues a shared-memory load of its weight, and those instructions
-// most likely bound it (not profiled per instruction).  It beats the
-// unfused path, which also writes and re-reads an f32 (B, N, H) hidden
-// tensor.  The design:
-//   * one thread per (b, n), n fastest, so each load of x[b, c, n] and store
-//     of out[b, o, n] is coalesced;
-//   * the weights (C*H + H + H*O + O floats, 8.4 KB here) sit in shared
-//     memory; every thread of a warp reads the same weight, a broadcast;
-//   * HT hidden pre-activations live in registers: for each c, one x value
-//     feeds HT multiply-adds; then each z goes through GELU and into at most
-//     OMAX output accumulators.  H > HT takes several passes over x;
-//   * the tail of N is masked by an early return after the weights load.
-//
+// Forward.  What bounds it on an H100: operations.  Per grid point it takes
+// 2*C*H flops for z and 2*H*O for the output: 2.96 GFLOP at the Darcy S=211
+// shapes (B=16, C=64, N=44521, H=32, O=1), 0.044 ms at 67 TFLOP/s of f32
+// outside the tensor cores, against 0.028 ms for its bytes (the bf16 read
+// of x, 91 MB, and the f32 out); plus 22.8 M exact-erf GELUs, which the
+// bound leaves out.  The first design (one thread per point, every
+// multiply-add fed by a shared-memory load of its weight, each x value
+// read as one 2-byte load at an odd row offset, nothing staged, the
+// weights copied into shared memory once per 256 points) took 0.300 ms,
+// 6.8x the bound.  This one computes z from the backward's code (stage_x,
+// unpack_x, z_tile below) over tiles of TP = 128 points of one batch row,
+// with the weights in shared memory once per block and the blocks walking
+// the tiles, and splits a block's warps by role:
+//   * PW producer warps stage the x rows of tile k + 1 (16-byte cp.async
+//     into a ring of two bf16 tiles) while they unpack tile k to one of two
+//     f32 tiles, and hand it over through named barriers;
+//   * CT compute threads take items of 8 points x 4 hidden units (two
+//     float4 of x and one of k1 per channel for 32 FMAs), apply GELU and
+//     k2 in registers, and the `lanes` neighbouring threads that share the
+//     points (hidden groups hq = tid % lanes, + lanes, ..) add their partial
+//     outputs by an xor butterfly of shuffles, a fixed order; b2 goes on as
+//     the sums are stored.  No atomics: the same inputs give the same bits.
+// Scratch builds timed on the card showed why: with every warp doing every
+// phase between block barriers, the phases added up (Z, the unpack, the
+// staging, GELU in turn), and a warp's float4 shared load delivers 512
+// bytes at the SM's 128 bytes per clock, so 4 x 4 items were held by
+// shared-memory bandwidth at twice their FMA time; 8 x 4 items need a
+// third less of it.  The launch plan (ops/kernels/mlp_head.py: fwd_plan)
+// picks TP, the shared memory (109 KB at the path's shapes: two blocks of
+// 4 compute and 4 producer warps per SM) and the grid from the card's SMs
+// and shared memory.
+// Measured on an H100 80GB HBM3 (700 W), the L2 flushed before each
+// launch: 0.150 ms, 3.4x the bound, against 0.301 ms for the first design
+// in the same runs and 0.47 ms for the plain f32 version.
 //
 // Backward, given g = dL/dout (B, O, N) f32:
 //     dz[h] = (sum_o k2[h, o] g[o]) * gelu'(z[h])
@@ -78,11 +95,13 @@
 // path's shapes: two blocks of 8 warps per SM, at 128 registers a thread)
 // and the grid from the card's SMs and shared memory.
 // Measured on an H100 80GB HBM3 (700 W), the L2 flushed before each launch:
-// 0.496 ms, 3.8x the bound, against 1.61 ms for the first design and 2.01
-// ms for the plain f32 version.  A trial build without the three
-// products still took a large share of that (copies, unpacking, GELU,
-// stores), and one with a block per SM (more registers) ran slower: what
-// holds it is instructions per clock and warps per SM, not bytes.
+// 0.453 ms, 3.4x the bound, against 1.61 ms for the first design and 2.00
+// ms for the plain f32 version (0.496 ms before the staging and the unpack
+// went to a warp per row with int offsets, shared with the forward).  A
+// trial build without the three products still took a large share of that
+// (copies, unpacking, GELU, stores), and one with a block per SM (more
+// registers) ran slower: what holds it is instructions per clock and warps
+// per SM, not bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,75 +111,14 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int HT = 32;   // hidden units per pass, held in registers
-constexpr int OMAX = 4;  // output channels the accumulators cover
-
-__device__ __forceinline__ float gelu_f(float z) {
-  return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
-}
-
-__global__ void __launch_bounds__(THREADS)
-mlp_head_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                    const float* __restrict__ k1, const float* __restrict__ b1,
-                    const float* __restrict__ k2, const float* __restrict__ b2,
-                    float* __restrict__ out, int C, int N, int H, int O) {
-  extern __shared__ float smem[];
-  float* sk1 = smem;         // [C, H]
-  float* sb1 = sk1 + C * H;  // [H]
-  float* sk2 = sb1 + H;      // [H, O]
-  float* sb2 = sk2 + H * O;  // [O]
-  for (int t = threadIdx.x; t < C * H; t += THREADS) sk1[t] = k1[t];
-  for (int t = threadIdx.x; t < H; t += THREADS) sb1[t] = b1[t];
-  for (int t = threadIdx.x; t < H * O; t += THREADS) sk2[t] = k2[t];
-  for (int t = threadIdx.x; t < O; t += THREADS) sb2[t] = b2[t];
-  __syncthreads();
-
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * THREADS + threadIdx.x;
-  if (n >= N) return;
-  const __nv_bfloat16* xp = x + (size_t)b * C * N + n;
-
-  float acc[OMAX];
-#pragma unroll
-  for (int o = 0; o < OMAX; ++o) acc[o] = 0.f;
-
-  for (int h0 = 0; h0 < H; h0 += HT) {
-    float z[HT];
-#pragma unroll
-    for (int t = 0; t < HT; ++t) z[t] = (h0 + t < H) ? sb1[h0 + t] : 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float xc = __bfloat162float(xp[(size_t)c * N]);
-      const float* kr = sk1 + c * H + h0;
-#pragma unroll
-      for (int t = 0; t < HT; ++t) {
-        if (h0 + t < H) z[t] = fmaf(kr[t], xc, z[t]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < HT; ++t) {
-      if (h0 + t < H) {
-        const float a = gelu_f(z[t]);
-        const float* k2r = sk2 + (h0 + t) * O;
-#pragma unroll
-        for (int o = 0; o < OMAX; ++o) {
-          if (o < O) acc[o] = fmaf(a, k2r[o], acc[o]);
-        }
-      }
-    }
-  }
-
-  float* op = out + (size_t)b * O * N + n;
-#pragma unroll
-  for (int o = 0; o < OMAX; ++o) {
-    if (o < O) op[(size_t)o * N] = acc[o] + sb2[o];
-  }
-}
-
-// ---- backward ----------------------------------------------------------------
-constexpr int BT = 256;       // threads of a pass-1 block
+constexpr int BT = 256;       // threads of a pass-1 block of the backward
+constexpr int CT = 128;       // the forward's compute threads
+constexpr int PW = 4;         // the forward's producer warps, which stage and unpack x
+constexpr int FT = CT + 32 * PW;  // threads of a forward block
+constexpr int FNP = 2;        // a forward item's points, in groups of 4
+constexpr int OMAX = 4;       // output channels the accumulators cover
 constexpr int MAX_MT = 4;     // gk1 shares per thread
-constexpr int MAX_NHQ = 32;   // 4-unit hidden groups (H <= 128)
+constexpr int MAX_NHQ = 32;   // backward: 4-unit hidden groups (H <= 128)
 constexpr int NS = 4 + 4 * OMAX + OMAX;  // a thread's small sums: gb1, gk2, gb2
 constexpr float RSQRT2 = 0.70710678118654752f;
 constexpr float RSQRT_2PI = 0.39894228040143268f;
@@ -179,8 +137,25 @@ __host__ __device__ constexpr int bwd_mt(int C, int hp) {
   return need <= 1 ? 1 : need <= 2 ? 2 : need <= MAX_MT ? MAX_MT : need;
 }
 
-// Shared-memory layout of pass 1, byte offsets (all multiples of 16).  The
-// launch plan computes the same bytes (mlp_head.py: bwd_smem).
+// Shared-memory layout of the forward, byte offsets (all multiples of 16).
+// The launch plan computes the same bytes (mlp_head.py: fwd_smem).
+struct FwdSmem {
+  int k1, b1, k2, b2, sh, raw, xf, bytes;
+  __host__ __device__ FwdSmem(int C, int hp, int tp) {
+    k1 = 0;                                          // [C][hp]        f32
+    b1 = k1 + 4 * C * hp;                            // [hp]           f32
+    k2 = b1 + 4 * hp;                                // [OMAX][hp]     f32
+    b2 = k2 + 4 * OMAX * hp;                         // [OMAX]         f32
+    sh = b2 + 4 * OMAX;                              // 2 x [C]        int: rows' offsets
+    raw = sh + round_up(2 * 4 * C, 16);              // 2 x [C][tp+8]  bf16
+    xf = raw + 2 * 2 * C * (tp + 8);                 // 2 x [C][tp+4]  f32
+    bytes = xf + 2 * 4 * C * (tp + 4);
+  }
+};
+
+// Shared-memory layout of pass 1 of the backward, byte offsets (all
+// multiples of 16).  The launch plan computes the same bytes (mlp_head.py:
+// bwd_smem).
 struct BwdSmem {
   int k1, k1t, b1, k2, sh, raw, sg, xf, dz, end, bytes;
   __host__ __device__ BwdSmem(int C, int hp, int tp, int mt) {
@@ -219,7 +194,226 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// Named barrier `id` of n threads: bar_sync waits for the n arrivals,
+// bar_arrive counts one and goes on.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 
+// ---- the tile code of both kernels ------------------------------------------
+// A tile is TP points [n0, n0 + len) of batch row b; x and the staged rows
+// are bf16, x 16-byte aligned (the wrapper sees to it).
+
+// Copy the tile's C rows of x into one ring slot rd ([C][RS] bf16): warp w
+// of nw copies rows w, w + nw, .., a lane per 16-byte vector (TP <= 128,
+// so a row's RS / 8 <= 17 vectors), from the vector below the row's start
+// (its offset in that vector, s = e0 % 8 elements, goes to sh[c]); bytes
+// past the end of x (`total` elements, < 2^31, so offsets are ints) are
+// zeroed.
+__device__ __forceinline__ void stage_x(__nv_bfloat16* rd, int* sh,
+                                        const __nv_bfloat16* __restrict__ x, int total, int b,
+                                        int n0, int len, int C, int N, int RS, int w, int nw) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll 2
+  for (int c = w; c < C; c += nw) {
+    const int e0 = (b * C + c) * N + n0, s = e0 & 7;
+    if (lane == 0) sh[c] = s;
+    if (8 * lane < s + len) {  // s + len <= TP + 7 < RS
+      const int src = e0 - s + 8 * lane;
+      cp_async16(rd + c * RS + 8 * lane, x + src, total - src >= 8 ? 16 : 2 * (total - src));
+    }
+  }
+}
+
+// Unpack a landed slot to f32 xf[c][p] (row stride XS) without the rows'
+// offsets, zero past the tile's len points: warp w of nw unpacks the rows
+// it staged, so the row's offset is one broadcast load, a lane per point
+// p, + 32, .. (TP / 32 independent loads; the staged row holds TP + 8
+// elements, so reading past len stays inside it).
+__device__ __forceinline__ void unpack_x(float* xf, const __nv_bfloat16* rd, const int* sh,
+                                         int C, int TP, int len, int RS, int XS, int w, int nw) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll 2
+  for (int c = w; c < C; c += nw) {
+    const __nv_bfloat16* src = rd + c * RS + sh[c];
+    float* dst = xf + c * XS;
+#pragma unroll 4
+    for (int p = lane; p < TP; p += 32) {
+      const float v = __bfloat162float(src[p]);
+      dst[p] = p < len ? v : 0.f;
+    }
+  }
+}
+
+// z[p][k] = b1[4 hq + k] + sum_c xf[c][p0 + p] k1s[c][4 hq + k] for the item
+// of 4 NP points from p0 (a multiple of 4) x 4 hidden units: NP float4 of x
+// and one of k1 per channel for 16 NP FMAs, the channels in order, the
+// first one's FMAs starting from b1.
+template <int NP>
+__device__ __forceinline__ void z_tile(float (&z)[4 * NP][4], const float* xf, const float* k1s,
+                                       const float* b1s, int C, int XS, int hp, int p0,
+                                       int hq) {
+  auto channel = [&](int c, const float (&add)[4 * NP][4]) {
+    const float4 kv = *reinterpret_cast<const float4*>(k1s + c * hp + 4 * hq);
+    const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const float4 xv = *reinterpret_cast<const float4*>(xf + c * XS + p0 + 4 * q);
+      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) z[4 * q + p][k] = fmaf(xa[p], ka[k], add[4 * q + p][k]);
+    }
+  };
+  const float4 bv = *reinterpret_cast<const float4*>(b1s + 4 * hq);
+  float b[4 * NP][4];
+#pragma unroll
+  for (int p = 0; p < 4 * NP; ++p) {
+    b[p][0] = bv.x, b[p][1] = bv.y, b[p][2] = bv.z, b[p][3] = bv.w;
+  }
+  channel(0, b);
+  for (int c = 1; c < C; ++c) channel(c, z);
+}
+
+// ---- forward -----------------------------------------------------------------
+// Tiles t = (b, n0) = (t / tpr, t % tpr * TP), the block's kt-th tile t =
+// blockIdx.x + kt * gridDim.x in ring slot and f32 tile kt % 2.  Warps CT /
+// 32 .. FT / 32 - 1 produce: they stage tile kt + 1 while they unpack tile
+// kt, and hand each f32 tile to the compute threads 0 .. CT - 1 through
+// named barriers (FULL + slot: unpacked; EMPTY + slot: the products are
+// done with it).  OM: output channels held in registers (1, or OMAX for O >
+// 1).  A compute thread's items are the groups of P = 4 FNP points pg =
+// slot, + CT / lanes, .. by the hidden groups hq = hl, + lanes, .. (hl =
+// tid % lanes).
+constexpr int FULL = 1, EMPTY = 3;  // named barriers FULL + slot, EMPTY + slot
+template <int OM>
+__global__ void __launch_bounds__(FT, 2)
+mlp_head_fwd_kernel(const __nv_bfloat16* __restrict__ x,
+                    const float* __restrict__ k1, const float* __restrict__ b1,
+                    const float* __restrict__ k2, const float* __restrict__ b2,
+                    float* __restrict__ out, int B, int C, int N, int H, int O, int TP,
+                    int hp) {
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  const FwdSmem L(C, hp, TP);
+  float* k1s = reinterpret_cast<float*>(fsmem + L.k1);
+  float* b1s = reinterpret_cast<float*>(fsmem + L.b1);
+  float* k2s = reinterpret_cast<float*>(fsmem + L.k2);
+  float* b2s = reinterpret_cast<float*>(fsmem + L.b2);
+  int* shs = reinterpret_cast<int*>(fsmem + L.sh);
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(fsmem + L.raw);
+  float* xf = reinterpret_cast<float*>(fsmem + L.xf);
+  const int tid = threadIdx.x;
+  const int RS = TP + 8, XS = TP + 4;
+  const int total = B * C * N;  // < 2^31 (the wrapper checks)
+  const int tpr = (N + TP - 1) / TP;  // tiles per batch row
+  const int tiles = B * tpr;
+  const int G = gridDim.x;
+
+  // weights, zero-padded to hp hidden units and OMAX outputs
+  for (int e = tid; e < C * hp; e += FT) {
+    const int c = e / hp, h = e % hp;
+    k1s[e] = h < H ? k1[c * H + h] : 0.f;
+  }
+  for (int h = tid; h < hp; h += FT) b1s[h] = h < H ? b1[h] : 0.f;
+  for (int e = tid; e < OMAX * hp; e += FT) {
+    const int o = e / hp, h = e % hp;
+    k2s[e] = (h < H && o < O) ? k2[h * O + o] : 0.f;
+  }
+  if (tid < OMAX) b2s[tid] = tid < O ? b2[tid] : 0.f;
+  __syncthreads();
+
+  if (tid >= CT) {  // a producer warp: rows w, w + PW, .. of every tile
+    const int w = (tid - CT) / 32;
+    auto load = [&](int t, int buf) {
+      const int n0 = t % tpr * TP;
+      stage_x(raw + buf * C * RS, shs + buf * C, x, total, t / tpr, n0, min(TP, N - n0), C, N,
+              RS, w, PW);
+    };
+    if ((int)blockIdx.x < tiles) load(blockIdx.x, 0);
+    cp_async_commit();
+    int kt = 0;
+    for (int t = blockIdx.x; t < tiles; t += G, ++kt) {
+      const int buf = kt & 1, len = min(TP, N - t % tpr * TP);
+      __syncwarp();  // the warp's lanes are done reading slot buf ^ 1 (tile kt - 1)
+      if (t + G < tiles) load(t + G, buf ^ 1);
+      cp_async_commit();  // one group per tile, empty at the end
+      cp_async_wait_all_but_last();
+      __syncwarp();  // tile kt's rows of this warp have landed, from every lane
+      if (kt >= 2) bar_sync(EMPTY + buf, FT);  // the products are done with tile kt - 2
+      unpack_x(xf + buf * C * XS, raw + buf * C * RS, shs + buf * C, C, TP, len, RS, XS, w, PW);
+      bar_arrive(FULL + buf, FT);
+    }
+    return;
+  }
+
+  constexpr int P = 4 * FNP;  // an item's points
+  const int nhq = hp / 4, npg = TP / P;
+  const int lanes = nhq < 32 ? nhq : 32;  // threads that share a point group
+  const int hl = tid % lanes, slot = tid / lanes, nslot = CT / lanes;
+  int kt = 0;
+  for (int t = blockIdx.x; t < tiles; t += G, ++kt) {
+    const int b = t / tpr, n0 = t % tpr * TP, len = min(TP, N - n0), buf = kt & 1;
+    const float* xt = xf + buf * C * XS;
+    bar_sync(FULL + buf, FT);  // tile kt is unpacked into xt
+    float* ob = out + (long long)b * O * N + n0;
+    for (int pg0 = 0; pg0 < npg; pg0 += nslot) {  // the same trips for every thread
+      const int pg = pg0 + slot;
+      float acc[P][OM];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int o = 0; o < OM; ++o) acc[p][o] = 0.f;
+      if (pg < npg) {
+        for (int hq = hl; hq < nhq; hq += lanes) {
+          float z[P][4];
+          z_tile<FNP>(z, xt, k1s, b1s, C, XS, hp, P * pg, hq);
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+#pragma unroll
+            for (int k = 0; k < 4; ++k)  // gelu, exact erf
+              z[p][k] = 0.5f * z[p][k] * (1.f + erff(z[p][k] * RSQRT2));
+#pragma unroll
+          for (int o = 0; o < OM; ++o) {
+            const float4 kv = *reinterpret_cast<const float4*>(k2s + o * hp + 4 * hq);
+            const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+            for (int p = 0; p < P; ++p)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[p][o] = fmaf(z[p][k], ka[k], acc[p][o]);
+          }
+        }
+      }
+      // the lanes of a point group add their partial sums: an xor butterfly
+      for (int m = 1; m < lanes; m <<= 1)
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int o = 0; o < OM; ++o) acc[p][o] += __shfl_xor_sync(0xffffffffu, acc[p][o], m);
+      // lane (P o + p) % lanes of the group stores out[o][P pg + p] (lanes is
+      // a power of two)
+      if (pg < npg) {
+#pragma unroll
+        for (int o = 0; o < OM; ++o)
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            const int n = P * pg + p;
+            if (o < O && ((P * o + p) & (lanes - 1)) == hl && n < len)
+              ob[(long long)o * N + n] = acc[p][o] + b2s[o];
+          }
+      }
+    }
+    if (t + 2 * G < tiles) bar_arrive(EMPTY + buf, FT);  // the producers refill xt
+  }
+}
+
+// ---- backward ----------------------------------------------------------------
 // Pass 1 of the backward: gx, and one row of per-block weight-gradient sums
 // in `partial` (gridDim.x rows of E = C*H + H + H*O + O floats, laid out as
 // [gk1 | gb1 | gk2 | gb2]).  Block tiles: TP points of one batch row, tile
@@ -236,7 +430,7 @@ mlp_head_bwd_partial_kernel(const __nv_bfloat16* __restrict__ x,
                             __nv_bfloat16* __restrict__ gx,
                             float* __restrict__ partial,
                             int B, int C, int N, int H, int O, int TP, int hp) {
-  extern __shared__ __align__(16) unsigned char bsmem[];  // the forward's is f32
+  extern __shared__ __align__(16) unsigned char bsmem[];
   unsigned char* smem = bsmem;
   const BwdSmem L(C, hp, TP, MT);
   float* k1s = reinterpret_cast<float*>(smem + L.k1);
@@ -251,11 +445,10 @@ mlp_head_bwd_partial_kernel(const __nv_bfloat16* __restrict__ x,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int lg = __ffs(TP) - 1;       // TP is a power of two
   const int RS = TP + 8, XS = TP + 4, C8 = round_up(C, 8), C4 = round_up(C, 4);
-  const int NCH = RS / 8;             // 16-byte vectors per staged row
   const int nhq = hp / 4, npq = TP / 4, nrq = C4 / 4;
   const int hq = tid % nhq;           // this thread's hidden group, in Z and GK1
   const int half = tid / (BT / 2), u = tid % (BT / 2);  // GK1: which half of the points
-  const long long total = (long long)B * C * N;
+  const int total = B * C * N;  // < 2^31 (the wrapper checks)
   const int tpr = (N + TP - 1) / TP;  // tiles per batch row
   const int tiles = B * tpr;
 
@@ -275,23 +468,11 @@ mlp_head_bwd_partial_kernel(const __nv_bfloat16* __restrict__ x,
   }
   for (int e = C * XS + tid; e < C4 * XS; e += BT) xf[e] = 0.f;  // pad channels
 
-  // Copy tile t into ring slot `buf`: a warp per x row, a lane per 16-byte
-  // vector, from the vector below the row's start (its offset in that
-  // vector, s = e0 % 8 elements, goes to shs); then the g rows, zero past
-  // the row's end.
+  // Copy tile t into ring slot `buf`: the x rows (stage_x), then the g
+  // rows, zero past the row's end.
   auto load = [&](int t, int buf) {
     const int b = t / tpr, n0 = t % tpr * TP, len = min(TP, N - n0);
-    __nv_bfloat16* rd = raw + buf * C * RS;
-    for (int c = warp; c < C; c += BT / 32) {
-      const long long e0 = ((long long)b * C + c) * N + n0;
-      const int s = static_cast<int>(e0 & 7);
-      if (lane == 0) shs[buf * C + c] = s;
-      for (int j = lane; j < NCH && 8 * j < s + len; j += 32) {
-        const long long src = e0 - s + 8 * j;
-        const long long left = 2 * (total - src);  // bytes to the end of x
-        cp_async16(rd + c * RS + 8 * j, x + src, left < 16 ? static_cast<int>(left) : 16);
-      }
-    }
+    stage_x(raw + buf * C * RS, shs + buf * C, x, total, b, n0, len, C, N, RS, warp, BT / 32);
     float* gd = sg + buf * OMAX * TP;
     for (int q = tid; q < O * TP; q += BT) {
       const int o = q >> lg, p = q & (TP - 1);
@@ -332,35 +513,14 @@ mlp_head_bwd_partial_kernel(const __nv_bfloat16* __restrict__ x,
     const int* sh = shs + cb * C;
     const float* gt = sg + cb * OMAX * TP;
 
-    // unpack x to f32 [c][p], without the row's offset; zero past the end.
-    // TP divides BT, so each thread keeps one point p
-    {
-      const int p = tid & (TP - 1);
-      const bool in = p < len;
-      for (int c = tid >> lg; c < C; c += BT >> lg)
-        xf[c * XS + p] = in ? __bfloat162float(rd[c * RS + sh[c] + p]) : 0.f;
-    }
+    unpack_x(xf, rd, sh, C, TP, len, RS, XS, warp, BT / 32);
     __syncthreads();
 
     // Z: items of 4 points x the hidden group hq; dz to shared memory, the
     // small sums in registers
     for (int pq = tid / nhq; pq < npq; pq += BT / nhq) {
       float z[4][4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float bk = b1s[4 * hq + k];
-#pragma unroll
-        for (int p = 0; p < 4; ++p) z[p][k] = bk;
-      }
-      for (int c = 0; c < C; ++c) {
-        const float4 xv = *reinterpret_cast<const float4*>(xf + c * XS + 4 * pq);
-        const float4 kv = *reinterpret_cast<const float4*>(k1s + c * hp + 4 * hq);
-        const float xa[4] = {xv.x, xv.y, xv.z, xv.w}, ka[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) z[p][k] = fmaf(xa[p], ka[k], z[p][k]);
-      }
+      z_tile<1>(z, xf, k1s, b1s, C, XS, hp, 4 * pq, hq);
       float gv[OM][4];
 #pragma unroll
       for (int o = 0; o < OM; ++o) {
@@ -560,12 +720,11 @@ mlp_head_bwd_reduce_kernel(const float* __restrict__ partial, int rows, int C, i
   else gb2[e - CH - H - HO] = s;
 }
 
-// Opts mlp_head_bwd_partial_kernel<MT, OM> in to all the shared memory a
-// block may have on the current device, once per device (a bit each for
-// devices 0-63; others ask every launch).
-template <int MT, int OM>
-cudaError_t opt_in_smem() {
-  static std::atomic<unsigned long long> done{0};
+// Opts `kernel` in to all the shared memory a block may have on the current
+// device, once per device: `done` keeps a bit for each of devices 0-63
+// (others ask every launch).
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, std::atomic<unsigned long long>& done) {
   int dev = 0, most = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -573,24 +732,34 @@ cudaError_t opt_in_smem() {
   if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
   err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mlp_head_bwd_partial_kernel<MT, OM>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
 
 }  // namespace
 
+// The plan arguments (tile .. blocks) come from fwd_plan in
+// ops/kernels/mlp_head.py; a plan this file does not expect, or x off a
+// 16-byte boundary, returns cudaErrorInvalidValue without launching.
 extern "C" int uno_mlp_head_fwd(const void* x, const void* k1, const void* b1,
                                 const void* k2, const void* b2, void* out,
                                 int B, int C, int N, int H, int O,
+                                int tile, int threads, int hp, int smem, int blocks,
                                 void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)C * H + H + (size_t)H * O + O);
-  const dim3 grid((N + THREADS - 1) / THREADS, B);
-  mlp_head_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  if ((tile != 32 && tile != 64 && tile != 128) || threads != FT || hp != hidden_padded(H) ||
+      O < 1 || O > OMAX || smem != FwdSmem(C, hp, tile).bytes || blocks < 1 ||
+      (long long)blocks > (long long)B * ((N + tile - 1) / tile) ||
+      reinterpret_cast<std::uintptr_t>(x) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<unsigned long long> done[2]{};  // per kernel: O == 1, O > 1
+  const auto kernel = O == 1 ? &mlp_head_fwd_kernel<1> : &mlp_head_fwd_kernel<OMAX>;
+  const cudaError_t err = opt_in_smem(kernel, done[O == 1 ? 0 : 1]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, FT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(k1),
       static_cast<const float*>(b1), static_cast<const float*>(k2),
-      static_cast<const float*>(b2), static_cast<float*>(out), C, N, H, O);
+      static_cast<const float*>(b2), static_cast<float*>(out), B, C, N, H, O, tile, hp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -612,20 +781,17 @@ extern "C" int uno_mlp_head_bwd(const void* x, const void* g, const void* k1,
       (long long)blocks > (long long)B * ((N + tile - 1) / tile) ||
       reinterpret_cast<std::uintptr_t>(x) % 16 || reinterpret_cast<std::uintptr_t>(gx) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  // one opt-in record per kernel: [O == 1, O > 1][mt = 1, 2, 4]
+  static std::atomic<unsigned long long> done[2][3]{};
+  const int om = O == 1 ? 0 : 1, mi = mt == 1 ? 0 : mt == 2 ? 1 : 2;
   using Kernel = decltype(&mlp_head_bwd_partial_kernel<1, 1>);
-  Kernel kernel;
-  cudaError_t err;
-  if (O == 1) {
-    kernel = mt == 1 ? &mlp_head_bwd_partial_kernel<1, 1>
-             : mt == 2 ? &mlp_head_bwd_partial_kernel<2, 1> : &mlp_head_bwd_partial_kernel<4, 1>;
-    err = mt == 1 ? opt_in_smem<1, 1>() : mt == 2 ? opt_in_smem<2, 1>() : opt_in_smem<4, 1>();
-  } else {
-    kernel = mt == 1 ? &mlp_head_bwd_partial_kernel<1, OMAX>
-             : mt == 2 ? &mlp_head_bwd_partial_kernel<2, OMAX>
-                       : &mlp_head_bwd_partial_kernel<4, OMAX>;
-    err = mt == 1 ? opt_in_smem<1, OMAX>()
-          : mt == 2 ? opt_in_smem<2, OMAX>() : opt_in_smem<4, OMAX>();
-  }
+  const Kernel kernels[2][3] = {
+      {&mlp_head_bwd_partial_kernel<1, 1>, &mlp_head_bwd_partial_kernel<2, 1>,
+       &mlp_head_bwd_partial_kernel<4, 1>},
+      {&mlp_head_bwd_partial_kernel<1, OMAX>, &mlp_head_bwd_partial_kernel<2, OMAX>,
+       &mlp_head_bwd_partial_kernel<4, OMAX>}};
+  const Kernel kernel = kernels[om][mi];
+  cudaError_t err = opt_in_smem(kernel, done[om][mi]);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks, BT, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g),

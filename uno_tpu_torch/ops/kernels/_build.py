@@ -38,8 +38,8 @@ _SIGNATURES = {
     "uno_cmul_fwd": [_P, _P, _P] + [_I] * 11 + [_P],
     "uno_cmul_bwd_x": [_P, _P, _P] + [_I] * 11 + [_P],
     "uno_cmul_bwd_w": [_P, _P, _P] + [_I] * 11 + [_P],
-    "uno_mlp_head_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # B, C, N, H, O, then the launch plan (mlp_head.py: BwdPlan.args)
+    # B, C, N, H, O, then the launch plan (mlp_head.py: FwdPlan.args, BwdPlan.args)
+    "uno_mlp_head_fwd": [_P] * 6 + [_I] * 10 + [_P],
     "uno_mlp_head_bwd": [_P] * 11 + [_I] * 11 + [_P],
     # device, then where to write its SM count and opt-in shared memory
     "uno_device_limits": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],

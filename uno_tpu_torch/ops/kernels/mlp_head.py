@@ -4,11 +4,10 @@ and its backward.
 Replaces the TPU kernels ``uno_tpu/ops/pallas/mlp_head.py: _fwd_kernel``
 (launched by ``_fwd_call``; public entry ``fused_mlp_head``) and
 ``_bwd_kernel`` (launched by ``_bwd_call``; the VJP ``_fused_bwd``).  The
-hidden activation is never written to device memory: in the CUDA kernels of
-``uno_tpu_torch/csrc/mlp_head.cu`` the forward computes one grid point's
-hidden layer per thread in registers, from weights held in shared memory,
-and the backward recomputes it from x, as register-blocked products over
-tiles of grid points laid out by ``bwd_plan`` below.
+hidden activation is never written to device memory: both CUDA kernels of
+``uno_tpu_torch/csrc/mlp_head.cu`` compute it from x, with the same tile
+code, as register-blocked products over tiles of grid points, laid out by
+``fwd_plan`` and ``bwd_plan`` below.
 
 On an H100 both kernels are bound by their f32 multiply-adds (C*H per grid
 point forward, 3*C*H backward), not by reading x and writing gx (bf16,
@@ -42,10 +41,11 @@ from uno_tpu_torch.ops.kernels._build import SMS, check, device_limits, library
 # kernel launches per entry point since the counts were last set to 0
 LAUNCHES = {"fwd": 0, "bwd": 0}
 MAX_OUT = 4  # output channels the kernels' register accumulators cover
-MAX_SMEM = 48 * 1024  # forward: weights live in shared memory without an opt-in
-# the backward's constants (csrc/mlp_head.cu: BT, MAX_MT, MAX_NHQ)
+# the kernels' constants (csrc/mlp_head.cu: BT, MAX_MT, MAX_NHQ of the backward;
+# CT, PW, FNP of the forward: compute threads, producer warps, 4-point groups per item)
 BWD_THREADS, BWD_MAX_MT, BWD_MAX_NHQ = 256, 4, 32
-BWD_TILES = (128, 64, 32)  # grid points per tile, largest first
+FWD_COMPUTE, FWD_PRODUCERS, FWD_POINT_GROUPS = 128, 4, 2
+TILES = (128, 64, 32)  # grid points per tile, largest first
 BWD_SMALL_SUMS = 4 + 5 * MAX_OUT  # a thread's running gb1, gk2 and gb2 sums (csrc: NS)
 
 
@@ -98,26 +98,26 @@ def _validate(x, k1, b1, k2, b2=None) -> None:
         )
     if not 1 <= o <= MAX_OUT:
         raise ValueError(f"mlp_head covers 1..{MAX_OUT} outputs, got {o}")
-    smem = 4 * (c * h + h + h * o + o)
-    if smem > MAX_SMEM:
-        raise ValueError(f"mlp_head weights need {smem} B of shared memory > {MAX_SMEM}")
-    if not 0 < x.numel() < 2**31 or x.shape[0] > 65535:
-        raise ValueError(f"mlp_head: x must be non-empty, < 2**31 elements and "
-                         f"batch <= 65535 (the grid's y limit), got {x.shape}")
+    if not 0 < x.numel() < 2**31:
+        raise ValueError(f"mlp_head: x must be non-empty and < 2**31 elements, got {x.shape}")
 
 
 def _mlp_head_fwd(x, k1, b1, k2, b2):
-    """x (B, C, N) -> (B, O, N) f32."""
-    if x.device.type == "cpu":
-        return mlp_head_plain(x, k1, b1, k2, b2)
+    """x (B, C, N) -> (B, O, N) f32.  The plan is made on the CPU too (for an
+    H100), so that a head the kernel does not take raises there as well."""
     bsz, c, n = x.shape
     h, o = k2.shape
+    plan = fwd_plan(bsz, c, n, h, o, x.device.index if x.device.type == "cuda" else None)
+    if x.device.type == "cpu":
+        return mlp_head_plain(x, k1, b1, k2, b2)
+    if x.data_ptr() % 16:  # the kernel copies 16-byte vectors of x
+        x = x.clone()
     out = torch.empty((bsz, o, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().uno_mlp_head_fwd(
             x.data_ptr(), k1.data_ptr(), b1.data_ptr(), k2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), bsz, c, n, h, o, stream,
+            b2.data_ptr(), out.data_ptr(), bsz, c, n, h, o, *plan.args(), stream,
         )
     check(err, "uno_mlp_head_fwd")
     LAUNCHES["fwd"] += 1
@@ -128,9 +128,14 @@ def _up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def _per_sm(smem: int, max_smem: int) -> int:
+    """Blocks per SM that the grid is sized for: two where two fit."""
+    return 2 if 2 * smem <= max_smem else 1
+
+
 def bwd_hidden(h: int) -> int:
     """H padded to 4 times a power of two (csrc/mlp_head.cu: hidden_padded):
-    every thread of the backward owns whole 4-unit hidden groups."""
+    every thread of either kernel owns whole 4-unit hidden groups."""
     q = 1
     while 4 * q < h:
         q *= 2
@@ -142,6 +147,56 @@ def bwd_shares(c: int, hp: int) -> int:
     the block, rounded up to 1, 2 or 4 (csrc/mlp_head.cu: bwd_mt)."""
     need = -(-(_up(c, 4) // 4) * (hp // 4) // (BWD_THREADS // 2))
     return next((m for m in (1, 2, BWD_MAX_MT) if need <= m), need)
+
+
+def fwd_smem(c: int, hp: int, tile: int) -> int:
+    """Shared-memory bytes of a forward block (csrc/mlp_head.cu: FwdSmem):
+    k1 as [C][Hp], b1, k2 as [MAX_OUT][Hp], b2, the rows' offsets, a ring
+    of two bf16 x tiles and two f32 x tiles."""
+    return (4 * (c * hp + hp + MAX_OUT * hp + MAX_OUT) + _up(8 * c, 16)
+            + 2 * 2 * c * (tile + 8) + 2 * 4 * c * (tile + 4))
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """How the forward covers the B*N grid points: tiles of ``tile`` points
+    of one batch row, walked as the backward's (``BwdPlan``).  A block has
+    ``FWD_COMPUTE`` compute threads and ``FWD_PRODUCERS`` warps that stage
+    and unpack x.  In a tile a compute thread's items are 4 *
+    ``FWD_POINT_GROUPS`` points x 4 hidden units; min(hidden / 4, 32)
+    neighbouring threads share a point group and add their partial outputs
+    by shuffles."""
+
+    tile: int      # grid points per tile
+    threads: int
+    hidden: int    # H padded (bwd_hidden)
+    smem: int      # dynamic shared memory per block, bytes
+    blocks: int    # the grid
+
+    def args(self) -> tuple:
+        """The plan arguments of ``uno_mlp_head_fwd``."""
+        return self.tile, self.threads, self.hidden, self.smem, self.blocks
+
+
+def fwd_plan(bsz: int, c: int, n: int, h: int, o: int, device: int | None = None) -> FwdPlan:
+    """The launch plan of the forward for x (bsz, c, n) and k2 (h, o): the
+    largest tile whose shared memory (the padded k1 and the x tiles) fits
+    the card, and two blocks per SM where two fit.  ``device``: the CUDA
+    device whose SMs and shared memory the plan fills (None: an H100's).
+    Raises ValueError for a shape the kernel does not cover."""
+    if min(bsz, c, n, h, o) < 1:
+        raise ValueError(f"mlp_head: empty shape {(bsz, c, n, h, o)}")
+    if o > MAX_OUT:
+        raise ValueError(f"mlp_head covers 1..{MAX_OUT} outputs, got {o}")
+    hp = bwd_hidden(h)
+    sms, max_smem = (SMS, CARD_SMEM) if device is None else device_limits(device)
+    tile = next((t for t in TILES if fwd_smem(c, hp, t) <= max_smem), None)
+    if tile is None:
+        raise ValueError(f"mlp_head needs {fwd_smem(c, hp, TILES[-1])} B of shared memory "
+                         f"for C={c}, H={h} (padded {hp}) > the card's {max_smem}")
+    smem = fwd_smem(c, hp, tile)
+    blocks = min(bsz * -(-n // tile), _per_sm(smem, max_smem) * sms)
+    return FwdPlan(tile, FWD_COMPUTE + 32 * FWD_PRODUCERS, hp, smem, blocks)
 
 
 def bwd_smem(c: int, hp: int, tile: int, shares: int) -> int:
@@ -191,12 +246,12 @@ def bwd_plan(bsz: int, c: int, n: int, h: int, o: int, device: int | None = None
         raise ValueError(f"mlp_head_bwd: gk1 ({c} x {h}, padded {_up(c, 4)} x {hp}) needs "
                          f"{shares} register shares per thread > {BWD_MAX_MT}")
     sms, max_smem = (SMS, CARD_SMEM) if device is None else device_limits(device)
-    tile = next((t for t in BWD_TILES if bwd_smem(c, hp, t, shares) <= max_smem), None)
+    tile = next((t for t in TILES if bwd_smem(c, hp, t, shares) <= max_smem), None)
     if tile is None:
-        raise ValueError(f"mlp_head_bwd needs {bwd_smem(c, hp, BWD_TILES[-1], shares)} B of "
+        raise ValueError(f"mlp_head_bwd needs {bwd_smem(c, hp, TILES[-1], shares)} B of "
                          f"shared memory > the card's {max_smem}")
     smem = bwd_smem(c, hp, tile, shares)
-    per_sm = 2 if shares < BWD_MAX_MT and 2 * smem <= max_smem else 1
+    per_sm = _per_sm(smem, max_smem) if shares < BWD_MAX_MT else 1
     blocks = min(bsz * -(-n // tile), per_sm * sms)
     return BwdPlan(tile, BWD_THREADS, hp, shares, smem, blocks)
 
