@@ -5,10 +5,12 @@
 It drives the port's two paths on the Darcy ``darcy_s211`` preset, model
 uno9 at full width (32) on the 211x211 grid, batch 16, under the bf16
 mixed-precision policy, with random weights from a seed: serving (batch
-inference) and training.
+inference) and training, on both spectral paths (FFT, the default, and
+partial DFT); then the Darcy data generator and checkpoint/resume.
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions and both TF32 flags (set off);
+   versions, both TF32 flags and cuBLAS's reduced-precision bf16 reduction
+   flag (all set off);
 2. builds the CUDA kernels from ``uno_tpu_torch/csrc`` (nvcc, sm_90a, one
    process per source);
 3. holds each of the five kernels (contraction forward, dx, dw; head
@@ -34,9 +36,22 @@ inference) and training.
    counts set to 0 just before; checks that the losses are finite and fall
    and that every kernel launched as often as the steps and evaluation
    batches require; prints the warm ms per step and the peak device memory;
-6. computes one training loss and all gradients with the same weights on 2
+6. runs the same predict and train on the partial-DFT spectral path
+   (``UNO_TPU_TORCH_DFT=1``): the contraction kernels launch 0 times, the
+   head's as on the FFT path; prints the ms per batch and per warm step of
+   both paths from this run side by side (``[dft]``);
+7. runs the port's Darcy generator on the card, n = 32 at s = 211 with
+   threshold coefficients: its ms, CG iterations and final relative
+   residual, the coefficient values (only 4 and 12), and two of its fields
+   solved again on the card and on the CPU (``[generate]``);
+8. ``cli train --generate`` of a small darcy_s211 split for 2 epochs with
+   ``--checkpoint-dir``, ``--resume`` for a third (it must log epoch 2
+   first), then ``cli predict --checkpoint-dir``, whose output must equal a
+   forward of the restored ``best_params`` (``[checkpoint]``);
+9. computes one training loss and all gradients with the same weights on 2
    samples at 211x211 on the card and on the CPU (f32 and bf16) and bounds
-   the difference, then does the same for the forward alone.
+   the difference, then does the same for the forward alone, on the FFT path
+   and then on the DFT path (``[dft-cuda-vs-cpu]``).
 
 Any failed phase raises, and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
@@ -61,17 +76,21 @@ import torch
 from uno_tpu_torch import cli
 from uno_tpu_torch.bridge import params_from_flax, params_to_flax
 from uno_tpu_torch.configs.presets import get_preset
+from uno_tpu_torch.data.darcy_solver import generate_darcy_batch, solve_darcy
 from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.models import build_model
 from uno_tpu_torch.ops.kernels import _build
 from uno_tpu_torch.ops.kernels import cmul as cmul_k
 from uno_tpu_torch.ops.kernels import mlp_head as head_k
-from uno_tpu_torch.ops.spectral import spectral_weight_init
+from uno_tpu_torch.ops.spectral import set_dft_mode, spectral_weight_init
+from uno_tpu_torch.train.checkpoint import CheckpointManager
 
 PRESET = "darcy_s211"
 S, BATCH, NTEST = 211, 16, 16
 NPREDICT = 8 * BATCH  # the predict phase's test split: 8 batches
 NTRAIN, NVAL, EPOCHS = 64, 16, 3  # the train phase: 4 steps per epoch
+GEN_N, GEN_REL = 32, 1e-4  # the generate phase's batch; card vs CPU bound of its solves
+CK_SPLIT = (16, 8, 8)  # the checkpoint phase's generated split: one step per epoch
 # (B, Ci, Co, M = 2*m1*m2) of uno9's five spectral contractions at darcy_s211
 CMUL_SHAPES = [(16, 32, 64, 648), (16, 64, 128, 128), (16, 128, 128, 128),
                (16, 128, 64, 128), (16, 128, 32, 648)]
@@ -142,6 +161,7 @@ def phase_device() -> str:
         sys.exit(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -150,7 +170,8 @@ def phase_device() -> str:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     print(f"allow_tf32: cuda.matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32}")
+          f"cudnn={torch.backends.cudnn.allow_tf32}; allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     return smi
 
 
@@ -310,7 +331,13 @@ def _run_cli(argv) -> list:
     return [json.loads(l) for l in buf.getvalue().splitlines() if l.startswith("{")]
 
 
-def phase_predict(tmp: str) -> dict:
+def _spread(ms: list) -> str:
+    return (f"median {statistics.median(ms):.3f} fastest {min(ms):.3f} "
+            f"slowest {max(ms):.3f}")
+
+
+def phase_predict(tmp: str, tag: str = "predict", dft: bool = False) -> list:
+    """Serving on one spectral path; returns the measured run's ms per batch."""
     data, out = os.path.join(tmp, "darcy_s211.npz"), os.path.join(tmp, "preds.npz")
     _write_split(data, np.random.default_rng(0), ntest=NPREDICT)
     argv = ["predict", "--preset", PRESET, "--dtype", "bfloat16", "--init-seed", "0",
@@ -325,18 +352,21 @@ def phase_predict(tmp: str) -> dict:
     pred = np.load(out)["pred"]
     if pred.shape != (NPREDICT, S, S) or not np.isfinite(pred).all():
         raise AssertionError(f"predict output: shape {pred.shape}, finite {np.isfinite(pred).all()}")
-    if (batches != NPREDICT // BATCH or launches["cmul_fwd"] != 5 * batches
+    if report["spectral"] != ("dft" if dft else "fft") or report[
+            "allow_bf16_reduced_precision_reduction"] or any(report["allow_tf32"].values()):
+        raise AssertionError(f"predict ran with {report}")
+    if (batches != NPREDICT // BATCH or launches["cmul_fwd"] != (0 if dft else 5 * batches)
             or launches["mlp_head_fwd"] != batches
             or launches["cmul_bwd_x"] or launches["cmul_bwd_w"] or launches["mlp_head_bwd"]):
         raise AssertionError(f"predict kernel launches {launches} over {batches} batches")
-    print(f"[predict] {PRESET} uno9 bf16 b{BATCH}: {batches} warm batches, ms per batch "
-          f"median {statistics.median(ms):.3f} fastest {min(ms):.3f} slowest {max(ms):.3f} "
-          f"({[round(v, 3) for v in ms]}; first run {[round(v, 3) for v in warm['batch_ms']]}); "
-          f"launches {launches}")
-    return launches
+    print(f"[{tag}] {PRESET} uno9 bf16 b{BATCH} {report['spectral']} path: {batches} warm "
+          f"batches, ms per batch {_spread(ms)} ({[round(v, 3) for v in ms]}; first run "
+          f"{[round(v, 3) for v in warm['batch_ms']]}); launches {launches}")
+    return ms
 
 
-def phase_train(tmp: str, dev) -> dict:
+def phase_train(tmp: str, dev, tag: str = "train", dft: bool = False) -> tuple:
+    """Training on one spectral path; returns (launches, warm ms per step)."""
     data = os.path.join(tmp, "darcy_s211_train.npz")
     _write_split(data, np.random.default_rng(1), NTRAIN, NVAL)
     argv = ["train", "--preset", PRESET, "--dtype", "bfloat16", "--epochs", str(EPOCHS),
@@ -353,27 +383,113 @@ def phase_train(tmp: str, dev) -> dict:
     losses = [r[k] for r in epochs for k in ("train_rel_l2", "val_rel_l2")]
     losses.append(records[-1]["test_rel_l2"])
     if len(epochs) != EPOCHS or not np.isfinite(losses).all():
-        raise AssertionError(f"train: {len(epochs)} epochs, losses {losses}")
+        raise AssertionError(f"{tag}: {len(epochs)} epochs, losses {losses}")
     if not epochs[-1]["train_rel_l2"] < epochs[0]["train_rel_l2"]:
-        raise AssertionError(f"train: loss did not fall: {[r['train_rel_l2'] for r in epochs]}")
+        raise AssertionError(f"{tag}: loss did not fall: {[r['train_rel_l2'] for r in epochs]}")
     steps = epochs[-1]["step"]
     evals = EPOCHS * -(-NVAL // BATCH) + -(-NTEST // BATCH)  # forward-only batches
     want = {"cmul_fwd": 5 * (steps + evals), "cmul_bwd_x": 5 * steps,
             "cmul_bwd_w": 5 * steps, "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps}
     exact = ("mlp_head_fwd", "mlp_head_bwd")
+    if dft:  # the DFT path contracts with an einsum: no contraction kernel
+        want.update(cmul_fwd=0, cmul_bwd_x=0, cmul_bwd_w=0)
+        exact = tuple(want)
     if any(launches[k] < v if k not in exact else launches[k] != v for k, v in want.items()):
-        raise AssertionError(f"train kernel launches {launches}, expected {want} "
+        raise AssertionError(f"{tag} kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
     warm = [ms for r in epochs[1:] for ms in r["step_ms"]]
-    print(f"[train] {PRESET} uno9 bf16 b{BATCH}: {steps} steps in {EPOCHS} epochs, "
+    path = "dft" if dft else "fft"
+    print(f"[{tag}] {PRESET} uno9 bf16 b{BATCH} {path} path: {steps} steps in {EPOCHS} epochs, "
           f"train_rel_l2 {[round(r['train_rel_l2'], 5) for r in epochs]}, "
           f"test_rel_l2 {records[-1]['test_rel_l2']:.5f}; launches {launches}")
-    print(f"[train] ms per step: warm median {statistics.median(warm):.3f} "
+    print(f"[{tag}] ms per step: warm median {statistics.median(warm):.3f} "
           f"(epochs 2-{EPOCHS}: {[round(v, 3) for v in warm]}), first step "
           f"{epochs[0]['step_ms'][0]:.1f}; samples/s per epoch "
           f"{[round(r['samples_per_sec'], 1) for r in epochs]}; peak device memory "
           f"{peak_gb:.3f} GB; wall {wall:.1f} s")
-    return launches
+    return launches, warm
+
+
+@contextlib.contextmanager
+def _dft_path():
+    """The partial-DFT spectral path through the port's environment switch."""
+    os.environ["UNO_TPU_TORCH_DFT"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["UNO_TPU_TORCH_DFT"]
+
+
+def phase_dft(tmp: str, dev, fft_predict_ms: list, fft_train_ms: list) -> None:
+    """Serving and training at full width and depth on the partial-DFT path,
+    beside the FFT path's numbers from this run."""
+    with _dft_path():
+        dft_predict_ms = phase_predict(tmp, "dft", dft=True)
+        _, dft_train_ms = phase_train(tmp, dev, "dft", dft=True)
+    print(f"[dft] serving ms per batch of {BATCH}: dft {_spread(dft_predict_ms)}; "
+          f"fft {_spread(fft_predict_ms)}")
+    print(f"[dft] training ms per warm step: dft {_spread(dft_train_ms)}; "
+          f"fft {_spread(fft_train_ms)}")
+
+
+def phase_generate(dev) -> None:
+    """The port's Darcy generator on the card: n = 32 at s = 211, threshold
+    coefficients; two of the coefficient fields solved again on the CPU."""
+    generate_darcy_batch(torch.Generator().manual_seed(1), 1, 17, maxiter=2, device=dev)  # warm
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, p = generate_darcy_batch(torch.Generator().manual_seed(0), GEN_N, S, device=dev,
+                                info=info)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    values = sorted(a.unique().tolist())
+    if (a.shape != (GEN_N, S, S) or p.shape != a.shape or values != [4.0, 12.0]
+            or not torch.isfinite(p).all() or p.abs().max() == 0):
+        raise AssertionError(f"generate: shapes {a.shape} {p.shape}, coefficient values "
+                             f"{values}, finite {bool(torch.isfinite(p).all())}")
+    two_card = solve_darcy(a[:2], torch.ones_like(a[:2]))
+    two_cpu = solve_darcy(a[:2].cpu(), torch.ones_like(a[:2]).cpu())
+    rel = _rel(two_card, two_cpu)
+    if not rel <= GEN_REL:
+        raise AssertionError(f"generate: 2 solves card vs CPU rel-L2 {rel} > {GEN_REL}")
+    print(f"[generate] darcy n={GEN_N} s={S} threshold on the card: {ms:.1f} ms, "
+          f"CG iterations {info['iterations']} (one system for the batch), final relative "
+          f"residual {info['residual']:.3g}, coefficient values {values}; 2 of the fields "
+          f"solved on card and CPU: rel-L2 {rel:.3g} (bound {GEN_REL})")
+
+
+def phase_checkpoint(tmp: str, dev) -> None:
+    """``cli train --generate`` with checkpoints, ``--resume``, then ``cli
+    predict --checkpoint-dir`` against a forward of the restored best params."""
+    data, ck = os.path.join(tmp, "generated.npz"), os.path.join(tmp, "ck")
+    out = os.path.join(tmp, "ck_preds.npz")
+    split = ["--preset", PRESET, "--data-cache", data, "--ntrain", str(CK_SPLIT[0]),
+             "--nval", str(CK_SPLIT[1]), "--ntest", str(CK_SPLIT[2]), "--dtype", "bfloat16",
+             "--device", "cuda"]
+    first = _run_cli(["train", *split, "--generate", "--epochs", "2", "--checkpoint-dir", ck])
+    resumed = _run_cli(["train", *split, "--epochs", "3", "--checkpoint-dir", ck, "--resume"])
+    epochs = [[r["epoch"] for r in recs if "epoch" in r] for recs in (first, resumed)]
+    if epochs != [[0, 1], [2]] or not np.isfinite(resumed[-1]["test_rel_l2"]):
+        raise AssertionError(f"checkpoint: epochs {epochs}, last record {resumed[-1]}")
+    _run_cli(["predict", *split, "--checkpoint-dir", ck, "--split", "test", "--out", out])
+    z = np.load(out)
+    model = build_model("uno9", dtype="bfloat16", device=dev,
+                        generator=torch.Generator().manual_seed(0),
+                        **get_preset(PRESET).model_kwargs)
+    model.load_state_dict(CheckpointManager(ck).restore("best_params"))
+    model.eval()
+    with torch.inference_mode():
+        want = torch.cat([model(torch.from_numpy(z["input"][i : i + BATCH]).to(dev)).cpu()
+                          for i in range(0, len(z["input"]), BATCH)])[..., 0]
+    got = torch.from_numpy(z["pred"])
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"checkpoint: predict --checkpoint-dir differs from the restored "
+                             f"best params' forward: max abs {float((got - want).abs().max())}")
+    print(f"[checkpoint] train --generate (n={sum(CK_SPLIT)} at s={S}) 2 epochs with "
+          f"--checkpoint-dir, --resume logged epochs {epochs[1]} (test_rel_l2 "
+          f"{resumed[-1]['test_rel_l2']:.5f}); predict --checkpoint-dir equals the restored "
+          f"best_params' forward bit for bit on {len(got)} test samples")
 
 
 def _grads(model, x, y):
@@ -384,7 +500,7 @@ def _grads(model, x, y):
     return loss.detach(), flat
 
 
-def phase_grads_cpu_vs_cuda(dev) -> None:
+def phase_grads_cpu_vs_cuda(dev, tag: str = "grads-cuda-vs-cpu") -> None:
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((2, S, S, 1)).astype(np.float32))
     y = (x[..., 0] + x[..., 0].roll(1, 1) + x[..., 0].roll(1, 2)) / 3.0
@@ -397,13 +513,13 @@ def phase_grads_cpu_vs_cuda(dev) -> None:
         got_l, got_g = _grads(gpu, x.to(dev), y.to(dev))
         rl, rg = _rel(got_l, want_l), _rel(got_g, want_g)
         if not (torch.isfinite(got_g).all() and rl <= bound and rg <= bound):
-            raise AssertionError(f"gradients cuda vs cpu, {dtype}: loss rel {rl}, "
+            raise AssertionError(f"{tag}, {dtype}: loss rel {rl}, "
                                  f"grads rel-L2 {rg} > {bound}")
-        print(f"[grads-cuda-vs-cpu] uno9 {S}x{S} b2 {dtype}: loss rel {rl:.3g}, all "
+        print(f"[{tag}] uno9 {S}x{S} b2 {dtype}: loss rel {rl:.3g}, all "
               f"gradients rel-L2 {rg:.3g} (bound {bound})")
 
 
-def phase_cpu_vs_cuda(dev) -> None:
+def phase_cpu_vs_cuda(dev, tag: str = "cuda-vs-cpu") -> None:
     rng = np.random.default_rng(1)
     x = torch.from_numpy(np.where(rng.standard_normal((2, S, S, 1)) > 0, 12.0, 3.0)
                          .astype(np.float32))
@@ -417,8 +533,8 @@ def phase_cpu_vs_cuda(dev) -> None:
             got = gpu(x.to(dev))
         rel = _rel(got, want)
         if not (torch.isfinite(got).all() and rel <= bound):
-            raise AssertionError(f"cuda vs cpu, {dtype}: rel-L2 {rel} > {bound}")
-        print(f"[cuda-vs-cpu] uno9 {S}x{S} b2 {dtype}: rel-L2 {rel:.3g} (bound {bound})")
+            raise AssertionError(f"{tag}, {dtype}: rel-L2 {rel} > {bound}")
+        print(f"[{tag}] uno9 {S}x{S} b2 {dtype}: rel-L2 {rel:.3g} (bound {bound})")
 
 
 def main() -> int:
@@ -427,10 +543,19 @@ def main() -> int:
     phase_build()
     times = phase_kernels(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_predict(tmp)
-        launches = phase_train(tmp, dev)
+        fft_predict_ms = phase_predict(tmp)
+        launches, fft_train_ms = phase_train(tmp, dev)
+        phase_dft(tmp, dev, fft_predict_ms, fft_train_ms)
+        phase_generate(dev)
+        phase_checkpoint(tmp, dev)
     phase_grads_cpu_vs_cuda(dev)
     phase_cpu_vs_cuda(dev)
+    set_dft_mode(True)
+    try:
+        phase_grads_cpu_vs_cuda(dev, "dft-cuda-vs-cpu")
+        phase_cpu_vs_cuda(dev, "dft-cuda-vs-cpu")
+    finally:
+        set_dft_mode(None)
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
              **times[name])

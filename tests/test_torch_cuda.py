@@ -1,6 +1,7 @@
 """The port's CUDA kernels and model on the card, against their plain PyTorch
-versions, forward and backward.  Every case needs a CUDA device and skips
-without one.
+versions, forward and backward; the partial-DFT spectral path, the Darcy
+solver and checkpoints on the card against the CPU.  Every case needs a CUDA
+device and skips without one.
 
 This file imports no JAX, so it runs where the port runs; tests/conftest.py
 imports JAX, so on a machine without it run
@@ -27,6 +28,7 @@ def cuda():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -291,3 +293,88 @@ def test_uno9_on_the_card_matches_the_cpu(cuda, dtype, bound):
         c0["bwd_x"], c0["bwd_w"], h0["bwd"])
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= bound
+
+
+@pytest.fixture
+def dft_path():
+    from uno_tpu_torch.ops.spectral import set_dft_mode
+
+    set_dft_mode(True)
+    yield
+    set_dft_mode(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("shape,out_size,modes", [
+    ((2, 4, 6, 32, 32), (16, 16), (5, 4)), ((2, 3, 5, 16, 16), (10, 10), (6, 5)),
+    ((16, 32, 64, 247, 247), (123, 123), (18, 18))])  # the last: block 0 at darcy_s211
+def test_dft_conv_on_the_card_matches_the_cpu(cuda, dft_path, shape, out_size, modes, dtype,
+                                              bound):
+    """Forward and the gradients of x and the weights: cuBLAS einsums on the
+    card against the CPU's; no contraction kernel runs on this path."""
+    from uno_tpu_torch.ops.spectral import spectral_conv_2d
+
+    b, ci, co, h, w = shape
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(b, ci, h, w, generator=g).to(getattr(torch, dtype))
+    wt = _rand_c(g, 2, ci, co, *modes) / (2 * ci) ** 0.5
+    cot = torch.randn((b, co) + out_size, generator=g)
+    c0 = dict(C.LAUNCHES)
+    res = []
+    for dev in ("cpu", cuda):
+        xt = x.to(dev).detach().requires_grad_()
+        wtt = wt.to(dev).detach().requires_grad_()
+        y = spectral_conv_2d(xt, wtt, out_size, modes)
+        (y.float() * cot.to(dev)).sum().backward()
+        res.append((y, xt.grad, wtt.grad))
+    assert C.LAUNCHES == c0
+    assert res[1][0].dtype == x.dtype and res[1][1].dtype == x.dtype
+    for got, want in zip(res[1], res[0]):
+        assert torch.isfinite(torch.view_as_real(got) if got.is_complex() else got).all()
+        got, want = (torch.view_as_real(t) if t.is_complex() else t for t in (got, want))
+        assert _rel(got, want) <= bound
+
+
+@pytest.mark.cuda
+def test_solve_darcy_on_the_card_matches_the_cpu(cuda):
+    from uno_tpu_torch.data.darcy_solver import generate_darcy_batch, solve_darcy
+
+    a, _ = generate_darcy_batch(torch.Generator().manual_seed(0), 2, 33, maxiter=1)
+    f = torch.ones_like(a)
+    info_cpu, info_gpu = {}, {}
+    want = solve_darcy(a, f, info=info_cpu)
+    got = solve_darcy(a.to(cuda), f.to(cuda), info=info_gpu)
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert info_gpu["residual"] < 1e-5
+    # the same draw on the card: xi comes from the CPU generator
+    a2, p2 = generate_darcy_batch(torch.Generator().manual_seed(0), 2, 33, device=cuda)
+    assert torch.equal(a2.cpu(), a) and _rel(p2, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_a_checkpoint_saved_on_the_card_restores_on_the_cpu(cuda, tmp_path):
+    from uno_tpu_torch.optim import ComplexAdam
+    from uno_tpu_torch.train.checkpoint import CheckpointManager
+
+    kw = dict(in_width=3, width=8, pad=1)
+    gpu = build_model("uno9", generator=torch.Generator().manual_seed(0), device=cuda, **kw)
+    opt = ComplexAdam(gpu.parameters(), lr=1e-3)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 85, 85, 1))
+                         .astype(np.float32))
+    gpu(x.to(cuda)).square().mean().backward()
+    opt.step()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save("train_state", {"params": gpu.state_dict(), "optimizer": opt.state_dict()["state"],
+                             "step": 1, "epoch": 0, "best_val": 0.5})
+    got = mgr.restore("train_state")
+    cpu = build_model("uno9", generator=torch.Generator().manual_seed(5), **kw)
+    cpu.load_state_dict(got["params"])
+    ocpu = ComplexAdam(cpu.parameters(), lr=1e-3)
+    ocpu.load_state_dict({"state": got["optimizer"],
+                          "param_groups": ocpu.state_dict()["param_groups"]})
+    for (n, p1), (_, p2) in zip(gpu.named_parameters(), cpu.named_parameters()):
+        assert p2.device.type == "cpu" and torch.equal(p1.cpu(), p2), n
+    for st in ocpu.state.values():
+        assert st["step"] == 1 and st["exp_avg"].device.type == "cpu"

@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it never imports JAX, and its framework-free
 copies of uno_tpu code (spec dataclasses, 2-D factories, Darcy presets and
-their TrainConfig, resample tables) stay equal to the originals."""
+their TrainConfig, resample tables, partial-DFT tables, the GRF's DCT
+matrix) stay equal to the originals."""
 
 import dataclasses
 import os
@@ -11,11 +12,15 @@ import numpy as np
 import pytest
 
 from uno_tpu.configs import presets as jpresets
+from uno_tpu.data import grf as jgrf
+from uno_tpu.ops import dft as jdft
 from uno_tpu.models import core as jcore
 from uno_tpu.models import uno2d as juno2d
 from uno_tpu.ops.resample import resize_matrix as j_resize_matrix
 from uno_tpu.train import common as jcommon
 from uno_tpu_torch.configs import presets as tpresets
+from uno_tpu_torch.data import grf as tgrf
+from uno_tpu_torch.ops import dft as tdft
 from uno_tpu_torch.models import MODEL_REGISTRY
 from uno_tpu_torch.models import core as tcore
 from uno_tpu_torch.ops.resample import resize_matrix
@@ -94,3 +99,28 @@ def test_resize_matrix_equals_uno_tpus(kernel, align_corners, antialias):
         want = j_resize_matrix(n_in, n_out, kernel, align_corners, antialias)
         assert got.dtype == want.dtype
         assert np.array_equal(got, want), (n_in, n_out)
+
+
+@pytest.mark.parametrize("n", [15, 16, 211])
+def test_dft_tables_equal_uno_tpus(n):
+    for idx in ((0, 1, 2, n - 3, n - 2, n - 1), tuple(range(n // 2 + 1))):
+        for scaled in (True, False):
+            for name in ("_fwd_real_T", "_fwd_cplx_T", "_inv_cplx_T"):
+                got = getattr(tdft, name)(n, idx, scaled)
+                want = getattr(jdft, name)(n, idx, scaled)
+                assert got.dtype == want.dtype and np.array_equal(got, want), (name, idx)
+            for c, w in zip(tdft._cs(n, idx, 3.0), jdft._cs(n, idx, 3.0)):
+                assert np.array_equal(c, w)
+    for m in (1, 3, n // 2 + 1):
+        for scaled in (True, False):
+            got, want = tdft._inv_real_T(m, n, scaled), jdft._inv_real_T(m, n, scaled)
+            assert got.dtype == want.dtype and np.array_equal(got, want), m
+    for name in ("_fwd_real_T", "_fwd_cplx_T", "_inv_cplx_T", "_inv_real_T"):
+        assert getattr(tdft, name).cache_info().maxsize == 256
+    assert tdft.PLANE_AXIS == jdft.PLANE_AXIS
+
+
+def test_idct2_matrix_equals_uno_tpus():
+    for s in (1, 8, 33, 211):
+        got, want = tgrf._idct2_matrix(s), jgrf._idct2_matrix(s)
+        assert got.dtype == want.dtype and np.array_equal(got, want), s

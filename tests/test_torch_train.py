@@ -283,10 +283,12 @@ def test_training_after_inference_in_one_process():
 
 
 def test_train_config_raises_on_fields_not_ported():
-    for kw in (dict(checkpoint_dir="ck"), dict(resume=True), dict(checkpoint_every=2),
-               dict(tensor_parallel=True), dict(log_tensorboard="tb")):
+    for kw in (dict(tensor_parallel=True), dict(log_tensorboard="tb")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainConfig(**kw)
+    # checkpoints are ported
+    cfg = TrainConfig(checkpoint_dir="ck", resume=True, checkpoint_every=2)
+    assert (cfg.checkpoint_dir, cfg.resume, cfg.checkpoint_every) == ("ck", True, 2)
 
 
 def _split_cache(path, s=85, ntrain=2, nval=1, ntest=1):

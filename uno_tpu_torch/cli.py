@@ -1,23 +1,45 @@
 """Command-line entry point of the PyTorch port.
 
-    python -m uno_tpu_torch.cli train --preset darcy_s211 --data-cache D.npz \\
-        [--dtype bfloat16] [--device cuda] [--epochs N] [--log run.jsonl]
+    python -m uno_tpu_torch.cli train --preset darcy_s211 \\
+        (--data-cache D.npz | --generate [--data-cache D.npz]) \\
+        [--dtype bfloat16] [--device cuda] [--epochs N] [--log run.jsonl] \\
+        [--checkpoint-dir CK [--checkpoint-every K] [--resume]]
     python -m uno_tpu_torch.cli predict --preset darcy_s211 \\
-        --data-cache D.npz (--params P.npz | --init-seed N) \\
+        (--data-cache D.npz | --generate ...) \\
+        (--params P.npz | --init-seed N | --checkpoint-dir CK) \\
         --split test --out preds.npz [--dtype bfloat16] [--device cuda]
+    python -m uno_tpu_torch.cli eval --preset darcy_s211 \\
+        (--data-cache D.npz | --generate ...) --checkpoint-dir CK
+    python -m uno_tpu_torch.cli generate --task darcy --out darcy.mat \\
+        [--n 100] [--size 421] [--seed 0] [--device cuda]
 
 ``train`` is the counterpart of ``uno_tpu``'s ``cli train`` for the Darcy
-presets: it reads the six-key split ``.npz`` that ``uno_tpu``'s
-``--data-cache`` writes, draws the model's weights from the preset's seed,
-and runs ``train.darcy.train_darcy``, printing one JSON line per epoch and a
-final ``test_rel_l2`` line.
+presets: it reads or writes the six-key split ``.npz`` (``--data-cache``),
+draws the model's weights from the preset's seed, and runs
+``train.darcy.train_darcy``, printing one JSON line per epoch and a final
+``test_rel_l2`` line.  With ``--checkpoint-dir`` it saves the best params
+and the training state, and ``--resume`` continues from that state.
+
+``--generate`` makes the preset's split with the port's Darcy generator
+(``data/darcy_solver.py``) on ``--device``, in batches of 64 from a
+``torch.Generator`` seeded with the preset's seed; with ``--data-cache`` an
+existing cache is loaded and a missing one is written.  A cache carries
+``uno_tpu``'s six keys and its ``config_sig``, so a cache written by either
+package loads in the other.  The two generators draw the same law from
+different random streams: for one seed they write different samples, and
+held-out numbers of the two packages compare only on one cache file.
 
 ``predict`` is batch inference, the counterpart of ``uno_tpu``'s ``cli
-predict``: it reads the six-key split ``.npz`` that ``uno_tpu``'s
-``--data-cache`` writes, runs the preset's model over one split, and writes
-``input``, ``pred`` and ``target`` to ``--out``.  Weights come from an
-``.npz`` param tree (``uno_tpu_torch/bridge.py``) or are drawn from a seed.
-The port has no data generator and no Orbax checkpoint restore yet.
+predict``: it runs the preset's model over one split and writes ``input``,
+``pred`` and ``target`` to ``--out``.  Weights come from a checkpoint's best
+params, from an ``.npz`` param tree (``uno_tpu_torch/bridge.py``), or are
+drawn from a seed.  ``eval`` reports a checkpoint's val and test rel-L2.
+``generate --task darcy`` writes ``coeff`` and ``sol`` to a ``.mat`` file.
+
+``UNO_TPU_TORCH_DFT=1`` runs the spectral transforms as partial-DFT matmuls
+(``ops/spectral.py``) instead of FFTs.  Every entry point turns TF32 and
+cuBLAS's reduced-precision bf16 reductions off and states it in its output.
+The NS tasks are not ported yet (ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -60,26 +82,73 @@ def _gen_sig(preset) -> str:
     ])
 
 
-def _load_split_cache(path: str, sig: str):
-    """The six split arrays of a ``--data-cache`` npz; a cache whose
-    signature differs from the current config raises."""
-    if not os.path.exists(path):
+def _cached(path, gen_fn, sig: str):
+    """The six split arrays: loaded from ``path`` if it exists (a cache
+    whose signature differs from the current config raises), else made by
+    ``gen_fn`` and saved there, as ``uno_tpu``'s ``_cached`` does."""
+    if path and os.path.exists(path):
+        with np.load(path) as z:
+            stored = str(z["config_sig"]) if "config_sig" in z.files else None
+            if stored is None:
+                print(f"warning: data cache {path} predates config signatures; "
+                      f"assuming it matches {sig!r}")
+            elif stored != sig:
+                raise SystemExit(
+                    f"data cache {path} was generated with a different config:\n"
+                    f"  cache:   {stored}\n  current: {sig}\n"
+                    "delete the cache or point --data-cache elsewhere"
+                )
+            return tuple(z[k] for k in _SPLIT_KEYS)
+    if gen_fn is None:
+        raise SystemExit(f"data cache {path} not found: pass --generate to write it")
+    data = gen_fn()
+    if path:
+        np.savez(path, **dict(zip(_SPLIT_KEYS, data)), config_sig=np.asarray(sig))
+    return data
+
+
+def _gen_darcy(preset, device):
+    """The preset's split from the port's Darcy generator, as ``uno_tpu``'s
+    ``_gen_darcy`` lays it out: s = 421 subsampled by ``sub``, batches of
+    64, train then val then test."""
+    from uno_tpu_torch.data.darcy_solver import generate_darcy_batch
+
+    s = int((421 - 1) / preset.sub) + 1
+    n = preset.ntrain + preset.nval + preset.ntest
+    gen = torch.Generator().manual_seed(preset.train.seed)
+    bs = max(1, min(64, n))
+    a_list, p_list = [], []
+    for done in range(0, n, bs):
+        a, p = generate_darcy_batch(gen, min(bs, n - done), s, device=device)
+        a_list.append(a.cpu().numpy())
+        p_list.append(p.cpu().numpy())
+    a = np.concatenate(a_list)[..., None]
+    p = np.concatenate(p_list)
+    i1 = preset.ntrain
+    i2 = i1 + preset.nval
+    return (a[:i1], p[:i1], a[i1:i2], p[i1:i2], a[i2:], p[i2:])
+
+
+def _load_data(args, preset, device):
+    """The preset's six-array split from ``--data-cache`` and ``--generate``,
+    the same way for train, predict and eval."""
+    if not args.generate and not args.data_cache:
+        raise SystemExit("pass --data-cache with a split npz, or --generate")
+    gen_fn = (lambda: _gen_darcy(preset, device)) if args.generate else None
+    return _cached(args.data_cache, gen_fn, _gen_sig(preset))
+
+
+def _restore_best(model, directory: str) -> None:
+    """Load a checkpoint's ``best_params`` into ``model``."""
+    from uno_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckpt = CheckpointManager(directory)
+    if not ckpt.exists("best_params"):
         raise SystemExit(
-            f"data cache {path} not found: the port has no data generator yet; "
-            "write one with `python -m uno_tpu.cli train --generate --data-cache`"
+            f"no best_params checkpoint under {directory}: was the run trained "
+            "with --checkpoint-dir and at least one validation pass?"
         )
-    with np.load(path) as z:
-        stored = str(z["config_sig"]) if "config_sig" in z.files else None
-        if stored is None:
-            print(f"warning: data cache {path} predates config signatures; "
-                  f"assuming it matches {sig!r}")
-        elif stored != sig:
-            raise SystemExit(
-                f"data cache {path} was generated with a different config:\n"
-                f"  cache:   {stored}\n  current: {sig}\n"
-                "delete the cache or point --data-cache elsewhere"
-            )
-        return tuple(z[k] for k in _SPLIT_KEYS)
+    model.load_state_dict(ckpt.restore("best_params"))
 
 
 def _device(name: str) -> torch.device:
@@ -94,9 +163,39 @@ def _device(name: str) -> torch.device:
 
 def _no_tf32() -> None:
     """Full-f32 matmuls and convolutions on the card (both default to TF32
-    in some torch versions); stated in the output."""
+    in some torch versions), and bf16 products accumulated in f32 (cuBLAS
+    may otherwise reduce split sums in bf16); stated in the output."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _precision_report() -> dict:
+    from uno_tpu_torch.ops.spectral import _dft_enabled
+
+    return {
+        "spectral": "dft" if _dft_enabled() else "fft",
+        "allow_tf32": {"cuda.matmul": torch.backends.cuda.matmul.allow_tf32,
+                       "cudnn": torch.backends.cudnn.allow_tf32},
+        "allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+    }
+
+
+def _darcy_preset(args):
+    preset = _build_preset(args)
+    if preset.task != "darcy":
+        raise SystemExit(f"{args.cmd}: only Darcy presets are ported, not {preset.task} "
+                         "(ROADMAP.md Queue 1 item 6)")
+    return preset
+
+
+def _model(args, preset, device, seed=None):
+    from uno_tpu_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(preset.train.seed if seed is None else seed)
+    return build_model(preset.model, dtype=args.dtype, device=device, generator=gen,
+                       **preset.model_kwargs)
 
 
 class _Tee:
@@ -119,19 +218,21 @@ class _Tee:
 
 def cmd_train(args) -> int:
     """Train a Darcy preset's model on a split cache; JSONL metrics."""
-    from uno_tpu_torch.models import build_model
     from uno_tpu_torch.train.darcy import train_darcy
     from uno_tpu_torch.train.metrics import MetricLogger
 
     device = _device(args.device)
     _no_tf32()
-    preset = _build_preset(args)
-    if preset.task != "darcy":
-        raise SystemExit(f"train: only Darcy presets are ported, not {preset.task}")
-    data = _load_split_cache(args.data_cache, _gen_sig(preset))
-    gen = torch.Generator().manual_seed(preset.train.seed)
-    model = build_model(preset.model, dtype=args.dtype, device=device,
-                        generator=gen, **preset.model_kwargs)
+    preset = _darcy_preset(args)
+    if args.checkpoint_dir:
+        preset = dataclasses.replace(preset, train=dataclasses.replace(
+            preset.train, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every, resume=args.resume))
+    elif args.resume:
+        raise SystemExit("train --resume needs --checkpoint-dir")
+    data = _load_data(args, preset, device)
+    model = _model(args, preset, device)
+    print(f"precision {json.dumps(_precision_report())}")
     tee = _Tee(args.log) if args.log else None
     try:
         train_darcy(model, *data, preset.train, logger=MetricLogger(tee))
@@ -144,24 +245,19 @@ def cmd_train(args) -> int:
 def cmd_predict(args) -> int:
     """Batch inference over one split; writes (input, pred, target)."""
     from uno_tpu_torch.bridge import load_npz, params_from_flax
-    from uno_tpu_torch.models import build_model
 
     device = _device(args.device)
     _no_tf32()
-    preset = _build_preset(args)
-    if preset.task != "darcy":
-        raise SystemExit(f"predict: only Darcy presets are ported, not {preset.task}")
-    data = _load_split_cache(args.data_cache, _gen_sig(preset))
+    preset = _darcy_preset(args)
+    data = _load_data(args, preset, device)
     split = {"train": 0, "val": 2, "test": 4}[args.split]
     a, u = data[split], data[split + 1]
 
-    gen = torch.Generator().manual_seed(
-        args.init_seed if args.init_seed is not None else preset.train.seed
-    )
-    model = build_model(preset.model, dtype=args.dtype, device=device,
-                        generator=gen, **preset.model_kwargs)
+    model = _model(args, preset, device, seed=args.init_seed)
     if args.params:
         params_from_flax(model, load_npz(args.params))
+    elif args.checkpoint_dir:
+        _restore_best(model, args.checkpoint_dir)
     model.eval()
 
     s = u.shape[1]
@@ -181,11 +277,73 @@ def cmd_predict(args) -> int:
         "predict": preset.name, "model": preset.model,
         "dtype": model.spec.dtype, "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "batch_size": bs, "n": int(len(a)), "batch_ms": batch_ms,
-        "allow_tf32": {"cuda.matmul": torch.backends.cuda.matmul.allow_tf32,
-                       "cudnn": torch.backends.cudnn.allow_tf32},
+        "batch_size": bs, "n": int(len(a)), "batch_ms": batch_ms, **_precision_report(),
     }))
     return 0
+
+
+def cmd_eval(args) -> int:
+    """A checkpoint's best params on the preset's val and test splits."""
+    from uno_tpu_torch.train.evaluate import evaluate_darcy
+
+    device = _device(args.device)
+    _no_tf32()
+    preset = _darcy_preset(args)
+    _, _, val_a, val_u, test_a, test_u = _load_data(args, preset, device)
+    model = _model(args, preset, device)
+    _restore_best(model, args.checkpoint_dir)
+    model.eval()
+    out = {"task": preset.task, "preset": preset.name, "checkpoint": args.checkpoint_dir}
+    for split, a, u in (("val", val_a, val_u), ("test", test_a, test_u)):
+        if len(a):
+            out[f"{split}_rel_l2"] = evaluate_darcy(model, a, u, preset.train.batch_size)
+    out.update(_precision_report())
+    line = json.dumps(out)
+    print(line)
+    if args.log:
+        with open(args.log, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+def cmd_generate(args) -> int:
+    """Darcy (coefficient, solution) pairs to a ``.mat`` file."""
+    import scipy.io
+
+    from uno_tpu_torch.data.darcy_solver import generate_darcy_batch
+
+    if args.task != "darcy":
+        raise SystemExit("generate --task ns is not ported yet: ROADMAP.md Queue 1 item 6 "
+                         "(GaussianRF and the NS solver)")
+    device = _device(args.device)
+    _no_tf32()
+    a, p = generate_darcy_batch(torch.Generator().manual_seed(args.seed), args.n,
+                                args.size or 421, device=device)
+    scipy.io.savemat(args.out, {"coeff": a.cpu().numpy(), "sol": p.cpu().numpy()})
+    print(f"wrote {args.out}")
+    return 0
+
+
+def _add_data_args(p: argparse.ArgumentParser) -> None:
+    """The preset, its split and the device: common to train, predict and eval."""
+    p.add_argument("--preset", required=True)
+    p.add_argument("--data-cache", default=None,
+                   help="six-key split npz (uno_tpu's or the port's); with "
+                        "--generate it is written if missing")
+    p.add_argument("--generate", action="store_true",
+                   help="make the split with the port's Darcy generator on --device")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; a missing CUDA device raises")
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype (bf16 mixed-precision policy: params, "
+                        "optimizer and loss stay f32)")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--ntrain", type=int, default=None)
+    p.add_argument("--nval", type=int, default=None)
+    p.add_argument("--ntest", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None,
+                   help="the preset's seed: weights, batch order, the "
+                        "generator and the data-cache signature")
 
 
 def main(argv=None) -> int:
@@ -193,57 +351,56 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser(
-        "train", help="train a Darcy preset's model on a split cache",
+        "train", help="train a Darcy preset's model",
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="Not ported yet, with the ROADMAP.md item that brings each:\n"
-               "  --generate, --data         Queue 1 item 9 (data generators, loaders)\n"
-               "  --checkpoint-dir, --resume Queue 1 item 4 (checkpoints)\n"
+               "  NS presets, generate --task ns\n"
+               "                             Queue 1 item 6 (NS-2D, NS-3D)\n"
+               "  --data (.mat loaders)      Queue 1 item 9 (data loaders)\n"
                "  --data-parallel, --spatial, --tensor-parallel\n"
                "                             Queue 1 item 8 (parallel/)",
     )
-    p.add_argument("--preset", required=True)
-    p.add_argument("--data-cache", required=True,
-                   help="six-key split npz written by uno_tpu's --data-cache")
-    p.add_argument("--device", default="cuda",
-                   help="torch device; a missing CUDA device raises")
-    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
-                   help="compute dtype (bf16 mixed-precision policy: params, "
-                        "optimizer and loss stay f32)")
+    _add_data_args(p)
     p.add_argument("--epochs", type=int, default=None)
-    p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--learning-rate", type=float, default=None)
     p.add_argument("--weight-decay", type=float, default=None)
-    p.add_argument("--ntrain", type=int, default=None)
-    p.add_argument("--nval", type=int, default=None)
-    p.add_argument("--ntest", type=int, default=None)
-    p.add_argument("--seed", type=int, default=None,
-                   help="the preset's seed: weights, batch order and the "
-                        "data-cache signature")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save best_params and train_state here")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="epochs between train_state saves (with --checkpoint-dir); "
+                        "best params are saved on every improvement")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from --checkpoint-dir's train_state")
     p.add_argument("--log", default=None,
                    help="append metric JSONL to this file (also printed to stdout)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict", help="batch inference over a data split")
-    p.add_argument("--preset", required=True)
-    p.add_argument("--data-cache", required=True,
-                   help="six-key split npz written by uno_tpu's --data-cache")
+    _add_data_args(p)
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--params", help="npz param tree (uno_tpu_torch.bridge)")
     src.add_argument("--init-seed", type=int,
                      help="draw random weights from this seed instead")
+    src.add_argument("--checkpoint-dir", help="a training run's best params")
     p.add_argument("--split", default="test", choices=["train", "val", "test"])
     p.add_argument("--out", required=True, help="output npz path")
-    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
-                   help="compute dtype (bf16 mixed-precision policy)")
+    p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("eval", help="a checkpoint's val and test rel-L2")
+    _add_data_args(p)
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--log", default=None, help="append the result line to this file")
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("generate", help="Darcy data to a .mat file")
+    p.add_argument("--task", choices=["darcy", "ns"], required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--n", type=int, default=100)
+    p.add_argument("--size", type=int, default=None, help="grid (default 421)")
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; a missing CUDA device raises")
-    p.add_argument("--batch-size", type=int, default=None)
-    p.add_argument("--seed", type=int, default=None,
-                   help="the preset's seed (part of the data-cache signature)")
-    p.add_argument("--ntrain", type=int, default=None)
-    p.add_argument("--nval", type=int, default=None)
-    p.add_argument("--ntest", type=int, default=None)
-    p.set_defaults(fn=cmd_predict)
+    p.set_defaults(fn=cmd_generate)
 
     args = parser.parse_args(argv)
     return args.fn(args)

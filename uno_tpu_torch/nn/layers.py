@@ -13,8 +13,9 @@ Weights are stored in torch's layout: a Dense or 1x1 conv weight is
 ``[out, in]`` (flax keeps ``[in, out]``; ``uno_tpu_torch/bridge.py``
 transposes).  Layers take channels-first ``(B, C, H, W)`` input and an
 ``out_size`` grid at call time.  Under the bf16 policy the matmuls run in
-bf16 with f32 accumulation; spectral transforms, spectral weights and norm
-statistics stay f32.
+bf16 with f32 accumulation; spectral weights and norm statistics stay f32,
+and so do the spectral transforms on the FFT path (on the partial-DFT path
+they take bf16 operands, ``ops/spectral.py``).
 """
 
 from __future__ import annotations
@@ -149,8 +150,10 @@ class OperatorBlock(nn.Module):
             self.norm_bias = nn.Parameter(torch.zeros(out_codim, device=device))
 
     def forward(self, x: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
-        # the spectral path is f32 and W is in the compute dtype, so under
-        # bf16 the sum, norm and GELU run in f32 before the final cast
+        # uno_tpu's dtype flow: W is in the compute dtype; the spectral conv
+        # is f32 on the FFT path, so under bf16 the sum, norm and GELU run in
+        # f32 before the final cast, and bf16 on the DFT path, where they
+        # run in bf16 (the norm's statistics in f32)
         out = self.conv(x, out_size) + self.w(x, out_size)
         if self.normalize:
             out = instance_norm(out, self.norm_scale, self.norm_bias)

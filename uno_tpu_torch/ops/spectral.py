@@ -1,32 +1,61 @@
-"""Spectral (Fourier) integral operators: the FFT path of
-``uno_tpu/ops/spectral.py``.
+"""Spectral (Fourier) integral operators: port of the 2-D conv of
+``uno_tpu/ops/spectral.py``, on both of its transform paths.
 
 Behavioural contract, as in ``uno_tpu``:
 
-* ``norm="forward"`` on both FFT directions, so zero-padding / truncation in
-  the Fourier domain acts as value-preserving trigonometric interpolation.
+* ``norm="forward"`` on both transform directions, so zero-padding /
+  truncation in the Fourier domain acts as value-preserving trigonometric
+  interpolation.
 * Only the low-|k| corner blocks of the rfft2 spectrum are multiplied by
   learned complex weights; the rest of the output spectrum is zero, sized by
   the requested output grid, so the same layer resamples the domain.
-* The transforms run in f32 whatever the input dtype, and the output is f32.
 
-The per-mode complex contraction goes through the CUDA kernels of
-``ops/kernels/cmul.py`` (forward and both gradients).  Everything around it
-is differentiated by torch autograd: ``rfft2``/``irfft2``, the corner
-gather and the slice writes into the output spectrum, where a positive-kx
-row that the negative-kx block overwrites gets a zero gradient, as
-``uno_tpu``'s ``_unslice_pm`` gives it on the DFT path.  The partial-DFT
-transform path (``uno_tpu``'s ``ops/dft.py``) is not ported yet.
+Two paths compute it, chosen by ``set_dft_mode`` or, when that is left at
+None, by the environment variable ``UNO_TPU_TORCH_DFT=1``:
+
+* **FFT** (the default on every device until an H100 measurement decides):
+  ``rfft2``/``irfft2`` in f32 whatever the input dtype, f32 output.  The
+  per-mode complex contraction goes through the CUDA kernels of
+  ``ops/kernels/cmul.py`` (forward and both gradients); everything around it
+  is differentiated by torch autograd, where a positive-kx row that the
+  negative-kx block overwrites gets a zero gradient.
+* **Partial DFT** (``uno_tpu``'s default on the TPU): every stage is one
+  einsum against a table of ``ops/dft.py`` on (re, im)-plane data, and the
+  contraction is one einsum against a 2x2 block weight tensor.  A bf16
+  input runs with bf16 operands and f32 accumulation and gives a bf16
+  output; anything else computes in f32.  Its backward is written by hand as
+  the mirrored chain of transposed stages (``_DFTConv2d``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence, Tuple
 
 import torch
 
+from uno_tpu_torch.ops import dft
 from uno_tpu_torch.ops.kernels.cmul import cmul
+
+# Transform policy: None = the environment decides (UNO_TPU_TORCH_DFT=1 turns
+# the partial-DFT path on, anything else leaves the FFT path), True/False =
+# forced.  uno_tpu picks the DFT path on the TPU; the port keeps the FFT path
+# until the H100 bench picks one.
+_DFT_MODE = None
+
+
+def set_dft_mode(enabled) -> None:
+    """Force (True/False) or leave to the environment (None) the partial-DFT
+    matmul path of the spectral transforms."""
+    global _DFT_MODE
+    _DFT_MODE = enabled
+
+
+def _dft_enabled() -> bool:
+    if _DFT_MODE is not None:
+        return _DFT_MODE
+    return os.environ.get("UNO_TPU_TORCH_DFT") == "1"
 
 
 def spectral_weight_init(
@@ -69,7 +98,8 @@ def spectral_conv_2d(
     out_size: Tuple[int, int],
     modes: Tuple[int, int],
 ) -> torch.Tensor:
-    """2D spectral conv.  x: (B, Ci, H, W) real -> (B, Co, d1, d2) f32.
+    """2D spectral conv.  x: (B, Ci, H, W) real -> (B, Co, d1, d2): f32 on
+    the FFT path; on the DFT path bf16 for a bf16 x, else f32.
 
     weights: (2, Ci, Co, m1, m2) complex64 — block 0 multiplies the
     ``[:m1, :m2]`` (non-negative kx) corner, block 1 the ``[-m1:, :m2]``
@@ -82,6 +112,8 @@ def spectral_conv_2d(
         raise ValueError(f"modes {modes} incompatible with in {tuple(x.shape)} out {out_size}")
 
     w = torch.cat([weights[0], weights[1]], dim=2)  # (Ci, Co, 2*m1, m2)
+    if _dft_enabled():
+        return _DFTConv2d.apply(x, w, (d1, d2), (m1, m2))
     x_ft = torch.fft.rfft2(x.float(), norm="forward")
     corners = torch.cat([x_ft[:, :, :m1, :m2], x_ft[:, :, h - m1 :, :m2]], dim=2)
     out = complex_mode_matmul(corners, w)  # (B, Co, 2*m1, m2)
@@ -95,3 +127,132 @@ def spectral_conv_2d(
     out_ft[:, :, :n_top, :m2] = out[:, :, :n_top]
     out_ft[:, :, d1 - m1 :, :m2] = out[:, :, m1:]
     return torch.fft.irfft2(out_ft, s=(d1, d2), norm="forward")
+
+
+# --- the partial-DFT path -----------------------------------------------------
+
+
+def _w_blocks(w: torch.Tensor) -> torch.Tensor:
+    """2x2 block tensor of a complex weight: blk[p_in, q_out] with
+    out_q = sum_p x_p @ blk[p, q].  Shape (2, 2, Ci, Co, *modes), real."""
+    wr, wi = w.real, w.imag
+    return torch.stack([torch.stack([wr, wi]), torch.stack([-wi, wr])])
+
+
+def _blk_einsum(ein: str, a: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
+    """bf16 operands with f32 accumulation and a bf16 output for a bf16
+    ``a``; else f32 (float64 stays float64)."""
+    dt = dft.compute_dtype(a.dtype)
+    return torch.einsum(ein, a.to(dt), blk.to(dt))
+
+
+def _cmul_planes(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Complex mode contraction on packed-plane data as one einsum.
+
+    xp: (B, Ci, 2, *modes) (plane axis at dft.PLANE_AXIS); w: (Ci, Co,
+    *modes) complex.  Returns (B, Co, 2, *modes): per-mode complex matmul
+    over Ci, through a 2x2 block weight tensor so both output planes come
+    out of one product.
+    """
+    ms = "xyz"[: w.ndim - 2]
+    return _blk_einsum(f"aiu{ms},uvio{ms}->aov{ms}", xp, _w_blocks(w))
+
+
+def _cmul_planes_t(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Transpose of ``_cmul_planes`` with respect to its input (same block
+    tensor, contraction flipped)."""
+    ms = "xyz"[: w.ndim - 2]
+    return _blk_einsum(f"aov{ms},uvio{ms}->aiu{ms}", g, _w_blocks(w))
+
+
+def _cmul_grad_w(xp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Cotangent of ``_cmul_planes`` with respect to the complex weight, in
+    torch's convention dL/dRe + i dL/dIm (``uno_tpu`` returns the conjugate,
+    the JAX convention).
+
+    f32 accumulation and an f32 result in both precisions: bf16 operands are
+    widened first, which is exact (a product of two bf16 values fits in
+    f32), so this is bf16 products summed in f32, as in ``uno_tpu``.
+    """
+    ms = "xyz"[: xp.ndim - 3]
+    dt = torch.float64 if xp.dtype == torch.float64 else torch.float32
+    gblk = torch.einsum(f"aiu{ms},aov{ms}->uvio{ms}", xp.to(dt), g.to(dt))
+    dwr = gblk[0, 0] + gblk[1, 1]
+    dwi = gblk[0, 1] - gblk[1, 0]
+    return torch.complex(dwr, dwi)
+
+
+def _keep_idx(m: int, d: int):
+    """Output-spectrum row bookkeeping for one +/- mode axis: the positive
+    block keeps its first min(m, d-m) rows (the reference's overlapping
+    corner writes are last-write-wins), the FFT path's ``n_top``."""
+    n_keep = min(m, d - m)
+    return n_keep, tuple(range(n_keep)) + tuple(range(d - m, d))
+
+
+def _slice_pm(out: torch.Tensor, axis: int, m: int, n_keep: int) -> torch.Tensor:
+    """Keep rows [:n_keep] and [m:] of a +/- stacked mode axis."""
+    lo = out.narrow(axis, 0, n_keep)
+    hi = out.narrow(axis, m, m)
+    return torch.cat([lo, hi], dim=axis)
+
+
+def _unslice_pm(g: torch.Tensor, axis: int, m: int, n_keep: int) -> torch.Tensor:
+    """Transpose of ``_slice_pm``: scatter kept-row cotangents back to the
+    2m-row layout (dropped rows get zeros)."""
+    ax = axis % g.ndim
+    lo = g.narrow(ax, 0, n_keep)
+    hi = g.narrow(ax, n_keep, g.shape[ax] - n_keep)
+    if m - n_keep:
+        shape = list(g.shape)
+        shape[ax] = m - n_keep
+        return torch.cat([lo, g.new_zeros(shape), hi], dim=ax)
+    return torch.cat([lo, hi], dim=ax)
+
+
+def _dft_in(x: torch.Tensor) -> torch.Tensor:
+    """Compute dtype entering the DFT transforms: bf16 stays bf16 (the
+    mixed-precision policy), float64 stays float64, anything else is f32."""
+    return x.to(dft.compute_dtype(x.dtype))
+
+
+def _rows(m1: int, h: int) -> tuple:
+    """The kept input rows: the non-negative then the negative kx corner."""
+    return tuple(range(m1)) + tuple(range(h - m1, h))
+
+
+class _DFTConv2d(torch.autograd.Function):
+    """The 2-D conv on the partial-DFT path (``uno_tpu``'s ``_dft_conv2d``).
+
+    x: (B, Ci, H, W); w: (Ci, Co, 2*m1, m2) complex, the two corner blocks
+    stacked along kx.  The backward is the mirrored chain of ``dft.t_*``
+    transposes, not autograd of the einsums, and returns the weight's
+    gradient in torch's complex convention."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_size, modes):
+        (d1, d2), (m1, m2) = out_size, modes
+        h, w_in = x.shape[-2:]
+        xp = dft.fwd_real(_dft_in(x), -2, h, _rows(m1, h))
+        xp = dft.fwd_cplx(xp, -1, w_in, range(m2))  # (B, Ci, 2, 2*m1, m2)
+        out = _cmul_planes(xp, w)  # (B, Co, 2, 2*m1, m2)
+        n_top, idx_out = _keep_idx(m1, d1)
+        yp = dft.inv_cplx(_slice_pm(out, -2, m1, n_top), -2, d1, idx_out)
+        ctx.save_for_backward(xp, w)
+        ctx.geometry = (out_size, modes, (h, w_in), x.dtype)
+        return dft.inv_real(yp, -1, d2)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        (d1, d2), (m1, m2), (h, w_in), xdtype = ctx.geometry
+        n_top, idx_out = _keep_idx(m1, d1)
+        gyp = dft.t_inv_real(_dft_in(g), -1, m2, d2)
+        gout = _unslice_pm(dft.t_inv_cplx(gyp, -2, d1, idx_out), -2, m1, n_top)
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gxp = dft.t_fwd_cplx(_cmul_planes_t(gout, w), -1, w_in, range(m2))
+            gx = dft.t_fwd_real(gxp, -2, h, _rows(m1, h)).to(xdtype)
+        gw = _cmul_grad_w(xp, gout).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw, None, None

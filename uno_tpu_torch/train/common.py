@@ -15,12 +15,10 @@ from typing import Dict, Optional
 import torch
 
 from uno_tpu_torch.optim import ComplexAdam, step_lr
+from uno_tpu_torch.train.checkpoint import CheckpointManager
 
 # fields the port does not implement yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    "checkpoint_dir": "ROADMAP.md Queue 1 item 4 (checkpoints)",
-    "checkpoint_every": "ROADMAP.md Queue 1 item 4 (checkpoints)",
-    "resume": "ROADMAP.md Queue 1 item 4 (checkpoints)",
     "tensor_parallel": "ROADMAP.md Queue 1 item 8 (parallel/)",
     "log_tensorboard": "ROADMAP.md Queue 1 item 7 (metrics, profiling)",
 }
@@ -124,16 +122,19 @@ class GracefulStop:
 
 class BestTracker:
     """Reference best-val selection: keep a copy of the model's state dict,
-    on its device, whenever val improves.  There is no checkpoint manager
-    yet (ROADMAP.md Queue 1 item 4)."""
+    on its device, whenever val improves, and save it as ``best_params``
+    when there is a checkpoint manager."""
 
-    def __init__(self):
+    def __init__(self, ckpt: Optional[CheckpointManager] = None):
         self.best_val = float("inf")
         self.best_state: Optional[Dict[str, torch.Tensor]] = None
+        self.ckpt = ckpt
 
     def update(self, val: float, model: torch.nn.Module) -> bool:
         if val < self.best_val:
             self.best_val = val
             self.best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            if self.ckpt is not None:
+                self.ckpt.save("best_params", self.best_state)
             return True
         return False

@@ -6,6 +6,17 @@ epoch; keep the params on val improvement; reload the best for the final
 test pass.  The same ``numpy`` batch order as ``uno_tpu``: one permutation
 per train epoch from ``default_rng(cfg.seed)``; evaluation draws nothing.
 
+Checkpoints, as in ``uno_tpu``: with ``cfg.checkpoint_dir`` the best params
+are saved on each improvement (``best_params``), and the training state
+(params, optimizer state with its step count, step, epoch, best val) every
+``checkpoint_every`` epochs (those with ``epoch % checkpoint_every == 0``)
+and on a graceful stop (``train_state``).  ``cfg.resume`` restores it and
+continues from the next epoch.  Like ``uno_tpu``'s, a resumed run draws its
+batch order from a fresh ``default_rng(cfg.seed)``: its first epoch visits
+the batches of the first run's epoch 0, not those an uninterrupted run would
+have visited; and its best params start unset, so unless val improves the
+final test pass uses the last params.
+
 Mechanics on the card: every split is moved to the model's device once; an
 epoch's batch indices go over in one copy and batches are gathered there;
 the losses are summed in a device tensor read once per epoch.  Nothing in a
@@ -23,6 +34,7 @@ import torch
 
 from uno_tpu_torch.data.batching import epoch_batches, num_batches
 from uno_tpu_torch.losses import relative_lp_loss
+from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import (
     BestTracker,
     GracefulStop,
@@ -113,11 +125,28 @@ def train_darcy(
                 count += len(idx)
         return float(total) / max(count, 1)
 
-    best = BestTracker()
+    ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    best = BestTracker(ckpt)
     step = 0
+    start_epoch = 0
+    if cfg.resume and ckpt is not None and ckpt.exists("train_state"):
+        restored = ckpt.restore("train_state")
+        model.load_state_dict(restored["params"])
+        opt.load_state_dict({"state": restored["optimizer"],
+                             "param_groups": opt.state_dict()["param_groups"]})
+        step = restored["step"]
+        start_epoch = restored["epoch"] + 1
+        best.best_val = restored["best_val"]
+
+    def save_state(epoch: int) -> None:
+        ckpt.save("train_state", {
+            "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
+            "step": step, "epoch": epoch, "best_val": best.best_val,
+        })
+
     stopped = False
     with GracefulStop() as stop:
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
             total = torch.zeros((), device=device)
             seen = 0
@@ -151,7 +180,11 @@ def train_darcy(
                     "step_ms": clock.ms(),
                 }
             )
+            if ckpt is not None and cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0:
+                save_state(epoch)
             if stop.requested:
+                if ckpt is not None:
+                    save_state(epoch)
                 logger.log({"task": "darcy", "stopped_early_after_epoch": epoch})
                 stopped = True
                 break
