@@ -6,7 +6,10 @@ It drives the port's two paths on the Darcy ``darcy_s211`` preset, model
 uno9 at full width (32) on the 211x211 grid, batch 16, under the bf16
 mixed-precision policy, with random weights from a seed: serving (batch
 inference) and training, on both spectral paths (FFT, the default, and
-partial DFT); then the Darcy data generator and checkpoint/resume.
+partial DFT); then the Darcy data generator and checkpoint/resume; then the
+same two paths on the NS-2D ``ns2d`` preset, model uno at full width (32) on
+the 64x64 grid, batch 16, each sample a 40-step autoregressive rollout
+(training: full BPTT, each step rematerialised), and the NS generator.
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, both TF32 flags and cuBLAS's reduced-precision bf16 reduction
@@ -48,21 +51,38 @@ partial DFT); then the Darcy data generator and checkpoint/resume.
    ``--checkpoint-dir``, ``--resume`` for a third (it must log epoch 2
    first), then ``cli predict --checkpoint-dir``, whose output must equal a
    forward of the restored ``best_params`` (``[checkpoint]``);
-9. computes one training loss and all gradients with the same weights on 2
+9. NS-2D: the five kernels again at ns2d's shapes (``[kernels ns2d]``: the
+   seven uno contractions, the (16, 64, 64*64, 128, 1) head, whose backward
+   runs its plan of 4 gk1 shares, one block per SM); the NS generator on
+   the card, a batch of 20 on the fast profile (25,000 steps) and 200 steps
+   from one w0 on the card and the CPU (``[ns-generate]``); ``cli predict
+   --preset ns2d`` over 8 batches of 16 trajectories, warm and measured,
+   280 contraction and 40 head launches per batch and no backward
+   (``[ns-predict]``); ``cli train --preset ns2d --generate`` of a 32/4/4
+   split for 3 epochs, validation on epochs 0 and 2, a falling loss, and
+   each kernel's launches from the steps and evaluation batches: every
+   step's forward runs twice, the checkpoint's recompute included
+   (``[ns-train]``: warm ms per step, peak device memory);
+10. computes one training loss and all gradients with the same weights on 2
    samples at 211x211 on the card and on the CPU (f32 and bf16) and bounds
    the difference, then does the same for the forward alone, on the FFT path
-   and then on the DFT path (``[dft-cuda-vs-cpu]``).
+   and then on the DFT path (``[dft-cuda-vs-cpu]``); then the NS-2D rollout's
+   loss, trajectory and gradients at T_f = 2 on 2 samples at 64x64
+   (``[ns-cuda-vs-cpu]``).
 
 Any failed phase raises, and the script exits non-zero.  The line before the
-last is ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, and
+the NS-2D path's under ``ns2d``); the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -77,6 +97,8 @@ from uno_tpu_torch import cli
 from uno_tpu_torch.bridge import params_from_flax, params_to_flax
 from uno_tpu_torch.configs.presets import get_preset
 from uno_tpu_torch.data.darcy_solver import generate_darcy_batch, solve_darcy
+from uno_tpu_torch.data.grf import GaussianRF
+from uno_tpu_torch.data.ns_solver import default_forcing, navier_stokes_2d
 from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.models import build_model
 from uno_tpu_torch.ops.kernels import _build
@@ -84,6 +106,7 @@ from uno_tpu_torch.ops.kernels import cmul as cmul_k
 from uno_tpu_torch.ops.kernels import mlp_head as head_k
 from uno_tpu_torch.ops.spectral import set_dft_mode, spectral_weight_init
 from uno_tpu_torch.train.checkpoint import CheckpointManager
+from uno_tpu_torch.train.ns2d import make_rollout
 
 PRESET = "darcy_s211"
 S, BATCH, NTEST = 211, 16, 16
@@ -96,6 +119,15 @@ CMUL_SHAPES = [(16, 32, 64, 648), (16, 64, 128, 128), (16, 128, 128, 128),
                (16, 128, 64, 128), (16, 128, 32, 648)]
 # head: B, C (32 from block 4 + 32 from the lift skip), N = 211**2, H, O
 HEAD_SHAPE = (16, 64, S * S, 32, 1)
+NS_PRESET, NS_S = "ns2d", 64  # uno, width 32, T_in 10, T_f 40, batch 16
+NS_PREDICT = 8 * BATCH  # the ns-predict phase's test split: 8 batches of 16 trajectories
+NS_SPLIT = (32, 4, 4)  # the ns-train phase's generated split: 2 steps per epoch
+NS_GEN_N, NS_GEN_REL, NS_SHORT_STEPS = 20, 1e-4, 200  # ns-generate: a batch; card vs CPU
+# (B, Ci, Co, M = 2*m1*m2) of uno's seven spectral contractions at ns2d
+NS_CMUL_SHAPES = [(16, 32, 48, 968), (16, 48, 96, 392), (16, 96, 192, 72), (16, 192, 192, 72),
+                  (16, 192, 96, 72), (16, 192, 48, 392), (16, 96, 32, 968)]
+# head: B, C (32 from block 6 + 32 from the lift skip), N = 64**2, H = 4 * width, O
+NS_HEAD_SHAPE = (16, 64, NS_S * NS_S, 128, 1)
 CMUL_ATOL, HEAD_REL = 1e-4, 1e-5          # the CPU tests' bounds
 HEAD_GX_REL = 4e-3                         # gx is bf16: one ulp
 E2E_REL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -222,7 +254,10 @@ def _cmul_case(name, kernel, plain, args, flush, res):
     return err, km, pm, bound
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, cmul_shapes=CMUL_SHAPES, head_shape=HEAD_SHAPE,
+                  tag: str = "kernels") -> dict:
+    """The five kernels at one path's shapes: errors, bits, times, bounds;
+    summed per kernel over the shapes."""
     g = torch.Generator().manual_seed(0)
     flush = torch.ones(256 * 2**20, dtype=torch.uint8, device=dev)  # 5x the 50 MB L2
     res = {}
@@ -230,9 +265,9 @@ def phase_kernels(dev) -> dict:
                                      torch.randn(*s, generator=g)).to(dev)
     one = torch.zeros(1, device=dev)
     floor = statistics.median(_time_ms(lambda: one.add_(1), flush))
-    print(f"[kernels] timing floor: a one-element add timed the same way takes {floor:.4f} ms")
+    print(f"[{tag}] timing floor: a one-element add timed the same way takes {floor:.4f} ms")
 
-    for b, ci, co, m in CMUL_SHAPES:
+    for b, ci, co, m in cmul_shapes:
         # activations and cotangents at unit scale, weights from the init
         x, gy = crand(b, ci, m), crand(b, co, m)
         w = spectral_weight_init(ci, co, (m,), 1, g, dev)[0].contiguous()
@@ -243,11 +278,11 @@ def phase_kernels(dev) -> dict:
                   "einsum conj(x).g")]
         for name, kernel, plain, args, what in cases:
             err, km, pm, (bd, by) = _cmul_case(name, kernel, plain, args, flush, res)
-            print(f"[kernels] {name} B={b} Ci={ci} Co={co} M={m}: max_abs_err {err:.3g}, "
+            print(f"[{tag}] {name} B={b} Ci={ci} Co={co} M={m}: max_abs_err {err:.3g}, "
                   f"same bits twice; kernel {km:.4f} ms  plain = library ({what}) {pm:.4f} ms"
                   f"  bound {bd:.4f} ms ({by})")
 
-    b, c, n, h, o = HEAD_SHAPE
+    b, c, n, h, o = head_shape
     x = torch.randn(b, c, n, generator=g).to(dev, torch.bfloat16)
     bound = lambda *s: (torch.rand(*s, generator=g) * 2 - 1).to(dev)
     k1, b1 = bound(c, h) / c**0.5, bound(h) / c**0.5
@@ -258,7 +293,7 @@ def phase_kernels(dev) -> dict:
     torch.cuda.synchronize()
     rel, err = _rel(got, want), float((got - want).abs().max())
     if not rel <= HEAD_REL:
-        raise AssertionError(f"mlp_head {HEAD_SHAPE}: rel-L2 {rel} > {HEAD_REL}")
+        raise AssertionError(f"mlp_head {head_shape}: rel-L2 {rel} > {HEAD_REL}")
     if not torch.equal(got, again):
         raise AssertionError("mlp_head: two runs on the same inputs differ")
     km, pm = _turns(lambda: head_k.mlp_head(x, k1, b1, k2, b2),
@@ -266,7 +301,7 @@ def phase_kernels(dev) -> dict:
     wbytes = 4 * (c * h + h + h * o + o)
     # reads bf16 x and the weights, writes f32 out; 2 flops per multiply-add
     bd = _bound(2 * x.numel() + wbytes + 4 * got.numel(), 2.0 * b * n * (c * h + h * o))
-    print(f"[kernels] mlp_head_fwd B={b} C={c} N={n} H={h} O={o}: rel-L2 {rel:.3g} "
+    print(f"[{tag}] mlp_head_fwd B={b} C={c} N={n} H={h} O={o}: rel-L2 {rel:.3g} "
           f"max_abs_err {err:.3g}, same bits twice; kernel {km:.4f} ms  plain (unfused "
           f"f32) {pm:.4f} ms  bound {bd[0]:.4f} ms ({bd[1]}); no one-call library version")
     _add(res, "mlp_head_fwd", err, km, pm, bd, None)
@@ -280,7 +315,7 @@ def phase_kernels(dev) -> dict:
     rels = [_rel(a, w_) for a, w_ in zip(got, want)]
     err = max(float((a.float() - w_.float()).abs().max()) for a, w_ in zip(got, want))
     if not (rels[0] <= HEAD_GX_REL and max(rels[1:]) <= HEAD_REL):
-        raise AssertionError(f"mlp_head_bwd {HEAD_SHAPE}: rel-L2 (gx, gk1, gb1, gk2, gb2) "
+        raise AssertionError(f"mlp_head_bwd {head_shape}: rel-L2 (gx, gk1, gb1, gk2, gb2) "
                              f"{rels} > ({HEAD_GX_REL}, {HEAD_REL})")
     if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
         raise AssertionError("mlp_head_bwd: two runs on the same inputs differ")
@@ -290,14 +325,16 @@ def phase_kernels(dev) -> dict:
     # recomputes z (CH), then dh (HO), gx (CH), gk1 (CH) and gk2 (HO)
     bd = _bound(4 * x.numel() + 4 * gy.numel() + wbytes - 4 * o + wbytes,
                 2.0 * b * n * (3 * c * h + 2 * h * o))
-    print(f"[kernels] mlp_head_bwd B={b} C={c} N={n} H={h} O={o}: rel-L2 gx {rels[0]:.3g} "
+    plan = head_k.bwd_plan(b, c, n, h, o, dev.index)
+    print(f"[{tag}] mlp_head_bwd B={b} C={c} N={n} H={h} O={o}: rel-L2 gx {rels[0]:.3g} "
           f"weights {max(rels[1:]):.3g}, same bits twice, max_abs_err {err:.3g}; "
           f"kernel {km:.4f} ms  plain (f32 channels-last) {pm:.4f} ms  bound {bd[0]:.4f} ms "
-          f"({bd[1]}); no one-call library version")
+          f"({bd[1]}); no one-call library version; plan: {plan.shares} gk1 shares, "
+          f"{plan.smem} B shared memory, {plan.blocks} blocks")
     _add(res, "mlp_head_bwd", err, km, pm, bd, None)
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"[kernels] {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+        print(f"[{tag}] {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}  bound {r['bound_ms']:.4f} ms (summed over its shapes)")
     for r in res.values():
         r["bound_by"] = "bytes" if r.pop("bytes_ms") >= r.pop("flops_ms") else "operations"
@@ -537,17 +574,178 @@ def phase_cpu_vs_cuda(dev, tag: str = "cuda-vs-cpu") -> None:
         print(f"[{tag}] uno9 {S}x{S} b2 {dtype}: rel-L2 {rel:.3g} (bound {bound})")
 
 
+def _write_ns_split(path: str, rng, ntest: int) -> None:
+    """An ns2d test split with the signature uno_tpu's cli writes: inputs
+    and targets of unit scale, the vorticity's."""
+    a = rng.standard_normal((ntest, NS_S, NS_S, 10)).astype(np.float32)
+    u = rng.standard_normal((ntest, NS_S, NS_S, 40)).astype(np.float32)
+    preset = dataclasses.replace(get_preset(NS_PRESET), ntrain=0, nval=0, ntest=ntest)
+    empty_a, empty_u = a[:0], u[:0]
+    np.savez(path, train_a=empty_a, train_u=empty_u, val_a=empty_a, val_u=empty_u,
+             test_a=a, test_u=u, config_sig=np.asarray(cli._gen_sig(preset)))
+
+
+def phase_ns_generate(dev) -> float:
+    """The port's NS generator on the card: one batch of 20 at 64x64 on the
+    fast profile (dt 1e-3, T = 25: 25,000 steps, 50 frames); then 200 steps
+    from the same w0 on the card and on the CPU.  Returns its ms."""
+    preset = get_preset(NS_PRESET)
+    frames = preset.t_in + preset.t_f
+    grf = GaussianRF(2, NS_S, alpha=2.5, tau=7.0)
+    f = default_forcing(NS_S, dev)
+    navier_stokes_2d(grf.sample(torch.Generator().manual_seed(1), 1, device=dev), f,
+                     visc=1e-3, T=2e-3, delta_t=1e-3)  # warm: cuFFT plans
+    w0 = grf.sample(torch.Generator().manual_seed(0), NS_GEN_N, device=dev)
+    horizon, dt = frames * 0.5, 1e-3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, sol_t = navier_stokes_2d(w0, f, visc=1e-3, T=horizon, delta_t=dt, record_steps=frames)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    steps = math.ceil(horizon / dt) // frames * frames
+    want_t = np.arange(1, frames + 1) * 0.5
+    if (sol.shape != (NS_GEN_N, NS_S, NS_S, frames) or not torch.isfinite(sol).all()
+            or not np.allclose(sol_t.numpy(), want_t, rtol=1e-6)):
+        raise AssertionError(f"ns-generate: shape {tuple(sol.shape)}, finite "
+                             f"{bool(torch.isfinite(sol).all())}, sol_t {sol_t.tolist()}")
+    short = dict(visc=1e-3, T=NS_SHORT_STEPS * dt, delta_t=dt, record_steps=4)
+    card, _ = navier_stokes_2d(w0[:4], f, **short)
+    cpu, _ = navier_stokes_2d(w0[:4].cpu(), f.cpu(), **short)
+    rel, moved = _rel(card, cpu), _rel(cpu[..., -1], w0[:4].cpu())
+    if not rel <= NS_GEN_REL:
+        raise AssertionError(f"ns-generate: {NS_SHORT_STEPS} steps card vs CPU rel-L2 {rel} "
+                             f"> {NS_GEN_REL}")
+    print(f"[ns-generate] navier_stokes_2d n={NS_GEN_N} s={NS_S} on the card, fast profile "
+          f"(dt {dt:g}, T {horizon:g}: {steps} steps, {frames} frames): {ms:.1f} ms "
+          f"({ms / steps * 1e3:.2f} us per step), sol_t {sol_t[0]:.1f}..{sol_t[-1]:.1f}, "
+          f"finite; {NS_SHORT_STEPS} steps from the same w0 (4 fields) on card and CPU: "
+          f"rel-L2 {rel:.3g} (bound {NS_GEN_REL}; the field moved {moved:.3g} from w0)")
+    return ms
+
+
+def phase_ns_predict(tmp: str) -> list:
+    """``cli predict --preset ns2d``: 8 batches of 16 trajectories, each a
+    40-step rollout; returns the measured run's ms per batch."""
+    data, out = os.path.join(tmp, "ns2d.npz"), os.path.join(tmp, "ns_preds.npz")
+    _write_ns_split(data, np.random.default_rng(3), NS_PREDICT)
+    t_f = get_preset(NS_PRESET).t_f
+    argv = ["predict", "--preset", NS_PRESET, "--dtype", "bfloat16", "--init-seed", "0",
+            "--data-cache", data, "--ntrain", "0", "--nval", "0", "--ntest", str(NS_PREDICT),
+            "--split", "test", "--out", out, "--device", "cuda"]
+    warm = _run_cli(argv)[-1]
+    _zero_launches()
+    report = _run_cli(argv)[-1]
+    launches = _launches()
+    ms = report["batch_ms"]
+    batches = len(ms)
+    pred = np.load(out)["pred"]
+    if pred.shape != (NS_PREDICT, NS_S, NS_S, t_f) or not np.isfinite(pred).all():
+        raise AssertionError(f"ns-predict output: shape {pred.shape}, "
+                             f"finite {np.isfinite(pred).all()}")
+    if (batches != NS_PREDICT // BATCH or launches["cmul_fwd"] != 7 * t_f * batches
+            or launches["mlp_head_fwd"] != t_f * batches
+            or launches["cmul_bwd_x"] or launches["cmul_bwd_w"] or launches["mlp_head_bwd"]):
+        raise AssertionError(f"ns-predict kernel launches {launches} over {batches} batches")
+    print(f"[ns-predict] {NS_PRESET} uno bf16 b{BATCH} T_f={t_f}: {batches} warm batches, ms per "
+          f"batch {_spread(ms)} ({[round(v, 3) for v in ms]}; first run "
+          f"{[round(v, 3) for v in warm['batch_ms']]}); launches {launches}")
+    return ms
+
+
+def phase_ns_train(tmp: str, dev) -> tuple:
+    """``cli train --preset ns2d --generate``: a generated 32/4/4 split, 3
+    epochs of 2 steps of the 40-step rollout with full BPTT, validation on
+    epochs 0 and 2; returns (launches, warm ms per step)."""
+    data = os.path.join(tmp, "ns2d_train.npz")
+    t_f = get_preset(NS_PRESET).t_f
+    ntrain, nval, ntest = NS_SPLIT
+    argv = ["train", "--preset", NS_PRESET, "--dtype", "bfloat16", "--epochs", str(EPOCHS),
+            "--device", "cuda", "--generate", "--data-cache", data, "--ntrain", str(ntrain),
+            "--nval", str(nval), "--ntest", str(ntest)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    records = _run_cli(argv)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    epochs = [r for r in records if "train_step_rel_l2" in r]
+    evaluated = [r for r in epochs if "val_step_rel_l2" in r]
+    losses = [r[k] for r in epochs for k in r if k.endswith("rel_l2")]
+    losses += [records[-1]["test_step_rel_l2"], records[-1]["test_traj_rel_l2"]]
+    if (len(epochs) != EPOCHS or [r["epoch"] for r in evaluated] != [0, 2]
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"ns-train: {len(epochs)} epochs, validated "
+                             f"{[r['epoch'] for r in evaluated]}, losses {losses}")
+    if not epochs[-1]["train_step_rel_l2"] < epochs[0]["train_step_rel_l2"]:
+        raise AssertionError(f"ns-train: loss did not fall: "
+                             f"{[r['train_step_rel_l2'] for r in epochs]}")
+    steps = epochs[-1]["step"]
+    evals = len(evaluated) * -(-nval // BATCH) + -(-ntest // BATCH)  # forward-only batches
+    # each training step runs every rollout step's forward twice (the
+    # checkpoint's recompute) and its backward once
+    want = {"cmul_fwd": 7 * t_f * (2 * steps + evals), "cmul_bwd_x": 7 * t_f * steps,
+            "cmul_bwd_w": 7 * t_f * steps, "mlp_head_fwd": t_f * (2 * steps + evals),
+            "mlp_head_bwd": t_f * steps}
+    if launches != want:
+        raise AssertionError(f"ns-train kernel launches {launches}, expected {want} "
+                             f"({steps} steps, {evals} eval batches)")
+    warm = [ms for r in epochs[1:] for ms in r["step_ms"]]
+    print(f"[ns-train] {NS_PRESET} uno bf16 b{BATCH} T_f={t_f} BPTT: generated {sum(NS_SPLIT)} "
+          f"trajectories, {steps} steps in {EPOCHS} epochs, train_step_rel_l2 "
+          f"{[round(r['train_step_rel_l2'], 5) for r in epochs]}, val_step_rel_l2 "
+          f"{[round(r['val_step_rel_l2'], 5) for r in evaluated]}, test step/traj "
+          f"{records[-1]['test_step_rel_l2']:.5f}/{records[-1]['test_traj_rel_l2']:.5f}; "
+          f"launches {launches}")
+    print(f"[ns-train] ms per step: warm median {statistics.median(warm):.3f} "
+          f"(epochs 2-{EPOCHS}: {[round(v, 3) for v in warm]}), first step "
+          f"{epochs[0]['step_ms'][0]:.1f}; peak device memory {peak_gb:.3f} GB; wall "
+          f"{wall:.1f} s (generation included)")
+    return launches, warm
+
+
+def phase_ns_cuda_vs_cpu(dev) -> None:
+    """The 2-step rollout's loss and all gradients of uno at full width, 2
+    samples at 64x64, with the same weights on the card and the CPU."""
+    rng = np.random.default_rng(4)
+    xx = torch.from_numpy(rng.standard_normal((2, NS_S, NS_S, 10)).astype(np.float32))
+    yy = xx[..., -1:] + 0.1 * torch.from_numpy(
+        rng.standard_normal((2, NS_S, NS_S, 2)).astype(np.float32))
+    kw = get_preset(NS_PRESET).model_kwargs
+    for dtype, bound in GRAD_REL.items():
+        cpu = build_model("uno", dtype=dtype, generator=torch.Generator().manual_seed(0), **kw)
+        gpu = build_model("uno", dtype=dtype, device=dev, **kw)
+        params_from_flax(gpu, params_to_flax(cpu))
+        out = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            loss, pred = make_rollout(model, 2)(xx.to(d), yy.to(d))
+            loss.backward()
+            out.append((loss.detach(), pred.detach(), torch.cat([
+                torch.view_as_real(p.grad).flatten() if p.is_complex() else p.grad.flatten()
+                for p in model.parameters()])))
+        rl, rp, rg = (_rel(g, w) for g, w in zip(out[1], out[0]))
+        if not (torch.isfinite(out[1][2]).all() and max(rl, rp, rg) <= bound):
+            raise AssertionError(f"ns-cuda-vs-cpu, {dtype}: loss rel {rl}, pred {rp}, "
+                                 f"grads rel-L2 {rg} > {bound}")
+        print(f"[ns-cuda-vs-cpu] uno {NS_S}x{NS_S} b2 T_f=2 {dtype}: loss rel {rl:.3g}, "
+              f"trajectory rel-L2 {rp:.3g}, all gradients rel-L2 {rg:.3g} (bound {bound})")
+
+
 def main() -> int:
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     times = phase_kernels(dev)
+    ns_times = phase_kernels(dev, NS_CMUL_SHAPES, NS_HEAD_SHAPE, "kernels ns2d")
     with tempfile.TemporaryDirectory() as tmp:
         fft_predict_ms = phase_predict(tmp)
         launches, fft_train_ms = phase_train(tmp, dev)
         phase_dft(tmp, dev, fft_predict_ms, fft_train_ms)
         phase_generate(dev)
         phase_checkpoint(tmp, dev)
+        phase_ns_generate(dev)
+        phase_ns_predict(tmp)
+        ns_launches, _ = phase_ns_train(tmp, dev)
     phase_grads_cpu_vs_cuda(dev)
     phase_cpu_vs_cuda(dev)
     set_dft_mode(True)
@@ -556,9 +754,12 @@ def main() -> int:
         phase_cpu_vs_cuda(dev, "dft-cuda-vs-cpu")
     finally:
         set_dft_mode(None)
+    phase_ns_cuda_vs_cpu(dev)
+    # top level: the Darcy path (darcy_s211 shapes, launches of its train
+    # run); "ns2d": the same keys at the NS-2D shapes and its train run
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-             **times[name])
+             **times[name], ns2d=dict(launches=ns_launches[name], **ns_times[name]))
         for name, (_, _, src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -194,7 +194,8 @@ def _port_split(path, ntrain=2, nval=1, ntest=2):
 
 def test_generated_cache_loads_in_uno_tpu_and_back(tmp_path, capsys):
     path = str(tmp_path / "gen.npz")
-    data = cli._load_data(argparse.Namespace(generate=True, data_cache=path),
+    data = cli._load_data(argparse.Namespace(generate=True, data_cache=path, data=None,
+                                             gen_dt=None, gen_T=None),
                           _preset(2, 1, 2), torch.device("cpu"))
     assert data[0].shape == (2, 85, 85, 1) and data[1].shape == (2, 85, 85)
     assert set(np.unique(data[0])) == {4.0, 12.0}
@@ -291,5 +292,10 @@ def test_cli_generate_writes_a_mat_file(tmp_path, capsys):
     m = scipy.io.loadmat(out)
     assert m["coeff"].shape == m["sol"].shape == (2, 17, 17)
     assert set(np.unique(m["coeff"])) == {4.0, 12.0} and np.isfinite(m["sol"]).all()
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        cli.main(["generate", "--task", "ns", "--out", out, "--device", "cpu"])
+    # --task ns is ported: one batch of trajectories, 4 steps in 2 records
+    assert cli.main(["generate", "--task", "ns", "--out", out, "--n", "2", "--size", "16",
+                     "--T", "0.04", "--delta-t", "0.01", "--record-steps", "2",
+                     "--device", "cpu"]) == 0
+    m = scipy.io.loadmat(out)
+    assert m["a0"].shape == (2, 16, 16) and m["u0"].shape == (2, 16, 16, 2)
+    assert np.isfinite(m["u0"]).all()

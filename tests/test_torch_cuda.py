@@ -1,6 +1,7 @@
 """The port's CUDA kernels and model on the card, against their plain PyTorch
-versions, forward and backward; the partial-DFT spectral path, the Darcy
-solver and checkpoints on the card against the CPU.  Every case needs a CUDA
+versions, forward and backward, at the Darcy and NS-2D paths' shapes; the
+NS-2D rollout, the partial-DFT spectral path, the Darcy and NS solvers and
+checkpoints on the card against the CPU.  Every case needs a CUDA
 device and skips without one.
 
 This file imports no JAX, so it runs where the port runs; tests/conftest.py
@@ -20,6 +21,9 @@ from uno_tpu_torch.ops.kernels import mlp_head as H
 # (B, Ci, Co, M) of the five uno9 contractions at darcy_s211, batch 16
 DARCY_S211 = [(16, 32, 64, 648), (16, 64, 128, 128), (16, 128, 128, 128),
               (16, 128, 64, 128), (16, 128, 32, 648)]
+# (B, Ci, Co, M) of the seven uno contractions at ns2d (64x64, width 32), batch 16
+NS2D = [(16, 32, 48, 968), (16, 48, 96, 392), (16, 96, 192, 72), (16, 192, 192, 72),
+        (16, 192, 96, 72), (16, 192, 48, 392), (16, 96, 32, 968)]
 
 
 @pytest.fixture
@@ -46,7 +50,7 @@ def _rand_c(g, *shape):
 # z); odd M (8-byte copies) and M not a multiple of the block's 4 modes; Ci
 # or Co of 1; channel counts that the split does not divide, or (dw, whose
 # rows are Ci and whose channels are the batch) not a multiple of the 16-row
-# tile.  Then the five path shapes.
+# tile.  Then the five Darcy and the seven NS-2D path shapes.
 EDGES = [(2, 3, 5, 7), (4, 8, 8, 128), (2, 4, 6, 200), (3, 6, 7, 200), (9, 5, 3, 33),
          (1, 1, 1, 1), (1, 7, 1, 33), (17, 1, 40, 7), (16, 9, 17, 64), (17, 128, 64, 128),
          (33, 9, 19, 33), (33, 130, 70, 40), (16, 37, 1, 648), (1, 20, 33, 9),
@@ -64,7 +68,7 @@ def _misaligned(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211)
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D)
 def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
     g = torch.Generator().manual_seed(1)
     x = _rand_c(g, b, ci, m).to(cuda)
@@ -81,7 +85,7 @@ def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211)
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D)
 def test_cmul_backward_kernels_match_plain(cuda, b, ci, co, m):
     g_ = torch.Generator().manual_seed(3)
     x = _rand_c(g_, b, ci, m).to(cuda)
@@ -124,7 +128,8 @@ def test_cmul_wrapper_raises_on_the_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,h,o", [((2, 8, 37, 45), 32, 1), ((1, 16, 64, 64), 64, 3),
-                                       ((16, 64, 211, 211), 32, 1), ((3, 5, 7, 300), 40, 4)])
+                                       ((16, 64, 211, 211), 32, 1), ((3, 5, 7, 300), 40, 4),
+                                       ((16, 64, 64, 64), 128, 1)])  # the ns2d head
 def test_mlp_head_kernel_matches_plain(cuda, shape, h, o):
     g = torch.Generator().manual_seed(2)
     c = shape[1]
@@ -203,10 +208,12 @@ def test_mlp_head_backward_kernel_matches_plain(cuda, shape, h, o):
 
 # (B, C, N, H, O) at the edges of the backward's plan: N shorter than one
 # tile, odd N, B*N ending inside a tile, C of 5 (odd: a zero pad row), 8
-# and 64 (two gk1 shares per thread at H 64), H of 32, 40 (padded to 64) and
-# 64, O of 1 to 4
+# and 64 (two gk1 shares per thread at H 64, four at H 128: one block per
+# SM), H of 32, 40 (padded to 64), 64 and 128, O of 1 to 4; the last is the
+# ns2d head's
 HEAD_BWD_EDGES = [(1, 5, 7, 32, 1), (3, 8, 131, 40, 2), (2, 64, 257, 64, 3),
-                  (1, 64, 100, 32, 4), (5, 5, 99, 64, 4), (2, 8, 127, 40, 1), (4, 64, 4001, 32, 1)]
+                  (1, 64, 100, 32, 4), (5, 5, 99, 64, 4), (2, 8, 127, 40, 1), (4, 64, 4001, 32, 1),
+                  (2, 64, 4097, 128, 1), (16, 64, 4096, 128, 1)]
 
 
 @pytest.mark.cuda
@@ -293,6 +300,53 @@ def test_uno9_on_the_card_matches_the_cpu(cuda, dtype, bound):
         c0["bwd_x"], c0["bwd_w"], h0["bwd"])
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_ns2d_rollout_on_the_card_matches_the_cpu(cuda, dtype, bound):
+    """The 2-step rollout's loss, trajectory and all gradients of uno (width
+    8, 64x64) through the kernels on the card and the plain versions on the
+    CPU; every step is checkpointed, so its forward runs twice."""
+    from uno_tpu_torch.train.ns2d import make_rollout
+
+    kw = dict(in_width=14, width=8, pad=0)
+    rng = np.random.default_rng(3)
+    xx = torch.from_numpy(rng.standard_normal((2, 64, 64, 10)).astype(np.float32))
+    yy = torch.from_numpy(rng.standard_normal((2, 64, 64, 2)).astype(np.float32))
+    res = []
+    c0, h0 = dict(C.LAUNCHES), dict(H.LAUNCHES)
+    for dev in ("cpu", cuda):
+        model = build_model("uno", dtype=dtype, generator=torch.Generator().manual_seed(0),
+                            device=dev, **kw)
+        loss, pred = make_rollout(model, 2)(xx.to(dev), yy.to(dev))
+        loss.backward()
+        grads = torch.cat([torch.view_as_real(p.grad).flatten() if p.is_complex()
+                           else p.grad.flatten() for p in model.parameters()])
+        res.append((loss.detach(), pred.detach(), grads))
+    bf16 = dtype == "bfloat16"
+    assert C.LAUNCHES["fwd"] - c0["fwd"] == 2 * 2 * 7
+    assert C.LAUNCHES["bwd_x"] - c0["bwd_x"] == C.LAUNCHES["bwd_w"] - c0["bwd_w"] == 2 * 7
+    assert H.LAUNCHES["fwd"] - h0["fwd"] == (4 if bf16 else 0)
+    assert H.LAUNCHES["bwd"] - h0["bwd"] == (2 if bf16 else 0)
+    assert res[1][1].dtype == torch.float32 and torch.isfinite(res[1][2]).all()
+    for got, want in zip(res[1], res[0]):
+        assert _rel(got, want) <= bound
+
+
+@pytest.mark.cuda
+def test_navier_stokes_on_the_card_matches_the_cpu(cuda):
+    """100 steps of the solver from one w0 on both devices."""
+    from uno_tpu_torch.data.grf import GaussianRF
+    from uno_tpu_torch.data.ns_solver import default_forcing, navier_stokes_2d
+
+    w0 = GaussianRF(2, 64, alpha=2.5, tau=7.0).sample(torch.Generator().manual_seed(0), 4)
+    f = default_forcing(64)
+    want, t_cpu = navier_stokes_2d(w0, f, visc=1e-3, T=0.1, delta_t=1e-3, record_steps=4)
+    got, t_gpu = navier_stokes_2d(w0.to(cuda), f, visc=1e-3, T=0.1, delta_t=1e-3,
+                                  record_steps=4)
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    assert torch.equal(t_cpu, t_gpu) and _rel(got, want) <= 1e-5
 
 
 @pytest.fixture

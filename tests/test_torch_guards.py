@@ -1,9 +1,11 @@
 """Guards of the PyTorch port: it never imports JAX, and its framework-free
-copies of uno_tpu code (spec dataclasses, 2-D factories, Darcy presets and
-their TrainConfig, resample tables, partial-DFT tables, the GRF's DCT
-matrix) stay equal to the originals."""
+copies of uno_tpu code (spec dataclasses, 2-D factories, the Darcy and
+NS-2D presets and their TrainConfig, resample tables, partial-DFT tables,
+the GRF's DCT matrix, ``MatReader`` and the NS loader) stay equal to the
+originals."""
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -13,6 +15,8 @@ import pytest
 
 from uno_tpu.configs import presets as jpresets
 from uno_tpu.data import grf as jgrf
+from uno_tpu.data import loaders as jloaders
+from uno_tpu.data import mat as jmat
 from uno_tpu.ops import dft as jdft
 from uno_tpu.models import core as jcore
 from uno_tpu.models import uno2d as juno2d
@@ -20,6 +24,8 @@ from uno_tpu.ops.resample import resize_matrix as j_resize_matrix
 from uno_tpu.train import common as jcommon
 from uno_tpu_torch.configs import presets as tpresets
 from uno_tpu_torch.data import grf as tgrf
+from uno_tpu_torch.data import loaders as tloaders
+from uno_tpu_torch.data import mat as tmat
 from uno_tpu_torch.ops import dft as tdft
 from uno_tpu_torch.models import MODEL_REGISTRY
 from uno_tpu_torch.models import core as tcore
@@ -33,7 +39,9 @@ def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import sys, pkgutil, importlib, uno_tpu_torch, uno_tpu_torch.cli, "
         "uno_tpu_torch.models, uno_tpu_torch.optim, uno_tpu_torch.losses, "
-        "uno_tpu_torch.train.darcy, uno_tpu_torch.data.batching, chip_smoke\n"
+        "uno_tpu_torch.train.darcy, uno_tpu_torch.train.ns2d, uno_tpu_torch.data.batching, "
+        "uno_tpu_torch.data.ns_solver, uno_tpu_torch.data.mat, uno_tpu_torch.data.loaders, "
+        "chip_smoke, tools.torch_ns2d_profile\n"
         "for m in pkgutil.walk_packages(uno_tpu_torch.__path__, 'uno_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -76,9 +84,12 @@ def test_train_config_equals_uno_tpus():
 
 
 def test_darcy_presets_equal_uno_tpus():
+    """The Darcy and, since the NS-2D slice, the NS-2D presets."""
     assert set(tpresets.PRESETS) == {
-        n for n, p in jpresets.PRESETS.items() if p.task == "darcy"
+        n for n, p in jpresets.PRESETS.items() if p.task in ("darcy", "ns2d")
     }
+    assert [f.name for f in dataclasses.fields(tpresets.Preset)] == [
+        f.name for f in dataclasses.fields(jpresets.Preset)]
     for name, got in tpresets.PRESETS.items():
         want = jpresets.PRESETS[name]
         for f in dataclasses.fields(got):
@@ -124,3 +135,13 @@ def test_idct2_matrix_equals_uno_tpus():
     for s in (1, 8, 33, 211):
         got, want = tgrf._idct2_matrix(s), jgrf._idct2_matrix(s)
         assert got.dtype == want.dtype and np.array_equal(got, want), s
+
+
+@pytest.mark.parametrize("copy,original", [
+    (tmat.MatReader, jmat.MatReader),
+    (tloaders._bilinear_resize_hw, jloaders._bilinear_resize_hw),
+    (tloaders.load_navier_stokes, jloaders.load_navier_stokes),
+    (tgrf._wavenumbers, jgrf._wavenumbers),
+])
+def test_data_copies_equal_uno_tpus(copy, original):
+    assert inspect.getsource(copy) == inspect.getsource(original)

@@ -1,0 +1,164 @@
+"""Device busy time and idle share of the PyTorch port's NS-2D serving batch
+and training step on one CUDA card.
+
+    python3 tools/torch_ns2d_profile.py [--reps 5] [--trace-dir DIR]
+
+Builds preset ``ns2d``'s model (``uno``, width 32, 64x64, batch 16, T_f 40,
+bf16 policy, random weights from seed 0) on ``cuda:0`` and times two calls:
+
+* serving: one 40-step rollout under ``torch.inference_mode()`` (the
+  ``cli predict`` batch without its host copies);
+* training: one step of ``train_ns2d`` (the checkpointed 40-step rollout,
+  its backward through every step, ComplexAdam).
+
+For each it reports the warm time between CUDA events recorded before and
+after the call, unprofiled (the median of ``--reps``; idle gaps where the
+card waits for the host count); then one more call under
+``torch.profiler`` (CPU and CUDA activities), from whose trace it counts the
+kernels launched and the device busy time (the union of the kernels',
+copies' and sets' intervals), and lists the kernels that took the most
+time, and the aten ops the host dispatched with those that took the most
+host time under the profiler.  The idle share is 1 - busy / the
+unprofiled time.  Inputs and targets are standard normal: the work does
+not depend on the values.
+
+Prints the card (nvidia-smi name and power limit) and one JSON line per
+call.  Without a CUDA device it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from uno_tpu_torch.configs.presets import get_preset  # noqa: E402
+from uno_tpu_torch.data.batching import num_batches  # noqa: E402
+from uno_tpu_torch.models import build_model  # noqa: E402
+from uno_tpu_torch.train.common import make_optimizer  # noqa: E402
+from uno_tpu_torch.train.ns2d import make_rollout  # noqa: E402
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _event_ms(fn, reps: int) -> list:
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return times
+
+
+def _busy(trace_path: str) -> dict:
+    """Kernels, busy ms (union of device intervals) and the top kernels of a
+    chrome trace."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if e["cat"] == "kernel":
+            by_name[e["name"]][0] += 1
+            by_name[e["name"]][1] += e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {
+        "kernels": sum(1 for e in events if e["cat"] == "kernel"),
+        "copies_and_sets": sum(1 for e in events if e["cat"] != "kernel"),
+        "busy_ms": busy / 1e3,
+        "kernel_ms": sum(v[1] for v in by_name.values()) / 1e3,
+        "top_kernels": [{"name": n[:90], "count": c, "ms": round(us / 1e3, 4)}
+                        for n, (c, us) in top],
+    }
+
+
+def _measure(name: str, fn, reps: int, trace_dir) -> dict:
+    fn()
+    fn()  # warm: cuFFT plans, cuBLAS handles, the allocator
+    torch.cuda.synchronize()
+    wall = _event_ms(fn, reps)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(trace_dir or tempfile.mkdtemp(), f"ns2d_{name}.json")
+    prof.export_chrome_trace(path)
+    stats = _busy(path)
+    med = statistics.median(wall)
+    # host side: aten ops dispatched, and where the host's time went (times
+    # under the profiler, which slows the host; the shares are what count)
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    host = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"call": name, "wall_ms_median": med, "wall_ms": wall,
+            "idle_share": 1.0 - stats["busy_ms"] / med, **stats,
+            "aten_ops": sum(e.count for e in ops),
+            "top_host_ops": [{"name": e.key, "count": e.count,
+                              "self_cpu_ms": round(e.self_cpu_time_total / 1e3, 3)}
+                             for e in host],
+            "trace": path if trace_dir else None}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--trace-dir", default=None, help="keep the chrome traces here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_ns2d_profile: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    dev = torch.device("cuda", 0)
+    preset = get_preset("ns2d")
+    bs, t_f, s = preset.train.batch_size, preset.t_f, preset.size
+    model = build_model(preset.model, dtype="bfloat16", device=dev,
+                        generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
+    rng = np.random.default_rng(0)
+    xx = torch.from_numpy(rng.standard_normal((bs, s, s, preset.t_in)).astype(np.float32)).to(dev)
+    yy = torch.from_numpy(rng.standard_normal((bs, s, s, t_f)).astype(np.float32)).to(dev)
+    rollout = make_rollout(model, t_f)
+    opt = make_optimizer(preset.train, num_batches(preset.ntrain, bs), model.parameters())
+
+    def serve():
+        with torch.inference_mode():
+            rollout(xx, torch.zeros_like(yy))
+
+    def train_step():
+        opt.zero_grad(set_to_none=True)
+        loss, _ = rollout(xx, yy)
+        loss.backward()
+        opt.step()
+
+    for name, fn in (("serving_batch", serve), ("training_step", train_step)):
+        print(json.dumps({"preset": "ns2d", "model": preset.model, "dtype": "bfloat16",
+                          "batch": bs, "t_f": t_f,
+                          **_measure(name, fn, args.reps, args.trace_dir)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,42 +4,56 @@
         (--data-cache D.npz | --generate [--data-cache D.npz]) \\
         [--dtype bfloat16] [--device cuda] [--epochs N] [--log run.jsonl] \\
         [--checkpoint-dir CK [--checkpoint-every K] [--resume]]
-    python -m uno_tpu_torch.cli predict --preset darcy_s211 \\
-        (--data-cache D.npz | --generate ...) \\
+    python -m uno_tpu_torch.cli train --preset ns2d \\
+        (--data ns.mat | --data-cache D.npz | --generate [--gen-dt DT] [--gen-T T]) ...
+    python -m uno_tpu_torch.cli predict --preset darcy_s211|ns2d \\
+        (--data ... | --data-cache D.npz | --generate ...) \\
         (--params P.npz | --init-seed N | --checkpoint-dir CK) \\
         --split test --out preds.npz [--dtype bfloat16] [--device cuda]
-    python -m uno_tpu_torch.cli eval --preset darcy_s211 \\
-        (--data-cache D.npz | --generate ...) --checkpoint-dir CK
+    python -m uno_tpu_torch.cli eval --preset darcy_s211|ns2d \\
+        (--data ... | --data-cache D.npz | --generate ...) --checkpoint-dir CK
     python -m uno_tpu_torch.cli generate --task darcy --out darcy.mat \\
         [--n 100] [--size 421] [--seed 0] [--device cuda]
+    python -m uno_tpu_torch.cli generate --task ns --out ns.mat [--n 100] \\
+        [--size 64] [--visc 1e-3] [--T 50] [--delta-t 1e-4] [--record-steps 50]
 
 ``train`` is the counterpart of ``uno_tpu``'s ``cli train`` for the Darcy
-presets: it reads or writes the six-key split ``.npz`` (``--data-cache``),
+and NS-2D presets: it reads or writes the six-key split ``.npz``
+(``--data-cache``) or, for NS, reads the generator's ``.mat`` (``--data``),
 draws the model's weights from the preset's seed, and runs
-``train.darcy.train_darcy``, printing one JSON line per epoch and a final
-``test_rel_l2`` line.  With ``--checkpoint-dir`` it saves the best params
-and the training state, and ``--resume`` continues from that state.
+``train.darcy.train_darcy`` or ``train.ns2d.train_ns2d`` (the 40-step
+rollout with full BPTT), printing one JSON line per epoch and a final test
+line.  With ``--checkpoint-dir`` it saves the best params and the training
+state, and ``--resume`` continues from that state.
 
-``--generate`` makes the preset's split with the port's Darcy generator
-(``data/darcy_solver.py``) on ``--device``, in batches of 64 from a
-``torch.Generator`` seeded with the preset's seed; with ``--data-cache`` an
+``--generate`` makes the preset's split with the port's generators on
+``--device``, from a ``torch.Generator`` seeded with the preset's seed:
+Darcy in batches of 64 (``data/darcy_solver.py``); NS in batches of 20
+(``data/grf.py`` ``GaussianRF`` and ``data/ns_solver.py``) with ``uno_tpu``'s
+fast profile by default (``--gen-dt 1e-3``, ``--gen-T`` (T_in + T_f) / 2;
+``--gen-dt 1e-4 --gen-T 50`` is the reference's).  With ``--data-cache`` an
 existing cache is loaded and a missing one is written.  A cache carries
 ``uno_tpu``'s six keys and its ``config_sig``, so a cache written by either
-package loads in the other.  The two generators draw the same law from
-different random streams: for one seed they write different samples, and
-held-out numbers of the two packages compare only on one cache file.
+package loads in the other.  The two packages' generators draw the same law
+from different random streams: for one seed they write different samples,
+and held-out numbers of the two packages compare only on one cache file.
 
 ``predict`` is batch inference, the counterpart of ``uno_tpu``'s ``cli
-predict``: it runs the preset's model over one split and writes ``input``,
-``pred`` and ``target`` to ``--out``.  Weights come from a checkpoint's best
-params, from an ``.npz`` param tree (``uno_tpu_torch/bridge.py``), or are
-drawn from a seed.  ``eval`` reports a checkpoint's val and test rel-L2.
-``generate --task darcy`` writes ``coeff`` and ``sol`` to a ``.mat`` file.
+predict``: it runs the preset's model over one split (for NS the rollout of
+T_f steps, fed zero targets as ``uno_tpu`` does) and writes ``input``,
+``pred`` and ``target`` to ``--out``, and prints the host time of each
+batch (``batch_ms``).  Weights come from a checkpoint's best params, from
+an ``.npz`` param tree (``uno_tpu_torch/bridge.py``), or are drawn from a
+seed.  ``eval`` reports a checkpoint's val and test rel-L2 (for NS, per step
+and per trajectory).  ``generate --task darcy`` writes ``coeff`` and ``sol``
+to a ``.mat`` file; ``generate --task ns`` writes ``a{i}`` (the initial
+vorticity), ``u{i}`` (the recorded trajectory) and ``t{i}`` (its times) per
+batch of 20, compressed.
 
 ``UNO_TPU_TORCH_DFT=1`` runs the spectral transforms as partial-DFT matmuls
 (``ops/spectral.py``) instead of FFTs.  Every entry point turns TF32 and
 cuBLAS's reduced-precision bf16 reductions off and states it in its output.
-The NS tasks are not ported yet (ROADMAP.md Queue 1 item 6).
+The NS-3D presets are not ported yet (ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -61,25 +75,43 @@ _TRAIN_FLAGS = ("epochs", "batch_size", "learning_rate", "weight_decay", "seed")
 
 
 def _build_preset(args):
-    from uno_tpu_torch.configs.presets import get_preset
+    from uno_tpu_torch.configs.presets import PRESETS
 
-    preset = get_preset(args.preset)
+    if args.preset not in PRESETS:
+        raise SystemExit(f"{args.cmd}: preset {args.preset!r} is not ported (the port has "
+                         f"{', '.join(PRESETS)}; NS-3D is ROADMAP.md Queue 1 item 6)")
+    preset = PRESETS[args.preset]
     train_over = {k: getattr(args, k) for k in _TRAIN_FLAGS
                   if getattr(args, k, None) is not None}
-    data_over = {k: getattr(args, k) for k in ("ntrain", "nval", "ntest")
+    data_over = {k: getattr(args, k) for k in ("ntrain", "nval", "ntest", "size")
                  if getattr(args, k) is not None}
     return dataclasses.replace(
         preset, train=dataclasses.replace(preset.train, **train_over), **data_over
     )
 
 
-def _gen_sig(preset) -> str:
-    """The data-cache signature ``uno_tpu``'s cli writes for a Darcy preset."""
-    return ",".join([
-        f"task={preset.task}", f"sub={preset.sub}",
+_NS_DT = 1e-3  # the fast profile's solver step
+
+
+def _ns_horizon(preset, gen_T=None) -> float:
+    """The NS generator's horizon: the fast profile's half a time unit per
+    recorded frame unless ``--gen-T`` says otherwise."""
+    return gen_T if gen_T is not None else (preset.t_in + preset.t_f) * 0.5
+
+
+def _gen_sig(preset, gen_dt=None, gen_T=None) -> str:
+    """The data-cache signature ``uno_tpu``'s cli writes for a preset."""
+    dim = f"sub={preset.sub}" if preset.task == "darcy" else f"size={preset.size}"
+    parts = [
+        f"task={preset.task}", dim,
         f"ntrain={preset.ntrain}", f"nval={preset.nval}",
         f"ntest={preset.ntest}", f"seed={preset.train.seed}",
-    ])
+    ]
+    if preset.task == "ns2d":
+        dt = gen_dt if gen_dt is not None else _NS_DT
+        parts += [f"t_in={preset.t_in}", f"t_f={preset.t_f}",
+                  f"dt={dt:g}", f"T={_ns_horizon(preset, gen_T):g}"]
+    return ",".join(parts)
 
 
 def _cached(path, gen_fn, sig: str):
@@ -129,13 +161,72 @@ def _gen_darcy(preset, device):
     return (a[:i1], p[:i1], a[i1:i2], p[i1:i2], a[i2:], p[i2:])
 
 
+_NS_GEN_BATCH = 20  # trajectories per solver run (the reference's generation batch)
+
+
+def _ns_trajectories(gen, n, s, device, visc, T, delta_t, record_steps):
+    """NS trajectories from the port's generator on ``device``, in batches
+    of up to 20: ``(w0, sol, sol_t)`` per batch, ``w0`` drawn from ``gen``."""
+    from uno_tpu_torch.data.grf import GaussianRF
+    from uno_tpu_torch.data.ns_solver import default_forcing, navier_stokes_2d
+
+    grf = GaussianRF(2, s, alpha=2.5, tau=7.0)
+    f = default_forcing(s, device)
+    for done in range(0, n, _NS_GEN_BATCH):
+        w0 = grf.sample(gen, min(_NS_GEN_BATCH, n - done), device=device)
+        yield (w0, *navier_stokes_2d(w0, f, visc=visc, T=T, delta_t=delta_t,
+                                     record_steps=record_steps))
+
+
+def _gen_ns(preset, device, gen_dt=None, gen_T=None):
+    """The preset's NS split from the port's generator, as ``uno_tpu``'s
+    ``_gen_ns`` lays it out: batches of 20 trajectories of T_in + T_f
+    recorded frames, the first T_in the input and the next T_f the target,
+    train then val then test."""
+    n = preset.ntrain + preset.nval + preset.ntest
+    frames = preset.t_in + preset.t_f
+    batches = _ns_trajectories(
+        torch.Generator().manual_seed(preset.train.seed), n, preset.size, device, visc=1e-3,
+        T=_ns_horizon(preset, gen_T), delta_t=gen_dt if gen_dt is not None else _NS_DT,
+        record_steps=frames)
+    sols = [sol.cpu().numpy() for _, sol, _ in batches]
+    a = np.concatenate([sol[..., : preset.t_in] for sol in sols])
+    u = np.concatenate([sol[..., preset.t_in : frames] for sol in sols])
+    i1, i2 = preset.ntrain, preset.ntrain + preset.nval
+    return (a[:i1], u[:i1], a[i1:i2], u[i1:i2], a[i2:], u[i2:])
+
+
+def _load_ns_mat(path, preset):
+    """The preset's split from a generator ``.mat`` file, as ``uno_tpu``'s
+    cli reads it: train and val from the first ntrain + nval trajectories,
+    test from the rest, resized to the preset's grid."""
+    from uno_tpu_torch.data.loaders import load_navier_stokes
+
+    ta, tu, sa, su = load_navier_stokes(
+        path, train=preset.ntrain + preset.nval, test=preset.ntest,
+        sample_num=preset.ntrain + preset.nval + preset.ntest,
+        t_in=preset.t_in, t_out=preset.t_f, size=preset.size,
+    )
+    i1 = preset.ntrain
+    return (ta[:i1], tu[:i1], ta[i1:], tu[i1:], sa, su)
+
+
 def _load_data(args, preset, device):
-    """The preset's six-array split from ``--data-cache`` and ``--generate``,
-    the same way for train, predict and eval."""
+    """The preset's six-array split from ``--data``, ``--data-cache`` and
+    ``--generate``, the same way for train, predict and eval."""
+    if args.data and not args.generate:
+        if preset.task != "ns2d":
+            raise SystemExit("--data with a Darcy preset is not ported yet "
+                             "(ROADMAP.md Queue 1 item 9): use --data-cache or --generate")
+        return _load_ns_mat(args.data[0], preset)
     if not args.generate and not args.data_cache:
         raise SystemExit("pass --data-cache with a split npz, or --generate")
-    gen_fn = (lambda: _gen_darcy(preset, device)) if args.generate else None
-    return _cached(args.data_cache, gen_fn, _gen_sig(preset))
+    gen_fn = None
+    if args.generate and preset.task == "darcy":
+        gen_fn = lambda: _gen_darcy(preset, device)  # noqa: E731
+    elif args.generate:
+        gen_fn = lambda: _gen_ns(preset, device, args.gen_dt, args.gen_T)  # noqa: E731
+    return _cached(args.data_cache, gen_fn, _gen_sig(preset, args.gen_dt, args.gen_T))
 
 
 def _restore_best(model, directory: str) -> None:
@@ -182,14 +273,6 @@ def _precision_report() -> dict:
     }
 
 
-def _darcy_preset(args):
-    preset = _build_preset(args)
-    if preset.task != "darcy":
-        raise SystemExit(f"{args.cmd}: only Darcy presets are ported, not {preset.task} "
-                         "(ROADMAP.md Queue 1 item 6)")
-    return preset
-
-
 def _model(args, preset, device, seed=None):
     from uno_tpu_torch.models import build_model
 
@@ -217,13 +300,14 @@ class _Tee:
 
 
 def cmd_train(args) -> int:
-    """Train a Darcy preset's model on a split cache; JSONL metrics."""
+    """Train a Darcy or NS-2D preset's model; JSONL metrics."""
     from uno_tpu_torch.train.darcy import train_darcy
     from uno_tpu_torch.train.metrics import MetricLogger
+    from uno_tpu_torch.train.ns2d import train_ns2d
 
     device = _device(args.device)
     _no_tf32()
-    preset = _darcy_preset(args)
+    preset = _build_preset(args)
     if args.checkpoint_dir:
         preset = dataclasses.replace(preset, train=dataclasses.replace(
             preset.train, checkpoint_dir=args.checkpoint_dir,
@@ -235,7 +319,10 @@ def cmd_train(args) -> int:
     print(f"precision {json.dumps(_precision_report())}")
     tee = _Tee(args.log) if args.log else None
     try:
-        train_darcy(model, *data, preset.train, logger=MetricLogger(tee))
+        if preset.task == "darcy":
+            train_darcy(model, *data, preset.train, logger=MetricLogger(tee))
+        else:
+            train_ns2d(model, *data, preset.train, t_f=preset.t_f, logger=MetricLogger(tee))
     finally:
         if tee is not None:
             tee.close()
@@ -248,7 +335,7 @@ def cmd_predict(args) -> int:
 
     device = _device(args.device)
     _no_tf32()
-    preset = _darcy_preset(args)
+    preset = _build_preset(args)
     data = _load_data(args, preset, device)
     split = {"train": 0, "val": 2, "test": 4}[args.split]
     a, u = data[split], data[split + 1]
@@ -260,15 +347,24 @@ def cmd_predict(args) -> int:
         _restore_best(model, args.checkpoint_dir)
     model.eval()
 
-    s = u.shape[1]
+    if preset.task == "darcy":
+        s = u.shape[1]
+        fwd = lambda xb: model(xb.float()).reshape(xb.shape[0], s, s)  # noqa: E731
+    else:
+        from uno_tpu_torch.train.ns2d import make_rollout
+
+        rollout = make_rollout(model, preset.t_f)
+
+        def fwd(xb):
+            # the rollout needs targets only for its loss: zeros, as in uno_tpu
+            return rollout(xb, torch.zeros(xb.shape[:3] + (preset.t_f,), device=device))[1]
     bs = preset.train.batch_size
     preds, batch_ms = [], []
     with torch.inference_mode():
         for i in range(0, len(a), bs):
             t0 = time.perf_counter()
             xb = torch.from_numpy(np.ascontiguousarray(a[i : i + bs])).to(device)
-            out = model(xb.float()).reshape(xb.shape[0], s, s)
-            preds.append(out.cpu().numpy())  # the copy to host waits for the card
+            preds.append(fwd(xb).cpu().numpy())  # the copy to host waits for the card
             batch_ms.append((time.perf_counter() - t0) * 1e3)
     pred = np.concatenate(preds) if preds else np.zeros((0,))
     np.savez(args.out, input=a, pred=pred, target=u)
@@ -284,19 +380,26 @@ def cmd_predict(args) -> int:
 
 def cmd_eval(args) -> int:
     """A checkpoint's best params on the preset's val and test splits."""
-    from uno_tpu_torch.train.evaluate import evaluate_darcy
+    from uno_tpu_torch.train.evaluate import evaluate_darcy, evaluate_ns2d
 
     device = _device(args.device)
     _no_tf32()
-    preset = _darcy_preset(args)
+    preset = _build_preset(args)
     _, _, val_a, val_u, test_a, test_u = _load_data(args, preset, device)
     model = _model(args, preset, device)
     _restore_best(model, args.checkpoint_dir)
     model.eval()
     out = {"task": preset.task, "preset": preset.name, "checkpoint": args.checkpoint_dir}
+    bs = preset.train.batch_size
     for split, a, u in (("val", val_a, val_u), ("test", test_a, test_u)):
-        if len(a):
-            out[f"{split}_rel_l2"] = evaluate_darcy(model, a, u, preset.train.batch_size)
+        if not len(a):
+            continue
+        if preset.task == "darcy":
+            out[f"{split}_rel_l2"] = evaluate_darcy(model, a, u, bs)
+        else:
+            r = evaluate_ns2d(model, a, u, preset.t_f, bs)
+            out[f"{split}_step_rel_l2"] = r["step_rel_l2"]
+            out[f"{split}_traj_rel_l2"] = r["traj_rel_l2"]
     out.update(_precision_report())
     line = json.dumps(out)
     print(line)
@@ -307,19 +410,28 @@ def cmd_eval(args) -> int:
 
 
 def cmd_generate(args) -> int:
-    """Darcy (coefficient, solution) pairs to a ``.mat`` file."""
+    """Darcy (coefficient, solution) pairs, or NS trajectories in batches of
+    20, to a ``.mat`` file."""
     import scipy.io
 
-    from uno_tpu_torch.data.darcy_solver import generate_darcy_batch
-
-    if args.task != "darcy":
-        raise SystemExit("generate --task ns is not ported yet: ROADMAP.md Queue 1 item 6 "
-                         "(GaussianRF and the NS solver)")
     device = _device(args.device)
     _no_tf32()
-    a, p = generate_darcy_batch(torch.Generator().manual_seed(args.seed), args.n,
-                                args.size or 421, device=device)
-    scipy.io.savemat(args.out, {"coeff": a.cpu().numpy(), "sol": p.cpu().numpy()})
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.task == "darcy":
+        from uno_tpu_torch.data.darcy_solver import generate_darcy_batch
+
+        a, p = generate_darcy_batch(gen, args.n, args.size or 421, device=device)
+        scipy.io.savemat(args.out, {"coeff": a.cpu().numpy(), "sol": p.cpu().numpy()})
+    else:
+        mdict = {}
+        batches = _ns_trajectories(gen, args.n, args.size or 64, device, visc=args.visc,
+                                   T=args.T, delta_t=args.delta_t,
+                                   record_steps=args.record_steps)
+        for i, (w0, sol, sol_t) in enumerate(batches):
+            mdict[f"a{i}"] = w0.cpu().numpy()
+            mdict[f"u{i}"] = sol.cpu().numpy()
+            mdict[f"t{i}"] = sol_t.numpy()
+        scipy.io.savemat(args.out, mdict, do_compression=True)
     print(f"wrote {args.out}")
     return 0
 
@@ -327,11 +439,21 @@ def cmd_generate(args) -> int:
 def _add_data_args(p: argparse.ArgumentParser) -> None:
     """The preset, its split and the device: common to train, predict and eval."""
     p.add_argument("--preset", required=True)
+    p.add_argument("--data", default=None, nargs="+",
+                   help="NS presets: the generator's .mat file (a{i}, u{i} per batch "
+                        "of 20); the first is read")
     p.add_argument("--data-cache", default=None,
                    help="six-key split npz (uno_tpu's or the port's); with "
                         "--generate it is written if missing")
     p.add_argument("--generate", action="store_true",
-                   help="make the split with the port's Darcy generator on --device")
+                   help="make the split with the port's generators on --device")
+    p.add_argument("--gen-dt", type=float, default=None,
+                   help="NS generation solver step (default 1e-3, the fast profile; "
+                        "the reference generator uses 1e-4)")
+    p.add_argument("--gen-T", type=float, default=None,
+                   help="NS generation horizon in time units (default "
+                        "(t_in+t_f)*0.5; the reference uses 50)")
+    p.add_argument("--size", type=int, default=None, help="NS presets: the grid")
     p.add_argument("--device", default="cuda",
                    help="torch device; a missing CUDA device raises")
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
@@ -351,12 +473,11 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser(
-        "train", help="train a Darcy preset's model",
+        "train", help="train a Darcy or NS-2D preset's model",
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="Not ported yet, with the ROADMAP.md item that brings each:\n"
-               "  NS presets, generate --task ns\n"
-               "                             Queue 1 item 6 (NS-2D, NS-3D)\n"
-               "  --data (.mat loaders)      Queue 1 item 9 (data loaders)\n"
+               "  NS-3D presets              Queue 1 item 6 (NS-3D)\n"
+               "  --data for Darcy           Queue 1 item 9 (data loaders)\n"
                "  --data-parallel, --spatial, --tensor-parallel\n"
                "                             Queue 1 item 8 (parallel/)",
     )
@@ -392,12 +513,16 @@ def main(argv=None) -> int:
     p.add_argument("--log", default=None, help="append the result line to this file")
     p.set_defaults(fn=cmd_eval)
 
-    p = sub.add_parser("generate", help="Darcy data to a .mat file")
+    p = sub.add_parser("generate", help="Darcy or NS-2D data to a .mat file")
     p.add_argument("--task", choices=["darcy", "ns"], required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--n", type=int, default=100)
-    p.add_argument("--size", type=int, default=None, help="grid (default 421)")
+    p.add_argument("--size", type=int, default=None, help="grid (default 421 Darcy, 64 NS)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--visc", type=float, default=1e-3, help="NS viscosity")
+    p.add_argument("--T", type=float, default=50.0, help="NS horizon in time units")
+    p.add_argument("--delta-t", type=float, default=1e-4, help="NS solver step")
+    p.add_argument("--record-steps", type=int, default=50, help="NS frames recorded")
     p.add_argument("--device", default="cuda",
                    help="torch device; a missing CUDA device raises")
     p.set_defaults(fn=cmd_generate)

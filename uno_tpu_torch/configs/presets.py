@@ -1,13 +1,15 @@
-"""Named experiment presets: the Darcy presets of
+"""Named experiment presets: the Darcy and NS-2D presets of
 ``uno_tpu/configs/presets.py``.
 
 * ``darcy_s211``  — darcy_flow_main.py:37-117 (S=211 via sub=2, 1500/250/250,
   width 32, 700 epochs, lr 1e-3, wd 1e-3, StepLR(100, 0.5), UNO_9 pad=12)
 * ``darcy_s85``   — the CPU-scale variant (sub=5)
 * ``darcy_s421``  — full resolution with the deeper UNO_11 stack
+* ``ns2d``        — ns_uno2d_main.py:26-107 (S=64, T_in=10, T_f=40 rollout)
+* ``ns2d_s256``   — UNO_S256 at 256²
 
 tests/test_torch_guards.py holds every field here equal to ``uno_tpu``'s.
-The NS presets come with the NS-2D and NS-3D models.
+The NS-3D presets come with the 3-D models.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ class Preset:
     ntrain: int = 0
     nval: int = 0
     ntest: int = 0
+    t_in: int = 10                 # NS: input frames
+    t_f: int = 10                  # NS: frames predicted
+    size: int = 64                 # NS: grid
 
 
 def _darcy_train(batch_size: int) -> TrainConfig:
@@ -37,6 +42,14 @@ def _darcy_train(batch_size: int) -> TrainConfig:
         epochs=700, batch_size=batch_size, learning_rate=1e-3,
         scheduler_step=100, scheduler_gamma=0.5, weight_decay=1e-3,
         seed=10001,
+    )
+
+
+def _ns2d_train(batch_size: int) -> TrainConfig:
+    return TrainConfig(
+        epochs=500, batch_size=batch_size, learning_rate=1e-3,
+        scheduler_step=100, scheduler_gamma=0.5, weight_decay=1e-5,
+        eval_every=2,
     )
 
 
@@ -60,6 +73,18 @@ PRESETS: Dict[str, Preset] = {
             model_kwargs=dict(in_width=3, width=32, pad=12),
             train=_darcy_train(batch_size=4),
             sub=1, ntrain=1500, nval=250, ntest=250,
+        ),
+        Preset(
+            name="ns2d", task="ns2d", model="uno",
+            model_kwargs=dict(in_width=14, width=32, pad=0),
+            train=_ns2d_train(batch_size=16),
+            ntrain=4000, nval=500, ntest=500, t_in=10, t_f=40, size=64,
+        ),
+        Preset(
+            name="ns2d_s256", task="ns2d", model="uno_s256",
+            model_kwargs=dict(in_width=14, width=32, pad=0),
+            train=_ns2d_train(batch_size=4),
+            ntrain=4000, nval=500, ntest=500, t_in=10, t_f=40, size=256,
         ),
     )
 }

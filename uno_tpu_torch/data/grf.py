@@ -1,7 +1,13 @@
-"""The Darcy coefficients' Gaussian random field (port of ``darcy_grf`` in
-``uno_tpu/data/grf.py``).
+"""Gaussian random field samplers (port of ``uno_tpu/data/grf.py``).
 
-A Neumann-boundary GRF with covariance ``tau^(2 alpha - 2) (-Laplace +
+* ``GaussianRF`` — the NS generator's periodic GRF with spectrum
+  ``sigma (4 pi^2 |k|^2 + tau^2)^(-alpha/2)`` in 1, 2 or 3 dimensions,
+  sampled by scaling complex white noise and an inverse FFT (the reference's
+  ``random_fields-2.py:8-99``).  ``sample`` draws the noise from an explicit
+  ``torch.Generator``; ``sample_from_noise`` is the deterministic rest.
+* ``darcy_grf`` — the Darcy coefficients' field.
+
+``darcy_grf`` is a Neumann-boundary GRF with covariance ``tau^(2 alpha - 2) (-Laplace +
 tau^2 I)^(-alpha)``, realised by a KL expansion in the cosine basis: white
 noise ``xi`` is scaled per mode and synthesised with an orthonormal DCT-III
 matrix on each axis (the equivalent of the reference's MATLAB ``GRF.m`` and
@@ -11,8 +17,10 @@ The draw of ``xi`` and the synthesis are separate: ``darcy_grf`` draws from
 an explicit ``torch.Generator``, ``darcy_grf_from_xi`` is deterministic.
 The two packages draw the same law from different streams, so they give
 different samples for one seed; fed the ``xi`` that ``jax.random.normal``
-gives, the synthesis equals ``uno_tpu``'s.  The periodic ``GaussianRF`` of
-the NS generator comes with the NS slice (ROADMAP.md Queue 1 item 6).
+gives, the synthesis equals ``uno_tpu``'s.  The same holds for
+``GaussianRF``: fed the real and imaginary noise that ``uno_tpu`` draws
+(``jax.random.normal`` of the two halves of ``split(key)``),
+``sample_from_noise`` gives ``uno_tpu``'s sample.
 """
 
 from __future__ import annotations
@@ -22,6 +30,53 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+
+def _wavenumbers(size: int) -> np.ndarray:
+    k_max = size // 2
+    return np.concatenate([np.arange(0, k_max), np.arange(-k_max, 0)])
+
+
+class GaussianRF:
+    """Periodic GRF on a ``size``-point grid per axis, in ``dim`` dimensions."""
+
+    def __init__(self, dim: int, size: int, alpha: float = 2.0, tau: float = 3.0,
+                 sigma: float | None = None):
+        self.dim = dim
+        self.size = size
+        if sigma is None:
+            sigma = tau ** (0.5 * (2 * alpha - dim))
+        k = _wavenumbers(size)
+        if dim == 1:
+            k2 = k**2
+        elif dim == 2:
+            k2 = k[:, None] ** 2 + k[None, :] ** 2
+        elif dim == 3:
+            k2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + k[None, None, :] ** 2
+        else:
+            raise ValueError(dim)
+        sqrt_eig = ((size**dim) * math.sqrt(2.0) * sigma
+                    * (4.0 * math.pi**2 * k2 + tau**2) ** (-alpha / 2.0))
+        sqrt_eig.flat[0] = 0.0
+        self.sqrt_eig = sqrt_eig.astype(np.float32)
+
+    def sample(self, generator: torch.Generator, n: int, device=None) -> torch.Tensor:
+        """(n, size, ..., size) f32 samples: the real and imaginary noise
+        drawn from ``generator`` on its own device, the rest on ``device``
+        (default: the generator's)."""
+        shape = (n,) + (self.size,) * self.dim
+        dev = device or generator.device
+        re = torch.randn(shape, generator=generator, device=generator.device)
+        im = torch.randn(shape, generator=generator, device=generator.device)
+        return self.sample_from_noise(re.to(dev), im.to(dev))
+
+    def sample_from_noise(self, re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+        """The samples whose standard-normal noise is ``re + i im`` (each
+        (n, size, ..., size)), on their device: the noise scaled per mode in
+        complex64, then the real part of its inverse FFT."""
+        sqrt_eig = torch.from_numpy(self.sqrt_eig).to(re.device)
+        coeff = sqrt_eig * torch.complex(re.float(), im.float())
+        return torch.fft.ifftn(coeff, dim=tuple(range(1, self.dim + 1))).real.contiguous()
 
 
 @lru_cache(maxsize=None)

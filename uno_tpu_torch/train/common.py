@@ -1,5 +1,6 @@
 """Shared trainer machinery (port of ``uno_tpu/train/common.py``): config,
-optimizer wiring, the logged learning rate, graceful stop, best-val tracking.
+optimizer wiring, the logged learning rate, graceful stop, best-val tracking;
+and, for both trainers, the step clock and an epoch's batches on the device.
 
 ``uno_tpu``'s ``DataPlacer`` (TPU tile-padding layouts, host-resident
 fallback, mesh placement) and ``DeviceAccumulator`` (a relay workaround) are
@@ -9,11 +10,14 @@ there and sums losses in a device tensor that it reads once per epoch.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, fields
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
+from uno_tpu_torch.data.batching import epoch_batches
 from uno_tpu_torch.optim import ComplexAdam, step_lr
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -138,3 +142,41 @@ class BestTracker:
                 self.ckpt.save("best_params", self.best_state)
             return True
         return False
+
+
+class StepClock:
+    """Per-step times in ms without a synchronisation per step.  On a card,
+    CUDA events recorded on the stream at each step boundary and read after
+    the epoch's one synchronisation: a step's time is the device's time
+    between two boundaries, idle gaps waiting for the host included.  On
+    the CPU, where every op is synchronous, the host clock."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: List[Any] = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self) -> List[float]:
+        """Call after the device has passed the last mark."""
+        pairs = zip(self.marks, self.marks[1:])
+        if self.cuda:
+            return [a.elapsed_time(b) for a, b in pairs]
+        return [(b - a) * 1e3 for a, b in pairs]
+
+
+def device_batches(rng, n: int, cfg: TrainConfig, device, shuffle: bool):
+    """One epoch's index batches as device tensors (a single host->device
+    copy: a per-batch copy of pageable memory would wait for the card)."""
+    idx = list(epoch_batches(rng, n, cfg.batch_size, shuffle=shuffle,
+                             drop_remainder=cfg.drop_remainder))
+    if not idx:
+        return []
+    flat = torch.from_numpy(np.concatenate(idx)).to(device)
+    return list(torch.split(flat, [len(i) for i in idx]))

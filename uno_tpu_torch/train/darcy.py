@@ -27,60 +27,24 @@ the card runs this one.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from uno_tpu_torch.data.batching import epoch_batches, num_batches
+from uno_tpu_torch.data.batching import num_batches
 from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import (
     BestTracker,
     GracefulStop,
+    StepClock,
     TrainConfig,
+    device_batches,
     lr_at,
     make_optimizer,
 )
 from uno_tpu_torch.train.metrics import MetricLogger
-
-
-class _StepClock:
-    """Per-step times in ms without a synchronisation per step.  On a card,
-    CUDA events recorded on the stream at each step boundary and read after
-    the epoch's one synchronisation: a step's time is the device's time
-    between two boundaries, idle gaps waiting for the host included.  On
-    the CPU, where every op is synchronous, the host clock."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: List[Any] = []
-
-    def mark(self) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def ms(self) -> List[float]:
-        """Call after the device has passed the last mark."""
-        pairs = zip(self.marks, self.marks[1:])
-        if self.cuda:
-            return [a.elapsed_time(b) for a, b in pairs]
-        return [(b - a) * 1e3 for a, b in pairs]
-
-
-def _batches(rng, n, cfg: TrainConfig, device, shuffle: bool):
-    """One epoch's index batches as device tensors (a single host->device
-    copy: a per-batch copy of pageable memory would wait for the card)."""
-    idx = list(epoch_batches(rng, n, cfg.batch_size, shuffle=shuffle,
-                             drop_remainder=cfg.drop_remainder))
-    if not idx:
-        return []
-    flat = torch.from_numpy(np.concatenate(idx)).to(device)
-    return list(torch.split(flat, [len(i) for i in idx]))
 
 
 def train_darcy(
@@ -120,7 +84,7 @@ def train_darcy(
         total = torch.zeros((), device=device)
         count = 0
         with torch.no_grad():
-            for idx in _batches(rng, n, cfg, device, shuffle=False):
+            for idx in device_batches(rng, n, cfg, device, shuffle=False):
                 total += loss_fn(splits[ix][idx], splits[ix + 1][idx])
                 count += len(idx)
         return float(total) / max(count, 1)
@@ -150,9 +114,9 @@ def train_darcy(
             t0 = time.perf_counter()
             total = torch.zeros((), device=device)
             seen = 0
-            clock = _StepClock(device)
+            clock = StepClock(device)
             clock.mark()
-            for idx in _batches(rng, ntrain, cfg, device, shuffle=True):
+            for idx in device_batches(rng, ntrain, cfg, device, shuffle=True):
                 opt.zero_grad(set_to_none=True)
                 loss = loss_fn(splits[0][idx], splits[1][idx])
                 loss.backward()

@@ -1,11 +1,14 @@
-"""Evaluation (port of the Darcy part of ``uno_tpu/train/evaluate.py``).
+"""Evaluation (port of the Darcy and NS-2D parts of
+``uno_tpu/train/evaluate.py``).
 
 U-NO's blocks size every internal grid as a ratio of the padded input grid,
-so trained weights evaluate at any resolution.  The NS-2D, NS-3D and
+so trained weights evaluate at any resolution.  The NS-3D and
 super-resolution evaluators come with those slices (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
@@ -28,3 +31,27 @@ def evaluate_darcy(model: torch.nn.Module, x: np.ndarray, y: np.ndarray,
             out = model(xb.float()).reshape(xb.shape[0], s, s)
             total += relative_lp_loss(out, yb, reduction="sum")
     return float(total) / n
+
+
+def evaluate_ns2d(model: torch.nn.Module, a: np.ndarray, u: np.ndarray, t_f: int,
+                  batch_size: int = 8) -> Dict[str, float]:
+    """Autoregressive rollout metrics on an (a, u) split, on the model's
+    device: the per-step and whole-trajectory rel-L2 that the NS-2D trainer
+    reports (ns_train_2d.py:74-110, :155-157 semantics, through
+    ``train.ns2d.make_rollout``)."""
+    from uno_tpu_torch.train.ns2d import make_rollout
+
+    rollout = make_rollout(model, t_f)
+    n = len(a)
+    device = next(model.parameters()).device
+    step_total = torch.zeros((), device=device)
+    traj_total = torch.zeros((), device=device)
+    with torch.no_grad():
+        for i in range(0, n, batch_size):
+            xx = torch.from_numpy(np.ascontiguousarray(a[i : i + batch_size])).to(device)
+            yy = torch.from_numpy(np.ascontiguousarray(u[i : i + batch_size])).to(device)
+            loss, pred = rollout(xx, yy)
+            step_total += loss
+            traj_total += relative_lp_loss(pred, yy, reduction="sum")
+    return {"step_rel_l2": float(step_total) / n / t_f,
+            "traj_rel_l2": float(traj_total) / n}
