@@ -9,7 +9,10 @@ inference) and training, on both spectral paths (FFT, the default, and
 partial DFT); then the Darcy data generator and checkpoint/resume; then the
 same two paths on the NS-2D ``ns2d`` preset, model uno at full width (32) on
 the 64x64 grid, batch 16, each sample a 40-step autoregressive rollout
-(training: full BPTT, each step rematerialised), and the NS generator.
+(training: full BPTT, each step rematerialised), and the NS generator;
+then the two paths on the NS-3D ``ns3d_t40`` preset, model uno3d_t40 at
+full width (8) on the 64x64 grid with T_in = 10 frames in and T_f = 40
+out of one 3-D forward, batch 16.
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, both TF32 flags and cuBLAS's reduced-precision bf16 reduction
@@ -68,11 +71,23 @@ the 64x64 grid, batch 16, each sample a 40-step autoregressive rollout
    the difference, then does the same for the forward alone, on the FFT path
    and then on the DFT path (``[dft-cuda-vs-cpu]``); then the NS-2D rollout's
    loss, trajectory and gradients at T_f = 2 on 2 samples at 64x64
-   (``[ns-cuda-vs-cpu]``).
+   (``[ns-cuda-vs-cpu]``);
+11. NS-3D: the three contractions at uno3d_t40's seven shapes, batch 16
+   (``[kernels ns3d]``; the head is not on this path: a 3-D model projects
+   through the unfused f32 Dense pair); ``cli predict --preset ns3d_t40``
+   over 8 batches of 16 input windows, warm and measured, 7 contraction
+   and no head launches per batch (``[ns3d-predict]``); ``cli train
+   --preset ns3d_t40 --generate`` of a 32/4/4 split for 3 epochs of 2
+   steps, validation on epochs 0 and 2, 7 / 7 / 7 contractions per step
+   and 7 per evaluation batch, no head launch (``[ns3d-train]``: warm ms
+   per step, peak device memory); uno3d_t40 at width 4, 2 samples at
+   64x64, on the card and the CPU with the same weights: the output, the
+   loss and every gradient (``[ns3d-cuda-vs-cpu]``).
 
 Any failed phase raises, and the script exits non-zero.  The line before the
-last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, and
-the NS-2D path's under ``ns2d``); the last line is ``{"ok": true, "device":
+last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, the
+NS-2D path's under ``ns2d`` and the NS-3D path's under ``ns3d``); the last
+line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -107,6 +122,7 @@ from uno_tpu_torch.ops.kernels import mlp_head as head_k
 from uno_tpu_torch.ops.spectral import set_dft_mode, spectral_weight_init
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.ns2d import make_rollout
+from uno_tpu_torch.train.ns3d import forecast
 
 PRESET = "darcy_s211"
 S, BATCH, NTEST = 211, 16, 16
@@ -128,6 +144,14 @@ NS_CMUL_SHAPES = [(16, 32, 48, 968), (16, 48, 96, 392), (16, 96, 192, 72), (16, 
                   (16, 192, 96, 72), (16, 192, 48, 392), (16, 96, 32, 968)]
 # head: B, C (32 from block 6 + 32 from the lift skip), N = 64**2, H = 4 * width, O
 NS_HEAD_SHAPE = (16, 64, NS_S * NS_S, 128, 1)
+NS3D_PRESET = "ns3d_t40"  # uno3d_t40, width 8, pad 3, T_in 10, T_f 40, batch 16
+NS3D_PREDICT = 8 * BATCH  # the ns3d-predict phase's test split: 8 batches of 16 windows
+NS3D_SPLIT = (32, 4, 4)  # the ns3d-train phase's generated split: 2 steps per epoch
+NS3D_CHECK_WIDTH = 4  # ns3d-cuda-vs-cpu: uno3d_t40 at width 4, 2 samples
+# (B, Ci, Co, M = 2*m1 * 2*m2 * m3) of uno3d_t40's seven spectral contractions at ns3d_t40
+NS3D_CMUL_SHAPES = [(16, 8, 16, 6400), (16, 16, 32, 3136), (16, 32, 64, 576),
+                    (16, 64, 128, 1008), (16, 128, 32, 1008), (16, 64, 16, 7840),
+                    (16, 32, 16, 22400)]
 CMUL_ATOL, HEAD_REL = 1e-4, 1e-5          # the CPU tests' bounds
 HEAD_GX_REL = 4e-3                         # gx is bf16: one ulp
 E2E_REL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -256,8 +280,9 @@ def _cmul_case(name, kernel, plain, args, flush, res):
 
 def phase_kernels(dev, cmul_shapes=CMUL_SHAPES, head_shape=HEAD_SHAPE,
                   tag: str = "kernels") -> dict:
-    """The five kernels at one path's shapes: errors, bits, times, bounds;
-    summed per kernel over the shapes."""
+    """The five kernels at one path's shapes (the three contractions only
+    when ``head_shape`` is None): errors, bits, times, bounds; summed per
+    kernel over the shapes."""
     g = torch.Generator().manual_seed(0)
     flush = torch.ones(256 * 2**20, dtype=torch.uint8, device=dev)  # 5x the 50 MB L2
     res = {}
@@ -282,6 +307,20 @@ def phase_kernels(dev, cmul_shapes=CMUL_SHAPES, head_shape=HEAD_SHAPE,
                   f"same bits twice; kernel {km:.4f} ms  plain = library ({what}) {pm:.4f} ms"
                   f"  bound {bd:.4f} ms ({by})")
 
+    if head_shape is not None:  # None: the path runs no head kernel
+        _head_cases(dev, head_shape, g, flush, res, tag)
+    for name, r in res.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[{tag}] {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"library {lib}  bound {r['bound_ms']:.4f} ms (summed over its shapes)")
+    for r in res.values():
+        r["bound_by"] = "bytes" if r.pop("bytes_ms") >= r.pop("flops_ms") else "operations"
+    return res
+
+
+def _head_cases(dev, head_shape, g, flush, res, tag: str) -> None:
+    """The head's forward and backward kernels at one shape: errors, bits,
+    times, bounds."""
     b, c, n, h, o = head_shape
     x = torch.randn(b, c, n, generator=g).to(dev, torch.bfloat16)
     bound = lambda *s: (torch.rand(*s, generator=g) * 2 - 1).to(dev)
@@ -332,13 +371,6 @@ def phase_kernels(dev, cmul_shapes=CMUL_SHAPES, head_shape=HEAD_SHAPE,
           f"({bd[1]}); no one-call library version; plan: {plan.shares} gk1 shares, "
           f"{plan.smem} B shared memory, {plan.blocks} blocks")
     _add(res, "mlp_head_bwd", err, km, pm, bd, None)
-    for name, r in res.items():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"[{tag}] {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"library {lib}  bound {r['bound_ms']:.4f} ms (summed over its shapes)")
-    for r in res.values():
-        r["bound_by"] = "bytes" if r.pop("bytes_ms") >= r.pop("flops_ms") else "operations"
-    return res
 
 
 def _write_split(path: str, rng, ntrain: int = 0, nval: int = 0, ntest: int = NTEST) -> None:
@@ -731,12 +763,145 @@ def phase_ns_cuda_vs_cpu(dev) -> None:
               f"trajectory rel-L2 {rp:.3g}, all gradients rel-L2 {rg:.3g} (bound {bound})")
 
 
+def _write_ns3d_split(path: str, rng, ntest: int) -> None:
+    """An ns3d_t40 test split with the signature uno_tpu's cli writes: input
+    windows and targets of unit scale, the vorticity's."""
+    preset = dataclasses.replace(get_preset(NS3D_PRESET), ntrain=0, nval=0, ntest=ntest)
+    a = rng.standard_normal((ntest, NS_S, NS_S, preset.t_in)).astype(np.float32)
+    u = rng.standard_normal((ntest, NS_S, NS_S, preset.t_f)).astype(np.float32)
+    empty_a, empty_u = a[:0], u[:0]
+    np.savez(path, train_a=empty_a, train_u=empty_u, val_a=empty_a, val_u=empty_u,
+             test_a=a, test_u=u, config_sig=np.asarray(cli._gen_sig(preset)))
+
+
+def phase_ns3d_predict(tmp: str) -> list:
+    """``cli predict --preset ns3d_t40``: 8 batches of 16 input windows, each
+    one 3-D forward to 40 steps; returns the measured run's ms per batch."""
+    data, out = os.path.join(tmp, "ns3d.npz"), os.path.join(tmp, "ns3d_preds.npz")
+    _write_ns3d_split(data, np.random.default_rng(5), NS3D_PREDICT)
+    t_f = get_preset(NS3D_PRESET).t_f
+    argv = ["predict", "--preset", NS3D_PRESET, "--dtype", "bfloat16", "--init-seed", "0",
+            "--data-cache", data, "--ntrain", "0", "--nval", "0", "--ntest", str(NS3D_PREDICT),
+            "--split", "test", "--out", out, "--device", "cuda"]
+    warm = _run_cli(argv)[-1]
+    _zero_launches()
+    report = _run_cli(argv)[-1]
+    launches = _launches()
+    ms = report["batch_ms"]
+    batches = len(ms)
+    pred = np.load(out)["pred"]
+    if pred.shape != (NS3D_PREDICT, NS_S, NS_S, t_f) or not np.isfinite(pred).all():
+        raise AssertionError(f"ns3d-predict output: shape {pred.shape}, "
+                             f"finite {np.isfinite(pred).all()}")
+    if report["spectral"] != "fft" or report["dtype"] != "bfloat16":
+        raise AssertionError(f"ns3d-predict ran with {report}")
+    if (batches != NS3D_PREDICT // BATCH or launches["cmul_fwd"] != 7 * batches
+            or launches["mlp_head_fwd"] or launches["mlp_head_bwd"]
+            or launches["cmul_bwd_x"] or launches["cmul_bwd_w"]):
+        raise AssertionError(f"ns3d-predict kernel launches {launches} over {batches} batches")
+    per_batch = {k: v / batches for k, v in launches.items()}
+    print(f"[ns3d-predict] {NS3D_PRESET} uno3d_t40 bf16 b{BATCH} T_in=10 -> T_f={t_f}: "
+          f"{batches} warm batches, ms per batch {_spread(ms)} ({[round(v, 3) for v in ms]}; "
+          f"first run {[round(v, 3) for v in warm['batch_ms']]}); launches per batch "
+          f"{per_batch}")
+    return ms
+
+
+def phase_ns3d_train(tmp: str, dev) -> tuple:
+    """``cli train --preset ns3d_t40 --generate``: a generated 32/4/4 split,
+    3 epochs of 2 steps, validation on epochs 0 and 2; returns (launches,
+    warm ms per step)."""
+    data = os.path.join(tmp, "ns3d_train.npz")
+    ntrain, nval, ntest = NS3D_SPLIT
+    argv = ["train", "--preset", NS3D_PRESET, "--dtype", "bfloat16", "--epochs", str(EPOCHS),
+            "--device", "cuda", "--generate", "--data-cache", data, "--ntrain", str(ntrain),
+            "--nval", str(nval), "--ntest", str(ntest)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    records = _run_cli(argv)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    epochs = [r for r in records if "train_step_rel_l2" in r]
+    evaluated = [r for r in epochs if "val_step_rel_l2" in r]
+    losses = [r[k] for r in epochs for k in r if k.endswith("rel_l2")]
+    losses += [records[-1]["test_full_rel_l2"], records[-1]["test_step_rel_l2"]]
+    if (len(epochs) != EPOCHS or [r["epoch"] for r in evaluated] != [0, 2]
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"ns3d-train: {len(epochs)} epochs, validated "
+                             f"{[r['epoch'] for r in evaluated]}, losses {losses}")
+    if not epochs[-1]["train_step_rel_l2"] < epochs[0]["train_step_rel_l2"]:
+        raise AssertionError(f"ns3d-train: loss did not fall: "
+                             f"{[r['train_step_rel_l2'] for r in epochs]}")
+    steps = epochs[-1]["step"]
+    evals = len(evaluated) * -(-nval // BATCH) + -(-ntest // BATCH)  # forward-only batches
+    want = {"cmul_fwd": 7 * (steps + evals), "cmul_bwd_x": 7 * steps,
+            "cmul_bwd_w": 7 * steps, "mlp_head_fwd": 0, "mlp_head_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"ns3d-train kernel launches {launches}, expected {want} "
+                             f"({steps} steps, {evals} eval batches)")
+    warm = [ms for r in epochs[1:] for ms in r["step_ms"]]
+    print(f"[ns3d-train] {NS3D_PRESET} uno3d_t40 bf16 b{BATCH}: generated {sum(NS3D_SPLIT)} "
+          f"trajectories, {steps} steps in {EPOCHS} epochs, train_step_rel_l2 "
+          f"{[round(r['train_step_rel_l2'], 5) for r in epochs]}, val_step_rel_l2 "
+          f"{[round(r['val_step_rel_l2'], 5) for r in evaluated]}, val_full_rel_l2 "
+          f"{[round(r['val_full_rel_l2'], 5) for r in evaluated]}, test full/step "
+          f"{records[-1]['test_full_rel_l2']:.5f}/{records[-1]['test_step_rel_l2']:.5f}; "
+          f"launches {launches} ({steps} steps, {evals} eval batches)")
+    print(f"[ns3d-train] ms per step: warm median {statistics.median(warm):.3f} "
+          f"(epochs 2-{EPOCHS}: {[round(v, 3) for v in warm]}), first step "
+          f"{epochs[0]['step_ms'][0]:.1f}; peak device memory {peak_gb:.3f} GB; wall "
+          f"{wall:.1f} s (generation included)")
+    return launches, warm
+
+
+def phase_ns3d_cuda_vs_cpu(dev) -> None:
+    """uno3d_t40 at width 4, 2 samples at 64x64: the forward, then the loss
+    and all gradients, with the same weights on the card and the CPU."""
+    rng = np.random.default_rng(6)
+    preset = get_preset(NS3D_PRESET)
+    xx = torch.from_numpy(rng.standard_normal((2, NS_S, NS_S, preset.t_in)).astype(np.float32))
+    yy = torch.from_numpy(rng.standard_normal((2, NS_S, NS_S, preset.t_f)).astype(np.float32))
+    kw = dict(preset.model_kwargs, width=NS3D_CHECK_WIDTH)
+    for dtype in ("float32", "bfloat16"):
+        cpu = build_model("uno3d_t40", dtype=dtype, generator=torch.Generator().manual_seed(0),
+                          **kw)
+        gpu = build_model("uno3d_t40", dtype=dtype, device=dev, **kw)
+        params_from_flax(gpu, params_to_flax(cpu))
+        c0 = _launches()
+        with torch.inference_mode():
+            want, got = forecast(cpu, xx, preset.t_f), forecast(gpu, xx.to(dev), preset.t_f)
+        if _launches()["cmul_fwd"] - c0["cmul_fwd"] != 7:
+            raise AssertionError(f"ns3d-cuda-vs-cpu: the card's forward launched "
+                                 f"{_launches()['cmul_fwd'] - c0['cmul_fwd']} contractions")
+        ro = _rel(got, want)
+        out = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            loss = relative_lp_loss(forecast(model, xx.to(d), preset.t_f), yy.to(d))
+            loss.backward()
+            out.append((loss.detach(), torch.cat([
+                torch.view_as_real(p.grad).flatten() if p.is_complex() else p.grad.flatten()
+                for p in model.parameters()])))
+        rl, rg = (_rel(g, w) for g, w in zip(out[1], out[0]))
+        if not (torch.isfinite(got).all() and torch.isfinite(out[1][1]).all()
+                and ro <= E2E_REL[dtype] and max(rl, rg) <= GRAD_REL[dtype]):
+            raise AssertionError(f"ns3d-cuda-vs-cpu, {dtype}: output rel-L2 {ro} (bound "
+                                 f"{E2E_REL[dtype]}), loss rel {rl}, grads rel-L2 {rg} "
+                                 f"(bound {GRAD_REL[dtype]})")
+        print(f"[ns3d-cuda-vs-cpu] uno3d_t40 width {NS3D_CHECK_WIDTH} {NS_S}x{NS_S} b2 "
+              f"T_in={preset.t_in} -> T_f={preset.t_f} {dtype}: output rel-L2 {ro:.3g} "
+              f"(bound {E2E_REL[dtype]}), loss rel {rl:.3g}, all gradients rel-L2 {rg:.3g} "
+              f"(bound {GRAD_REL[dtype]})")
+
+
 def main() -> int:
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     times = phase_kernels(dev)
     ns_times = phase_kernels(dev, NS_CMUL_SHAPES, NS_HEAD_SHAPE, "kernels ns2d")
+    ns3d_times = phase_kernels(dev, NS3D_CMUL_SHAPES, None, "kernels ns3d")
     with tempfile.TemporaryDirectory() as tmp:
         fft_predict_ms = phase_predict(tmp)
         launches, fft_train_ms = phase_train(tmp, dev)
@@ -746,6 +911,8 @@ def main() -> int:
         phase_ns_generate(dev)
         phase_ns_predict(tmp)
         ns_launches, _ = phase_ns_train(tmp, dev)
+        phase_ns3d_predict(tmp)
+        ns3d_launches, _ = phase_ns3d_train(tmp, dev)
     phase_grads_cpu_vs_cuda(dev)
     phase_cpu_vs_cuda(dev)
     set_dft_mode(True)
@@ -755,13 +922,17 @@ def main() -> int:
     finally:
         set_dft_mode(None)
     phase_ns_cuda_vs_cpu(dev)
+    phase_ns3d_cuda_vs_cpu(dev)
     # top level: the Darcy path (darcy_s211 shapes, launches of its train
-    # run); "ns2d": the same keys at the NS-2D shapes and its train run
-    kernels = [
-        dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-             **times[name], ns2d=dict(launches=ns_launches[name], **ns_times[name]))
-        for name, (_, _, src, rep) in KERNELS.items()
-    ]
+    # run); "ns2d" and "ns3d": the same keys at those paths' shapes and
+    # their train runs (no head kernel runs on the NS-3D path)
+    kernels = []
+    for name, (_, _, src, rep) in KERNELS.items():
+        ns3d = dict(launches=ns3d_launches[name], **ns3d_times[name]) if name in ns3d_times \
+            else dict(launches=ns3d_launches[name], on_path=False)
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                            launches=launches[name], **times[name],
+                            ns2d=dict(launches=ns_launches[name], **ns_times[name]), ns3d=ns3d))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -209,3 +209,44 @@ def test_wrapper_raises_where_the_plan_cannot_launch():
         K._launch("uno_cmul_bwd_w", "bwd_w", torch.zeros(1, ci, 1, dtype=torch.complex64),
                   x, (ci, 1, 1), 1, ci, 1, 1)
     assert K.LAUNCHES == before
+
+
+# (B, Ci, Co, M) of uno3d_t40's seven contractions at ns3d_t40 (64x64, T 10 ->
+# 40, width 8), batch 16, and the (rows, K, N, M) of their three uses: M up to
+# 22,400 (5,600 blocks along the grid's x), dw's 32-128 rows over a batch of 16
+NS3D_SHAPES = [(16, 8, 16, 6400), (16, 16, 32, 3136), (16, 32, 64, 576), (16, 64, 128, 1008),
+               (16, 128, 32, 1008), (16, 64, 16, 7840), (16, 32, 16, 22400)]
+NS3D_PLANS = [(use, plan) for b, ci, co, m in NS3D_SHAPES
+              for use, plan in (("fwd", (b, ci, co, m)), ("dx", (b, co, ci, m)),
+                                ("dw", (ci, b, co, m)))]
+
+
+def _covered_once(tile: int, count: int, n: int) -> bool:
+    """``count`` tiles of ``tile`` from 0 cover [0, n) once each, and none
+    starts past it."""
+    hits = np.zeros(count * tile, np.int64)
+    for i in range(count):
+        hits[i * tile:(i + 1) * tile] += 1
+    return (hits[:n] == 1).all() and (count - 1) * tile < n
+
+
+@pytest.mark.parametrize("use,plan", NS3D_PLANS, ids=[f"{u}-{'x'.join(map(str, p))}"
+                                                      for u, p in NS3D_PLANS])
+def test_contract_plan_at_the_ns3d_shapes(use, plan):
+    """The plan at each NS-3D use covers every term once (a block's terms
+    are a product of one range per axis, so per axis suffices), fits an
+    H100 two blocks to an SM within CUDA's grid limits, and fills the card
+    as its rule says."""
+    rows, k, n, m = plan
+    p = K.contract_plan(rows, k, n, m)
+    assert _covered_once(K.TILE_B, p.grid[2], rows)
+    assert _covered_once(p.k_per_warp, p.split, k)
+    assert _covered_once(K.TILE_N, p.grid[1], n)
+    assert _covered_once(K.TILE_M, p.grid[0], m)
+    assert 1 <= p.split <= K.MAX_SPLIT and p.smem == K.contract_smem(p.split)
+    assert 2 * p.smem <= K.MAX_SMEM and max(p.grid[1:]) <= K.GRID_Y_MAX and p.vec == 16
+    warps = p.grid[0] * p.grid[1] * p.grid[2] * p.split
+    assert (warps >= K.SMS * K.WARPS_PER_SM or p.split == K.MAX_SPLIT
+            or k < 2 * p.split * K.MIN_K_PER_WARP), p
+    if use == "dw":  # the batch of 16 is dw's K: its Ci rows run one 16-row tile per block
+        assert p.grid[2] == -(-rows // K.TILE_B) and p.split * p.k_per_warp == k

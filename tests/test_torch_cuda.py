@@ -1,7 +1,7 @@
 """The port's CUDA kernels and model on the card, against their plain PyTorch
-versions, forward and backward, at the Darcy and NS-2D paths' shapes; the
-NS-2D rollout, the partial-DFT spectral path, the Darcy and NS solvers and
-checkpoints on the card against the CPU.  Every case needs a CUDA
+versions, forward and backward, at the Darcy, NS-2D and NS-3D paths'
+shapes; the NS-2D rollout, the NS-3D model, the partial-DFT spectral path,
+the Darcy and NS solvers and checkpoints on the card against the CPU.  Every case needs a CUDA
 device and skips without one.
 
 This file imports no JAX, so it runs where the port runs; tests/conftest.py
@@ -24,6 +24,10 @@ DARCY_S211 = [(16, 32, 64, 648), (16, 64, 128, 128), (16, 128, 128, 128),
 # (B, Ci, Co, M) of the seven uno contractions at ns2d (64x64, width 32), batch 16
 NS2D = [(16, 32, 48, 968), (16, 48, 96, 392), (16, 96, 192, 72), (16, 192, 192, 72),
         (16, 192, 96, 72), (16, 192, 48, 392), (16, 96, 32, 968)]
+# (B, Ci, Co, M) of the seven uno3d_t40 contractions at ns3d_t40 (64x64, T 10 -> 40,
+# width 8), batch 16: M up to 22,400 (a grid of 5,600 blocks along x)
+NS3D = [(16, 8, 16, 6400), (16, 16, 32, 3136), (16, 32, 64, 576), (16, 64, 128, 1008),
+        (16, 128, 32, 1008), (16, 64, 16, 7840), (16, 32, 16, 22400)]
 
 
 @pytest.fixture
@@ -68,7 +72,7 @@ def _misaligned(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D)
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D)
 def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
     g = torch.Generator().manual_seed(1)
     x = _rand_c(g, b, ci, m).to(cuda)
@@ -85,7 +89,7 @@ def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D)
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D)
 def test_cmul_backward_kernels_match_plain(cuda, b, ci, co, m):
     g_ = torch.Generator().manual_seed(3)
     x = _rand_c(g_, b, ci, m).to(cuda)
@@ -432,3 +436,40 @@ def test_a_checkpoint_saved_on_the_card_restores_on_the_cpu(cuda, tmp_path):
         assert p2.device.type == "cpu" and torch.equal(p1.cpu(), p2), n
     for st in ocpu.state.values():
         assert st["step"] == 1 and st["exp_avg"].device.type == "cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound,grad_bound", [("float32", 1e-4, 1e-4),
+                                                    ("bfloat16", 3e-2, 5e-2)])
+def test_uno3d_t40_on_the_card_matches_the_cpu(cuda, dtype, bound, grad_bound):
+    """uno3d_t40 (width 4, 64x64, T_in 10 -> T_f 40, one sample): the
+    forward, then the loss and all gradients, through the kernels on the
+    card and the plain versions on the CPU; 7 forward contractions, no head
+    kernel (a 3-D model takes the unfused Dense head)."""
+    from uno_tpu_torch.losses import relative_lp_loss
+    from uno_tpu_torch.train.ns3d import forecast
+
+    kw = dict(in_width=6, width=4, pad=3)
+    rng = np.random.default_rng(4)
+    xx = torch.from_numpy(rng.standard_normal((1, 64, 64, 10)).astype(np.float32))
+    yy = torch.from_numpy(rng.standard_normal((1, 64, 64, 40)).astype(np.float32))
+    res = []
+    c0, h0 = dict(C.LAUNCHES), dict(H.LAUNCHES)
+    for dev in ("cpu", cuda):
+        model = build_model("uno3d_t40", dtype=dtype, device=dev,
+                            generator=torch.Generator().manual_seed(0), **kw)
+        with torch.no_grad():
+            out = forecast(model, xx.to(dev), 40)
+        loss = relative_lp_loss(forecast(model, xx.to(dev), 40), yy.to(dev))
+        loss.backward()
+        grads = torch.cat([torch.view_as_real(p.grad).flatten() if p.is_complex()
+                           else p.grad.flatten() for p in model.parameters()])
+        res.append((out, loss.detach(), grads))
+    assert C.LAUNCHES["fwd"] - c0["fwd"] == 2 * 7
+    assert C.LAUNCHES["bwd_x"] - c0["bwd_x"] == C.LAUNCHES["bwd_w"] - c0["bwd_w"] == 7
+    assert H.LAUNCHES == h0
+    assert res[1][0].shape == (1, 64, 64, 40) and res[1][0].dtype == torch.float32
+    assert torch.isfinite(res[1][0]).all() and torch.isfinite(res[1][2]).all()
+    assert _rel(res[1][0], res[0][0]) <= bound
+    assert _rel(res[1][1], res[0][1]) <= grad_bound
+    assert _rel(res[1][2], res[0][2]) <= grad_bound

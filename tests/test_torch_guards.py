@@ -1,6 +1,6 @@
 """Guards of the PyTorch port: it never imports JAX, and its framework-free
-copies of uno_tpu code (spec dataclasses, 2-D factories, the Darcy and
-NS-2D presets and their TrainConfig, resample tables, partial-DFT tables,
+copies of uno_tpu code (spec dataclasses, 2-D and 3-D factories, the Darcy,
+NS-2D and NS-3D presets and their TrainConfig, resample tables, partial-DFT tables,
 the GRF's DCT matrix, ``MatReader`` and the NS loader) stay equal to the
 originals."""
 
@@ -20,6 +20,7 @@ from uno_tpu.data import mat as jmat
 from uno_tpu.ops import dft as jdft
 from uno_tpu.models import core as jcore
 from uno_tpu.models import uno2d as juno2d
+from uno_tpu.models import uno3d as juno3d
 from uno_tpu.ops.resample import resize_matrix as j_resize_matrix
 from uno_tpu.train import common as jcommon
 from uno_tpu_torch.configs import presets as tpresets
@@ -39,7 +40,8 @@ def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import sys, pkgutil, importlib, uno_tpu_torch, uno_tpu_torch.cli, "
         "uno_tpu_torch.models, uno_tpu_torch.optim, uno_tpu_torch.losses, "
-        "uno_tpu_torch.train.darcy, uno_tpu_torch.train.ns2d, uno_tpu_torch.data.batching, "
+        "uno_tpu_torch.train.darcy, uno_tpu_torch.train.ns2d, uno_tpu_torch.train.ns3d, "
+        "uno_tpu_torch.models.uno3d, uno_tpu_torch.data.batching, "
         "uno_tpu_torch.data.ns_solver, uno_tpu_torch.data.mat, uno_tpu_torch.data.loaders, "
         "chip_smoke, tools.torch_ns2d_profile\n"
         "for m in pkgutil.walk_packages(uno_tpu_torch.__path__, 'uno_tpu_torch.'):\n"
@@ -68,7 +70,10 @@ def test_spec_dataclasses_equal_uno_tpus():
             assert tcore._scale(d, f) == jcore._scale(d, f)
 
 
-@pytest.mark.parametrize("name", sorted(MODEL_REGISTRY))
+_3D = sorted(n for n in MODEL_REGISTRY if n.startswith("uno3d"))
+
+
+@pytest.mark.parametrize("name", sorted(set(MODEL_REGISTRY) - set(_3D)))
 @pytest.mark.parametrize("kwargs", [{}, dict(width=8, pad=1), dict(width=20, factor=0.5)])
 def test_2d_factories_equal_uno_tpus(name, kwargs):
     if name == "uno_demo":
@@ -79,15 +84,31 @@ def test_2d_factories_equal_uno_tpus(name, kwargs):
     assert [type(b).__name__ for b in got.blocks] == ["BlockSpec"] * len(want.blocks)
 
 
+@pytest.mark.parametrize("name", _3D)
+@pytest.mark.parametrize("kwargs", [{}, dict(width=4, pad=3), dict(width=20, factor=0.5,
+                                                                   pad_both=True)])
+def test_3d_factories_equal_uno_tpus(name, kwargs):
+    got = MODEL_REGISTRY[name](**kwargs)
+    want = getattr(juno3d, name)(**kwargs)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [type(b).__name__ for b in got.blocks] == ["BlockSpec"] * len(want.blocks)
+
+
+def test_model_registry_equals_uno_tpus():
+    from uno_tpu.models import MODEL_REGISTRY as J_REGISTRY
+
+    assert set(MODEL_REGISTRY) == set(J_REGISTRY) and len(_3D) == 8
+
+
 def test_train_config_equals_uno_tpus():
     assert _fields(tcommon.TrainConfig) == _fields(jcommon.TrainConfig)
 
 
 def test_darcy_presets_equal_uno_tpus():
-    """The Darcy and, since the NS-2D slice, the NS-2D presets."""
-    assert set(tpresets.PRESETS) == {
-        n for n, p in jpresets.PRESETS.items() if p.task in ("darcy", "ns2d")
-    }
+    """The Darcy, NS-2D and, since the NS-3D slice, NS-3D presets: all of
+    uno_tpu's."""
+    assert set(tpresets.PRESETS) == set(jpresets.PRESETS)
+    assert {p.task for p in tpresets.PRESETS.values()} == {"darcy", "ns2d", "ns3d"}
     assert [f.name for f in dataclasses.fields(tpresets.Preset)] == [
         f.name for f in dataclasses.fields(jpresets.Preset)]
     for name, got in tpresets.PRESETS.items():

@@ -134,14 +134,27 @@ def test_port_init_matches_uno_tpu_distributions():
 
 
 def test_3d_spec_is_not_ported():
+    """uno_tpu's 3-D spec builds in the port since the NS-3D slice; what is
+    not ported is its partial-DFT path, which raises rather than run the
+    FFT path, and 1-D specs."""
     from uno_tpu.models.uno3d import uno3d_t9
     from uno_tpu_torch.models.core import BlockSpec, UNOModel, UNOSpec
+    from uno_tpu_torch.ops.spectral import set_dft_mode
 
-    spec = uno3d_t9()
+    spec = uno3d_t9(width=2)
     fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
     fields["blocks"] = tuple(BlockSpec(**dataclasses.asdict(b)) for b in spec.blocks)
+    model = UNOModel(UNOSpec(**fields), generator=torch.Generator().manual_seed(0))
+    x = torch.zeros(1, 40, 40, 6, 1)
+    set_dft_mode(True)
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            model(x)
+    finally:
+        set_dft_mode(None)
+    assert model(x).shape == (1, 40, 40, 9, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNOModel(UNOSpec(**fields))
+        UNOModel(UNOSpec(**dict(fields, ndim=1)))
 
 
 def _write_cache(path, s=85, ntest=3, sig=True):

@@ -1,15 +1,20 @@
-"""Device busy time and idle share of the PyTorch port's NS-2D serving batch
-and training step on one CUDA card.
+"""Device busy time and idle share of the PyTorch port's NS serving batch and
+training step on one CUDA card.
 
-    python3 tools/torch_ns2d_profile.py [--reps 5] [--trace-dir DIR]
+    python3 tools/torch_ns2d_profile.py [--preset ns2d|ns3d_t40] [--reps 5] [--trace-dir DIR]
 
-Builds preset ``ns2d``'s model (``uno``, width 32, 64x64, batch 16, T_f 40,
-bf16 policy, random weights from seed 0) on ``cuda:0`` and times two calls:
+Builds the preset's model at full width with the bf16 policy and random
+weights from seed 0 on ``cuda:0`` (``ns2d``: ``uno``, width 32, 64x64,
+batch 16, T_f 40; ``ns3d_t40``: ``uno3d_t40``, width 8, 64x64, batch 16,
+T_in 10 -> T_f 40) and times two calls:
 
-* serving: one 40-step rollout under ``torch.inference_mode()`` (the
-  ``cli predict`` batch without its host copies);
-* training: one step of ``train_ns2d`` (the checkpointed 40-step rollout,
-  its backward through every step, ComplexAdam).
+* serving: the ``cli predict`` batch without its host copies, under
+  ``torch.inference_mode()``: for ns2d one 40-step rollout, for ns3d_t40
+  one 3-D forward to all 40 steps;
+* training: one step of the preset's trainer, then ComplexAdam: for ns2d
+  ``train_ns2d``'s (the checkpointed 40-step rollout and its backward
+  through every step), for ns3d_t40 ``train_ns3d``'s (the forward, the
+  full-field loss's backward, the per-step losses without gradients).
 
 For each it reports the warm time between CUDA events recorded before and
 after the call, unprofiled (the median of ``--reps``; idle gaps where the
@@ -46,7 +51,9 @@ from uno_tpu_torch.configs.presets import get_preset  # noqa: E402
 from uno_tpu_torch.data.batching import num_batches  # noqa: E402
 from uno_tpu_torch.models import build_model  # noqa: E402
 from uno_tpu_torch.train.common import make_optimizer  # noqa: E402
+from uno_tpu_torch.losses import relative_lp_loss  # noqa: E402
 from uno_tpu_torch.train.ns2d import make_rollout  # noqa: E402
+from uno_tpu_torch.train.ns3d import forecast, step_rel_l2  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -91,7 +98,7 @@ def _busy(trace_path: str) -> dict:
     }
 
 
-def _measure(name: str, fn, reps: int, trace_dir) -> dict:
+def _measure(name: str, fn, reps: int, trace_dir, preset: str) -> dict:
     fn()
     fn()  # warm: cuFFT plans, cuBLAS handles, the allocator
     torch.cuda.synchronize()
@@ -100,7 +107,7 @@ def _measure(name: str, fn, reps: int, trace_dir) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    path = os.path.join(trace_dir or tempfile.mkdtemp(), f"ns2d_{name}.json")
+    path = os.path.join(trace_dir or tempfile.mkdtemp(), f"{preset}_{name}.json")
     prof.export_chrome_trace(path)
     stats = _busy(path)
     med = statistics.median(wall)
@@ -119,6 +126,7 @@ def _measure(name: str, fn, reps: int, trace_dir) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", default="ns2d", choices=["ns2d", "ns3d_t40"])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--trace-dir", default=None, help="keep the chrome traces here")
     args = ap.parse_args(argv)
@@ -133,30 +141,44 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     dev = torch.device("cuda", 0)
-    preset = get_preset("ns2d")
+    preset = get_preset(args.preset)
     bs, t_f, s = preset.train.batch_size, preset.t_f, preset.size
     model = build_model(preset.model, dtype="bfloat16", device=dev,
                         generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
     rng = np.random.default_rng(0)
     xx = torch.from_numpy(rng.standard_normal((bs, s, s, preset.t_in)).astype(np.float32)).to(dev)
     yy = torch.from_numpy(rng.standard_normal((bs, s, s, t_f)).astype(np.float32)).to(dev)
-    rollout = make_rollout(model, t_f)
     opt = make_optimizer(preset.train, num_batches(preset.ntrain, bs), model.parameters())
 
-    def serve():
-        with torch.inference_mode():
-            rollout(xx, torch.zeros_like(yy))
+    if preset.task == "ns2d":
+        rollout = make_rollout(model, t_f)
 
-    def train_step():
-        opt.zero_grad(set_to_none=True)
-        loss, _ = rollout(xx, yy)
-        loss.backward()
-        opt.step()
+        def serve():
+            with torch.inference_mode():
+                rollout(xx, torch.zeros_like(yy))
+
+        def train_step():
+            opt.zero_grad(set_to_none=True)
+            loss, _ = rollout(xx, yy)
+            loss.backward()
+            opt.step()
+    else:
+        def serve():
+            with torch.inference_mode():
+                forecast(model, xx, t_f)
+
+        def train_step():
+            opt.zero_grad(set_to_none=True)
+            out = forecast(model, xx, t_f)
+            relative_lp_loss(out, yy).backward()
+            opt.step()
+            with torch.no_grad():
+                step_rel_l2(out, yy)
 
     for name, fn in (("serving_batch", serve), ("training_step", train_step)):
-        print(json.dumps({"preset": "ns2d", "model": preset.model, "dtype": "bfloat16",
+        print(json.dumps({"preset": args.preset, "model": preset.model, "dtype": "bfloat16",
                           "batch": bs, "t_f": t_f,
-                          **_measure(name, fn, args.reps, args.trace_dir)}))
+                          **_measure(name, fn, args.reps, args.trace_dir, args.preset)}))
     return 0
 
 

@@ -4,34 +4,36 @@
         (--data-cache D.npz | --generate [--data-cache D.npz]) \\
         [--dtype bfloat16] [--device cuda] [--epochs N] [--log run.jsonl] \\
         [--checkpoint-dir CK [--checkpoint-every K] [--resume]]
-    python -m uno_tpu_torch.cli train --preset ns2d \\
+    python -m uno_tpu_torch.cli train --preset ns2d|ns3d_t40 \\
         (--data ns.mat | --data-cache D.npz | --generate [--gen-dt DT] [--gen-T T]) ...
-    python -m uno_tpu_torch.cli predict --preset darcy_s211|ns2d \\
+    python -m uno_tpu_torch.cli predict --preset darcy_s211|ns2d|ns3d_t40 \\
         (--data ... | --data-cache D.npz | --generate ...) \\
         (--params P.npz | --init-seed N | --checkpoint-dir CK) \\
         --split test --out preds.npz [--dtype bfloat16] [--device cuda]
-    python -m uno_tpu_torch.cli eval --preset darcy_s211|ns2d \\
+    python -m uno_tpu_torch.cli eval --preset darcy_s211|ns2d|ns3d_t40 \\
         (--data ... | --data-cache D.npz | --generate ...) --checkpoint-dir CK
     python -m uno_tpu_torch.cli generate --task darcy --out darcy.mat \\
         [--n 100] [--size 421] [--seed 0] [--device cuda]
     python -m uno_tpu_torch.cli generate --task ns --out ns.mat [--n 100] \\
         [--size 64] [--visc 1e-3] [--T 50] [--delta-t 1e-4] [--record-steps 50]
 
-``train`` is the counterpart of ``uno_tpu``'s ``cli train`` for the Darcy
-and NS-2D presets: it reads or writes the six-key split ``.npz``
+``train`` is the counterpart of ``uno_tpu``'s ``cli train`` for the Darcy,
+NS-2D and NS-3D presets: it reads or writes the six-key split ``.npz``
 (``--data-cache``) or, for NS, reads the generator's ``.mat`` (``--data``),
 draws the model's weights from the preset's seed, and runs
-``train.darcy.train_darcy`` or ``train.ns2d.train_ns2d`` (the 40-step
-rollout with full BPTT), printing one JSON line per epoch and a final test
-line.  With ``--checkpoint-dir`` it saves the best params and the training
-state, and ``--resume`` continues from that state.
+``train.darcy.train_darcy``, ``train.ns2d.train_ns2d`` (the 40-step
+rollout with full BPTT) or ``train.ns3d.train_ns3d`` (one 3-D forward from
+the T_in window to all T_f steps), printing one JSON line per epoch and a
+final test line.  With ``--checkpoint-dir`` it saves the best params and
+the training state, and ``--resume`` continues from that state.
 
 ``--generate`` makes the preset's split with the port's generators on
 ``--device``, from a ``torch.Generator`` seeded with the preset's seed:
 Darcy in batches of 64 (``data/darcy_solver.py``); NS in batches of 20
-(``data/grf.py`` ``GaussianRF`` and ``data/ns_solver.py``) with ``uno_tpu``'s
-fast profile by default (``--gen-dt 1e-3``, ``--gen-T`` (T_in + T_f) / 2;
-``--gen-dt 1e-4 --gen-T 50`` is the reference's).  With ``--data-cache`` an
+(``data/grf.py`` ``GaussianRF`` and ``data/ns_solver.py``; NS-2D and NS-3D
+alike) with ``uno_tpu``'s fast profile by default (``--gen-dt 1e-3``,
+``--gen-T`` (T_in + T_f) / 2; ``--gen-dt 1e-4 --gen-T 50`` is the
+reference's).  With ``--data-cache`` an
 existing cache is loaded and a missing one is written.  A cache carries
 ``uno_tpu``'s six keys and its ``config_sig``, so a cache written by either
 package loads in the other.  The two packages' generators draw the same law
@@ -39,21 +41,23 @@ from different random streams: for one seed they write different samples,
 and held-out numbers of the two packages compare only on one cache file.
 
 ``predict`` is batch inference, the counterpart of ``uno_tpu``'s ``cli
-predict``: it runs the preset's model over one split (for NS the rollout of
-T_f steps, fed zero targets as ``uno_tpu`` does) and writes ``input``,
-``pred`` and ``target`` to ``--out``, and prints the host time of each
-batch (``batch_ms``).  Weights come from a checkpoint's best params, from
-an ``.npz`` param tree (``uno_tpu_torch/bridge.py``), or are drawn from a
-seed.  ``eval`` reports a checkpoint's val and test rel-L2 (for NS, per step
-and per trajectory).  ``generate --task darcy`` writes ``coeff`` and ``sol``
-to a ``.mat`` file; ``generate --task ns`` writes ``a{i}`` (the initial
-vorticity), ``u{i}`` (the recorded trajectory) and ``t{i}`` (its times) per
-batch of 20, compressed.
+predict``: it runs the preset's model over one split (for NS-2D the rollout
+of T_f steps, fed zero targets as ``uno_tpu`` does; for NS-3D the one
+forward to all T_f steps) and writes ``input``, ``pred`` and ``target`` to
+``--out``, and prints the host time of each batch (``batch_ms``).  Weights
+come from a checkpoint's best params, from an ``.npz`` param tree
+(``uno_tpu_torch/bridge.py``), or are drawn from a seed.  ``eval`` reports a
+checkpoint's val and test rel-L2 (for NS-2D, per step and per trajectory;
+for NS-3D, over the full field and per step).  ``generate --task darcy``
+writes ``coeff`` and ``sol`` to a ``.mat`` file; ``generate --task ns``
+writes ``a{i}`` (the initial vorticity), ``u{i}`` (the recorded
+trajectory) and ``t{i}`` (its times) per batch of 20, compressed.
 
 ``UNO_TPU_TORCH_DFT=1`` runs the spectral transforms as partial-DFT matmuls
 (``ops/spectral.py``) instead of FFTs.  Every entry point turns TF32 and
 cuBLAS's reduced-precision bf16 reductions off and states it in its output.
-The NS-3D presets are not ported yet (ROADMAP.md Queue 1 item 6).
+The NS-3D ops have no partial-DFT path yet: under ``UNO_TPU_TORCH_DFT=1``
+an NS-3D preset raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ def _build_preset(args):
 
     if args.preset not in PRESETS:
         raise SystemExit(f"{args.cmd}: preset {args.preset!r} is not ported (the port has "
-                         f"{', '.join(PRESETS)}; NS-3D is ROADMAP.md Queue 1 item 6)")
+                         f"{', '.join(PRESETS)})")
     preset = PRESETS[args.preset]
     train_over = {k: getattr(args, k) for k in _TRAIN_FLAGS
                   if getattr(args, k, None) is not None}
@@ -107,7 +111,7 @@ def _gen_sig(preset, gen_dt=None, gen_T=None) -> str:
         f"ntrain={preset.ntrain}", f"nval={preset.nval}",
         f"ntest={preset.ntest}", f"seed={preset.train.seed}",
     ]
-    if preset.task == "ns2d":
+    if preset.task in ("ns2d", "ns3d"):
         dt = gen_dt if gen_dt is not None else _NS_DT
         parts += [f"t_in={preset.t_in}", f"t_f={preset.t_f}",
                   f"dt={dt:g}", f"T={_ns_horizon(preset, gen_T):g}"]
@@ -215,7 +219,7 @@ def _load_data(args, preset, device):
     """The preset's six-array split from ``--data``, ``--data-cache`` and
     ``--generate``, the same way for train, predict and eval."""
     if args.data and not args.generate:
-        if preset.task != "ns2d":
+        if preset.task == "darcy":
             raise SystemExit("--data with a Darcy preset is not ported yet "
                              "(ROADMAP.md Queue 1 item 9): use --data-cache or --generate")
         return _load_ns_mat(args.data[0], preset)
@@ -300,10 +304,11 @@ class _Tee:
 
 
 def cmd_train(args) -> int:
-    """Train a Darcy or NS-2D preset's model; JSONL metrics."""
+    """Train a Darcy, NS-2D or NS-3D preset's model; JSONL metrics."""
     from uno_tpu_torch.train.darcy import train_darcy
     from uno_tpu_torch.train.metrics import MetricLogger
     from uno_tpu_torch.train.ns2d import train_ns2d
+    from uno_tpu_torch.train.ns3d import train_ns3d
 
     device = _device(args.device)
     _no_tf32()
@@ -322,7 +327,8 @@ def cmd_train(args) -> int:
         if preset.task == "darcy":
             train_darcy(model, *data, preset.train, logger=MetricLogger(tee))
         else:
-            train_ns2d(model, *data, preset.train, t_f=preset.t_f, logger=MetricLogger(tee))
+            trainer = train_ns2d if preset.task == "ns2d" else train_ns3d
+            trainer(model, *data, preset.train, t_f=preset.t_f, logger=MetricLogger(tee))
     finally:
         if tee is not None:
             tee.close()
@@ -350,6 +356,10 @@ def cmd_predict(args) -> int:
     if preset.task == "darcy":
         s = u.shape[1]
         fwd = lambda xb: model(xb.float()).reshape(xb.shape[0], s, s)  # noqa: E731
+    elif preset.task == "ns3d":
+        from uno_tpu_torch.train.ns3d import forecast
+
+        fwd = lambda xb: forecast(model, xb, preset.t_f)  # noqa: E731
     else:
         from uno_tpu_torch.train.ns2d import make_rollout
 
@@ -380,7 +390,7 @@ def cmd_predict(args) -> int:
 
 def cmd_eval(args) -> int:
     """A checkpoint's best params on the preset's val and test splits."""
-    from uno_tpu_torch.train.evaluate import evaluate_darcy, evaluate_ns2d
+    from uno_tpu_torch.train.evaluate import evaluate_darcy, evaluate_ns2d, evaluate_ns3d
 
     device = _device(args.device)
     _no_tf32()
@@ -396,10 +406,14 @@ def cmd_eval(args) -> int:
             continue
         if preset.task == "darcy":
             out[f"{split}_rel_l2"] = evaluate_darcy(model, a, u, bs)
-        else:
+        elif preset.task == "ns2d":
             r = evaluate_ns2d(model, a, u, preset.t_f, bs)
             out[f"{split}_step_rel_l2"] = r["step_rel_l2"]
             out[f"{split}_traj_rel_l2"] = r["traj_rel_l2"]
+        else:
+            r = evaluate_ns3d(model, a, u, preset.t_f, bs)
+            out[f"{split}_field_rel_l2"] = r["field_rel_l2"]
+            out[f"{split}_step_rel_l2"] = r["step_rel_l2"]
     out.update(_precision_report())
     line = json.dumps(out)
     print(line)
@@ -473,10 +487,9 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser(
-        "train", help="train a Darcy or NS-2D preset's model",
+        "train", help="train a Darcy, NS-2D or NS-3D preset's model",
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="Not ported yet, with the ROADMAP.md item that brings each:\n"
-               "  NS-3D presets              Queue 1 item 6 (NS-3D)\n"
                "  --data for Darcy           Queue 1 item 9 (data loaders)\n"
                "  --data-parallel, --spatial, --tensor-parallel\n"
                "                             Queue 1 item 8 (parallel/)",

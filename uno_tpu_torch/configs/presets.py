@@ -1,4 +1,4 @@
-"""Named experiment presets: the Darcy and NS-2D presets of
+"""Named experiment presets: the Darcy, NS-2D and NS-3D presets of
 ``uno_tpu/configs/presets.py``.
 
 * ``darcy_s211``  — darcy_flow_main.py:37-117 (S=211 via sub=2, 1500/250/250,
@@ -7,9 +7,11 @@
 * ``darcy_s421``  — full resolution with the deeper UNO_11 stack
 * ``ns2d``        — ns_uno2d_main.py:26-107 (S=64, T_in=10, T_f=40 rollout)
 * ``ns2d_s256``   — UNO_S256 at 256²
+* ``ns3d_t40`` / ``t20`` / ``t10`` / ``t9`` — ns_uno3d_main.py (S=64,
+  T_in=10 (6 for t9) -> T_f=40/20/10/9 in one forward, 9000/1000/1000,
+  width 8, lr 3e-3)
 
 tests/test_torch_guards.py holds every field here equal to ``uno_tpu``'s.
-The NS-3D presets come with the 3-D models.
 """
 
 from __future__ import annotations
@@ -53,6 +55,19 @@ def _ns2d_train(batch_size: int) -> TrainConfig:
     )
 
 
+def _ns3d(name: str, model: str, t_f: int, t_in: int) -> Preset:
+    return Preset(
+        name=name, task="ns3d", model=model,
+        model_kwargs=dict(in_width=6, width=8, pad=3 if name == "ns3d_t40" else 2),
+        train=TrainConfig(
+            epochs=500, batch_size=16, learning_rate=3e-3,
+            scheduler_step=100, scheduler_gamma=0.5, weight_decay=1e-5,
+            eval_every=2,
+        ),
+        ntrain=9000, nval=1000, ntest=1000, t_in=t_in, t_f=t_f, size=64,
+    )
+
+
 PRESETS: Dict[str, Preset] = {
     p.name: p
     for p in (
@@ -86,6 +101,10 @@ PRESETS: Dict[str, Preset] = {
             train=_ns2d_train(batch_size=4),
             ntrain=4000, nval=500, ntest=500, t_in=10, t_f=40, size=256,
         ),
+        _ns3d("ns3d_t40", "uno3d_t40", 40, 10),
+        _ns3d("ns3d_t20", "uno3d_t20", 20, 10),
+        _ns3d("ns3d_t10", "uno3d_t10", 10, 10),
+        _ns3d("ns3d_t9", "uno3d_t9", 9, 6),
     )
 }
 

@@ -2,8 +2,18 @@ import dataclasses
 
 from uno_tpu_torch.models.core import LIFT, BlockSpec, UNOModel, UNOSpec
 from uno_tpu_torch.models.uno2d import uno, uno9, uno11, uno_demo, uno_p, uno_s256
+from uno_tpu_torch.models.uno3d import (
+    uno3d_t9,
+    uno3d_t9_256,
+    uno3d_t10,
+    uno3d_t10_256,
+    uno3d_t20,
+    uno3d_t20_256,
+    uno3d_t40,
+    uno3d_t40_256,
+)
 
-# the 2-D registry of uno_tpu; the 3-D models are not ported yet
+# uno_tpu's registry: the 2-D and the 3-D families
 MODEL_REGISTRY = {
     "uno9": uno9,
     "uno11": uno11,
@@ -11,6 +21,14 @@ MODEL_REGISTRY = {
     "uno_p": uno_p,
     "uno_s256": uno_s256,
     "uno_demo": uno_demo,
+    "uno3d_t40": uno3d_t40,
+    "uno3d_t20": uno3d_t20,
+    "uno3d_t10": uno3d_t10,
+    "uno3d_t9": uno3d_t9,
+    "uno3d_t40_256": uno3d_t40_256,
+    "uno3d_t20_256": uno3d_t20_256,
+    "uno3d_t10_256": uno3d_t10_256,
+    "uno3d_t9_256": uno3d_t9_256,
 }
 
 
@@ -42,4 +60,12 @@ __all__ = [
     "uno_p",
     "uno_s256",
     "uno_demo",
+    "uno3d_t40",
+    "uno3d_t20",
+    "uno3d_t10",
+    "uno3d_t9",
+    "uno3d_t40_256",
+    "uno3d_t20_256",
+    "uno3d_t10_256",
+    "uno3d_t9_256",
 ]

@@ -7,7 +7,9 @@ padded base grid, plus lift/projection/padding/embedding choices.
 copies of ``uno_tpu``'s (tests/test_torch_guards.py holds them field-for-field
 equal); grid arithmetic uses ``fractions.Fraction`` floors, exactly.
 
-Only 2-D specs are ported; a 3-D spec raises ``NotImplementedError``.
+2-D specs (Darcy, NS-2D) and 3-D specs (NS-3D: space contracts through the
+encoder while the time axis expands through the decoder) are ported; 1-D
+specs are not.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 from uno_tpu_torch.models.embeddings import EMBEDDINGS
 from uno_tpu_torch.nn.layers import Dense, OperatorBlock, gelu
 from uno_tpu_torch.ops.kernels.mlp_head import mlp_head
+from uno_tpu_torch.ops.resample import resize
 
 LIFT = -1  # skip source: the padded lift output x_fc0
 
@@ -69,11 +72,15 @@ def _scale(d: int, f: Fraction) -> int:
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_PAD_MODES = {2: ("darcy", "sym", "end"), 3: ("time",)}
 
 
 class UNOModel(nn.Module):
-    """Interpreter for a 2-D UNOSpec.  Input and output are channels-last:
-    (B, S1, S2, C) -> (B, S1, S2, out_dim).
+    """Interpreter for a 2-D or 3-D UNOSpec.  Input and output are
+    channels-last:
+
+    * 2-D: (B, S1, S2, C) -> (B, S1, S2, out_dim)
+    * 3-D: (B, S1, S2, T, C) -> (B, S1, S2, T_out, out_dim)
 
     Parameters are drawn from ``generator`` on the CPU and moved to
     ``device``.  It trains under autograd: the spectral contraction and the
@@ -85,13 +92,13 @@ class UNOModel(nn.Module):
     def __init__(self, spec: UNOSpec, device=None,
                  generator: torch.Generator = None):
         super().__init__()
-        if spec.ndim != 2:
+        if spec.ndim not in _PAD_MODES:
             raise NotImplementedError(
-                f"{spec.name}: {spec.ndim}-D models are not ported yet "
-                "(ROADMAP.md, Queue 1: NS-3D)"
+                f"{spec.name}: {spec.ndim}-D models are not ported yet (ROADMAP.md, Queue 1)"
             )
-        if spec.pad_mode not in ("darcy", "sym", "end"):
-            raise ValueError(f"{spec.name}: pad_mode {spec.pad_mode!r} is not a 2-D mode")
+        if spec.pad_mode not in _PAD_MODES[spec.ndim]:
+            raise ValueError(
+                f"{spec.name}: pad_mode {spec.pad_mode!r} is not a {spec.ndim}-D mode")
         self.spec = spec
         self.dtype = _DTYPES[spec.dtype]
         dt, dev, g = self.dtype, device, generator
@@ -114,7 +121,7 @@ class UNOModel(nn.Module):
         self.fc1 = Dense(cur, spec.proj_hidden, torch.float32, dev, g)
         self.fc2 = Dense(head_in, spec.out_dim, torch.float32, dev, g)
 
-    def _pads(self, size: Tuple[int, int]):
+    def _pads(self, size: Tuple[int, ...]):
         """Per spatial axis (lo, hi) padding of the lifted field."""
         spec = self.spec
         if spec.pad_mode == "darcy":
@@ -123,19 +130,41 @@ class UNOModel(nn.Module):
             pads = [(0, p), (0, p)]
         elif spec.pad_mode == "sym":
             pads = [(spec.pad, spec.pad)] * 2
-        else:  # 'end': one-sided right/bottom padding
+        elif spec.pad_mode == "end":  # one-sided right/bottom padding
             pads = [(0, spec.pad)] * 2
+        else:  # 'time': int(pad * 0.1 * T) on the time axis, as uno_tpu computes it
+            p = int(spec.pad * 0.1 * size[-1])
+            pads = [(0, 0)] * (len(size) - 1) + [(p, p) if spec.pad_both else (0, p)]
         if spec.pad_to:
+            # 3-D models round only the time axis
             pads = [
                 (lo, hi + (-(n + lo + hi)) % spec.pad_to)
-                for n, (lo, hi) in zip(size, pads)
+                if spec.pad_mode != "time" or ax == len(size) - 1 else (lo, hi)
+                for ax, (n, (lo, hi)) in enumerate(zip(size, pads))
             ]
         return pads
 
+    def _crop(self, pieces, orig, pads):
+        """The padding cropped from each channel piece: the padded cells in
+        2-D; ``floor(crop_mult * pad)`` of each padded side of the time
+        axis in 3-D (the time axis grows through the blocks)."""
+        if self.spec.ndim == 2:
+            (lo1, _), (lo2, _) = pads
+            s1, s2 = orig
+            if any(p.shape[-2:] != (s1, s2) for p in pieces):
+                pieces = [p[..., lo1 : lo1 + s1, lo2 : lo2 + s2] for p in pieces]
+            return pieces
+        lo, hi = pads[-1]
+        c_lo, c_hi = _scale(lo, self.spec.crop_mult), _scale(hi, self.spec.crop_mult)
+        if c_lo or c_hi:
+            pieces = [p[..., c_lo : p.shape[-1] - c_hi] for p in pieces]
+        return pieces
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         spec = self.spec
-        if x.ndim != 4:
-            raise ValueError(f"{spec.name}: expected (B, S1, S2, C), got {tuple(x.shape)}")
+        if x.ndim != spec.ndim + 2:
+            raise ValueError(f"{spec.name}: expected a {spec.ndim + 2}-D channels-last input, "
+                             f"got {tuple(x.shape)}")
         grid = EMBEDDINGS[spec.embed](x.shape, x.device)
         x = torch.cat([x.float(), grid], dim=-1)
         if x.shape[-1] != spec.in_width:
@@ -150,14 +179,14 @@ class UNOModel(nn.Module):
 
         orig = tuple(v.shape[2:])
         pads = self._pads(orig)
-        (lo1, hi1), (lo2, hi2) = pads
-        if lo1 or hi1 or lo2 or hi2:
-            v = torch.nn.functional.pad(v, (lo2, hi2, lo1, hi1))
+        if any(lo or hi for lo, hi in pads):
+            v = torch.nn.functional.pad(v, [n for lo_hi in reversed(pads) for n in lo_hi])
         base = v.shape[2:]
 
         # U-stack.  Skips are materialized with torch.cat, except after the
         # last block, whose pieces are cropped first and concatenated at the
-        # cropped grid (one copy instead of concat + crop).
+        # cropped grid (one copy instead of concat + crop).  3-D skip
+        # sources are resized trilinearly to the current grid first.
         outs = []
         cur = v
         last = len(spec.blocks) - 1
@@ -166,19 +195,18 @@ class UNOModel(nn.Module):
             cur = getattr(self, f"block{i}")(cur, out_size)
             if blk.skip is not None:
                 src = v if blk.skip == LIFT else outs[blk.skip]
+                if spec.ndim == 3:
+                    src = resize(src, cur.shape[2:], (2, 3, 4), "linear", True, False)
                 cur = [cur, src] if i == last else torch.cat([cur, src], dim=1)
             outs.append(cur)
 
-        # crop the padding
-        s1, s2 = orig
-        pieces = cur if isinstance(cur, list) else [cur]
-        if any(p.shape[-2:] != (s1, s2) for p in pieces):
-            pieces = [p[..., lo1 : lo1 + s1, lo2 : lo2 + s2] for p in pieces]
+        pieces = self._crop(cur if isinstance(cur, list) else [cur], orig, pads)
         cur = torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0]
 
         # projection head: f32 weights, dots, GELU and output; only the input
-        # may be bf16.  Under bf16 it is the fused kernel.
-        if self.dtype == torch.bfloat16 and not spec.proj_concat_lift:
+        # may be bf16.  Under bf16 a 2-D model runs the fused kernel; a 3-D
+        # model always takes the unfused f32 Dense pair, as in uno_tpu.
+        if self.dtype == torch.bfloat16 and spec.ndim == 2 and not spec.proj_concat_lift:
             out = mlp_head(
                 cur.to(torch.bfloat16).contiguous(),
                 self.fc1.weight.t().contiguous(), self.fc1.bias,

@@ -1,8 +1,9 @@
 """Positional (grid) embeddings concatenated on the channel axis before the
-lift (port of ``uno_tpu/models/embeddings.py``, 2-D).
+lift (port of ``uno_tpu/models/embeddings.py``).
 
 * Darcy: raw ``(x, y) ∈ [0,1]^2`` linspace grid
 * NS 2D: ``(sin x, sin y, cos x, cos y)`` with x, y ∈ linspace(0, 2π)
+* NS 3D: the four NS-2D channels plus linear time ``z ∈ [0,1]``
 
 ``linspace`` includes both endpoints.  Outputs are channels-last f32.
 """
@@ -36,7 +37,18 @@ def grid_sincos_2d(shape: Tuple[int, ...], device=None) -> torch.Tensor:
     return torch.cat([gx.sin(), gy.sin(), gx.cos(), gy.cos()], dim=-1)
 
 
+def grid_sincos_3d(shape: Tuple[int, ...], device=None) -> torch.Tensor:
+    """(B, S1, S2, T, 5): sin x, sin y, cos x, cos y, z ∈ [0, 1]."""
+    b, s1, s2, t = shape[:4]
+    gx, gy = _axes(shape, 2.0 * math.pi, device)
+    gz = torch.linspace(0.0, 1.0, t, dtype=torch.float32, device=device)
+    planar = torch.cat([gx.sin(), gy.sin(), gx.cos(), gy.cos()], dim=-1)
+    return torch.cat([planar[:, :, :, None].expand(b, s1, s2, t, 4),
+                      gz[None, None, None, :, None].expand(b, s1, s2, t, 1)], dim=-1)
+
+
 EMBEDDINGS = {
     "linear2d": grid_linear_2d,
     "sincos2d": grid_sincos_2d,
+    "sincos3d": grid_sincos_3d,
 }

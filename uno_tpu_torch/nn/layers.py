@@ -1,7 +1,9 @@
-"""Operator layers: port of ``uno_tpu/nn/layers.py`` (2-D).
+"""Operator layers: port of ``uno_tpu/nn/layers.py`` (2-D and 3-D; the
+number of spatial dimensions is ``len(modes)``).
 
 * ``SpectralConv``  — truncated-mode Fourier integral operator
-* ``PointwiseOp``   — 1x1 channel conv + bicubic-antialias resampling
+* ``PointwiseOp``   — 1x1 channel conv + resampling: bicubic-antialias in
+  2-D, the Fourier truncation then an (identity) trilinear resize in 3-D
 * ``OperatorBlock`` — u' = GELU(InstanceNorm(K(u) + W(u)))
 
 Initialisation matches ``uno_tpu``'s distributions, drawn from an explicit
@@ -11,7 +13,7 @@ conv weights and biases ~ U(-k, k) with k = 1/sqrt(fan_in); spectral weights
 
 Weights are stored in torch's layout: a Dense or 1x1 conv weight is
 ``[out, in]`` (flax keeps ``[in, out]``; ``uno_tpu_torch/bridge.py``
-transposes).  Layers take channels-first ``(B, C, H, W)`` input and an
+transposes).  Layers take channels-first ``(B, C, *spatial)`` input and an
 ``out_size`` grid at call time.  Under the bf16 policy the matmuls run in
 bf16 with f32 accumulation; spectral weights and norm statistics stay f32,
 and so do the spectral transforms on the FFT path (on the partial-DFT path
@@ -29,7 +31,12 @@ from torch import nn
 
 from uno_tpu_torch.ops.norm import instance_norm
 from uno_tpu_torch.ops.resample import resize
-from uno_tpu_torch.ops.spectral import spectral_conv_2d, spectral_weight_init
+from uno_tpu_torch.ops.spectral import (
+    fourier_truncate_3d,
+    spectral_conv_2d,
+    spectral_conv_3d,
+    spectral_weight_init,
+)
 
 
 def _uniform(shape, bound: float, generator, device) -> nn.Parameter:
@@ -62,25 +69,33 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-class SpectralConv(nn.Module):
-    """2-D truncated-mode Fourier integral operator; ``out_size`` at call
-    time sets the output grid."""
+_SPECTRAL_FNS = {2: spectral_conv_2d, 3: spectral_conv_3d}
+_N_BLOCKS = {2: 2, 3: 4}  # corner blocks of the spectrum: kx signs, or (kx, ky) signs
 
-    def __init__(self, in_codim: int, out_codim: int, modes: Tuple[int, int],
+
+class SpectralConv(nn.Module):
+    """Truncated-mode Fourier integral operator in 2 or 3 dimensions (one
+    entry of ``modes`` each); ``out_size`` at call time sets the output
+    grid."""
+
+    def __init__(self, in_codim: int, out_codim: int, modes: Tuple[int, ...],
                  device=None, generator: torch.Generator = None):
         super().__init__()
         self.modes = tuple(modes)
-        self.weights = nn.Parameter(
-            spectral_weight_init(in_codim, out_codim, self.modes, 2, generator, device)
-        )
+        self.weights = nn.Parameter(spectral_weight_init(
+            in_codim, out_codim, self.modes, _N_BLOCKS[len(self.modes)], generator, device))
 
-    def forward(self, x: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
-        return spectral_conv_2d(x, self.weights, tuple(out_size), self.modes)
+    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...]) -> torch.Tensor:
+        fn = _SPECTRAL_FNS[len(self.modes)]
+        return fn(x, self.weights, tuple(out_size), self.modes)
 
 
 class PointwiseOp(nn.Module):
-    """1x1 conv (channel mixing) + bicubic-antialias resampling
-    (align_corners=True) to ``out_size``."""
+    """1x1 conv (channel mixing) + resampling to ``out_size``, whose length
+    is the number of spatial dimensions: bicubic antialiased
+    (align_corners=True) in 2-D; in 3-D the Fourier truncation (backward
+    norm, f32 out) then a trilinear resize (align_corners=True, no
+    antialias), the identity once the truncation has set the size."""
 
     def __init__(self, in_codim: int, out_codim: int, dtype=torch.float32,
                  device=None, generator: torch.Generator = None):
@@ -97,9 +112,13 @@ class PointwiseOp(nn.Module):
         return y.reshape(b, self.out_codim, *spatial)
 
     def _resize(self, z: torch.Tensor, out_size) -> torch.Tensor:
-        return resize(z, out_size, (2, 3), "cubic", True, True)
+        if len(out_size) == 2:
+            return resize(z, out_size, (2, 3), "cubic", True, True)
+        # kept as uno_tpu keeps it; resize skips the axes already at size
+        z = fourier_truncate_3d(z, tuple(out_size))
+        return resize(z, out_size, (2, 3, 4), "linear", True, False)
 
-    def forward(self, x: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...]) -> torch.Tensor:
         in_grid = x.shape[2:]
 
         def resize_flops(ch: int) -> float:
@@ -121,23 +140,29 @@ class PointwiseOp(nn.Module):
         # uno_tpu's FLOP rule.  The resample tables preserve constants, so
         # the bias moves across the resize exactly; under bf16 the order
         # decides where the rounding happens, which is why the rule is kept.
+        # In 3-D the truncation's backward norm scales a constant by
+        # n_in / n_out, so a bias added after it takes that gain, and one
+        # added before it gets it from the truncation.  The dtype flow is
+        # uno_tpu's: the resize-first branch ends in the conv's dtype; the
+        # conv-first branch ends in the resize's, f32 after a 3-D truncation.
         n_in = math.prod(in_grid)
         n_out = math.prod(out_size)
         conv_first = n_in * self.in_codim * self.out_codim + resize_flops(self.out_codim)
         resize_first = resize_flops(self.in_codim) + n_out * self.in_codim * self.out_codim
-        bias = self.bias.reshape(1, -1, 1, 1)
+        shape = (1, -1) + (1,) * len(out_size)
         if resize_first < conv_first:
             y = self._conv(self._resize(x, out_size))
-            return y + bias.to(y.dtype)
+            bias = self.bias * (n_in / n_out) if len(out_size) == 3 else self.bias
+            return y + bias.to(y.dtype).reshape(shape)
         y = self._conv(x)
-        return self._resize(y + bias.to(y.dtype), out_size)
+        return self._resize(y + self.bias.to(y.dtype).reshape(shape), out_size)
 
 
 class OperatorBlock(nn.Module):
     """u' = GELU(InstanceNorm(K(u) + W(u))) with both paths resampled to
     ``out_size``.  ``residual`` adds the input after the norm (uno11)."""
 
-    def __init__(self, in_codim: int, out_codim: int, modes: Tuple[int, int],
+    def __init__(self, in_codim: int, out_codim: int, modes: Tuple[int, ...],
                  normalize: bool = False, residual: bool = False,
                  dtype=torch.float32, device=None,
                  generator: torch.Generator = None):
@@ -149,7 +174,7 @@ class OperatorBlock(nn.Module):
             self.norm_scale = nn.Parameter(torch.ones(out_codim, device=device))
             self.norm_bias = nn.Parameter(torch.zeros(out_codim, device=device))
 
-    def forward(self, x: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...]) -> torch.Tensor:
         # uno_tpu's dtype flow: W is in the compute dtype; the spectral conv
         # is f32 on the FFT path, so under bf16 the sum, norm and GELU run in
         # f32 before the final cast, and bf16 on the DFT path, where they

@@ -1,5 +1,6 @@
-"""Spectral (Fourier) integral operators: port of the 2-D conv of
-``uno_tpu/ops/spectral.py``, on both of its transform paths.
+"""Spectral (Fourier) integral operators: port of the 2-D and 3-D convs and
+the 3-D Fourier truncation of ``uno_tpu/ops/spectral.py``.  The 2-D conv
+runs on both of its transform paths, the 3-D ops on the FFT path only.
 
 Behavioural contract, as in ``uno_tpu``:
 
@@ -24,13 +25,16 @@ None, by the environment variable ``UNO_TPU_TORCH_DFT=1``:
   contraction is one einsum against a 2x2 block weight tensor.  A bf16
   input runs with bf16 operands and f32 accumulation and gives a bf16
   output; anything else computes in f32.  Its backward is written by hand as
-  the mirrored chain of transposed stages (``_DFTConv2d``).
+  the mirrored chain of transposed stages (``_DFTConv2d``).  The 3-D conv
+  and truncation raise ``NotImplementedError`` on this path: their DFT
+  forms are not ported yet (ROADMAP.md Queue 1, the 3-D partial-DFT path).
 """
 
 from __future__ import annotations
 
 import math
 import os
+from functools import lru_cache
 from typing import Sequence, Tuple
 
 import torch
@@ -127,6 +131,100 @@ def spectral_conv_2d(
     out_ft[:, :, :n_top, :m2] = out[:, :, :n_top]
     out_ft[:, :, d1 - m1 :, :m2] = out[:, :, m1:]
     return torch.fft.irfft2(out_ft, s=(d1, d2), norm="forward")
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """The FFT paths' compute dtype: f32, except that float64 stays float64
+    (``gradcheck``)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _refuse_dft_3d(name: str) -> None:
+    if _dft_enabled():
+        raise NotImplementedError(
+            f"{name}: the partial-DFT path of the 3-D spectral ops is not ported yet "
+            "(ROADMAP.md Queue 1, the 3-D partial-DFT path); unset UNO_TPU_TORCH_DFT "
+            "or set_dft_mode(False) for the FFT path"
+        )
+
+
+def spectral_conv_3d(
+    x: torch.Tensor,
+    weights: torch.Tensor,
+    out_size: Tuple[int, int, int],
+    modes: Tuple[int, int, int],
+) -> torch.Tensor:
+    """3D spectral conv on the FFT path.  x: (B, Ci, X, Y, T) real -> (B,
+    Co, d1, d2, d3) f32 (float64 for a float64 x).
+
+    weights: (4, Ci, Co, m1, m2, m3) complex64, the four (kx, ky) sign
+    quadrants in the reference's order: (+,+), (-,+), (+,-), (-,-).
+    """
+    d1, d2, d3 = out_size
+    m1, m2, m3 = modes
+    sx, sy, st = x.shape[-3:]
+    if m1 > d1 or m1 > sx or m2 > d2 or m2 > sy or m3 > d3 // 2 + 1 or m3 > st // 2 + 1:
+        raise ValueError(f"modes {modes} incompatible with in {tuple(x.shape)} out {out_size}")
+    _refuse_dft_3d("spectral_conv_3d")
+
+    w_lo = torch.cat([weights[0], weights[2]], dim=3)
+    w_hi = torch.cat([weights[1], weights[3]], dim=3)
+    w = torch.cat([w_lo, w_hi], dim=2)  # (Ci, Co, 2*m1, 2*m2, m3)
+    x_ft = torch.fft.rfftn(_f32(x), dim=(-3, -2, -1), norm="forward")
+    # the four corners as one (B, Ci, 2*m1, 2*m2, m3) block laid out
+    # [[(+,+), (+,-)], [(-,+), (-,-)]], so one contraction covers all
+    lo_x = torch.cat([x_ft[:, :, :m1, :m2, :m3], x_ft[:, :, :m1, sy - m2 :, :m3]], dim=3)
+    hi_x = torch.cat([x_ft[:, :, sx - m1 :, :m2, :m3],
+                      x_ft[:, :, sx - m1 :, sy - m2 :, :m3]], dim=3)
+    out = complex_mode_matmul(torch.cat([lo_x, hi_x], dim=2), w)
+
+    # Zero-embed the quadrants in the output spectrum.  When 2*m > d the
+    # reference's quadrant writes overlap and the negative-frequency blocks
+    # (written later) win, so only the first d-m rows (kx) or columns (ky)
+    # of each positive block survive.
+    b, co = out.shape[:2]
+    n_x, n_y = min(m1, d1 - m1), min(m2, d2 - m2)
+    out_ft = torch.zeros((b, co, d1, d2, d3 // 2 + 1), dtype=out.dtype, device=out.device)
+    out_ft[:, :, :n_x, :n_y, :m3] = out[:, :, :n_x, :n_y]
+    out_ft[:, :, :n_x, d2 - m2 :, :m3] = out[:, :, :n_x, m2:]
+    out_ft[:, :, d1 - m1 :, :n_y, :m3] = out[:, :, m1:, :n_y]
+    out_ft[:, :, d1 - m1 :, d2 - m2 :, :m3] = out[:, :, m1:, m2:]
+    return torch.fft.irfftn(out_ft, s=(d1, d2, d3), dim=(-3, -2, -1), norm="forward")
+
+
+@lru_cache(maxsize=64)
+def _truncate_mask(sx: int, sy: int, st: int, m1: int, m2: int, m3: int, device):
+    """The 0/1 mask over the union of the four quadrant slices of an (sx, sy,
+    st) rfftn spectrum, boolean, on ``device``; built outside inference mode so a
+    later backward may save it."""
+    with torch.inference_mode(False):
+        ix, iy, it = (torch.arange(n) for n in (sx, sy, st))
+        keep_x = (ix < m1) | (ix >= sx - m1)
+        keep_y = (iy < m2) | (iy >= sy - m2)
+        keep_t = it < m3
+        mask = keep_x[:, None, None] & keep_y[None, :, None] & keep_t[None, None, :]
+        return mask.to(device=device)
+
+
+def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int]) -> torch.Tensor:
+    """Low-pass the spectrum as the reference's 3-D pointwise op does, on
+    the FFT path.  x: (..., X, Y, T) -> (..., d1, d2, d3), f32 whatever the
+    input dtype (but float64).
+
+    As in ``uno_tpu``, a reference quirk is kept: the default (backward)
+    norm, an unnormalised rfftn and an irfftn that divides by the output
+    size, unlike the forward-norm spectral conv.  The reference's four
+    overlapping quadrant writes copy the spectrum into zeros at the same
+    indices, so their net effect is a 0/1 mask over the union of the
+    quadrant slices, ``m = d // 2`` per axis, at the input's indices; the
+    irfftn to ``out_size`` then trims or zero-pads the trailing entries of
+    each axis.
+    """
+    d1, d2, d3 = out_size
+    _refuse_dft_3d("fourier_truncate_3d")
+    ft = torch.fft.rfftn(_f32(x), dim=(-3, -2, -1))
+    mask = _truncate_mask(*ft.shape[-3:], d1 // 2, d2 // 2, d3 // 2, ft.device)
+    return torch.fft.irfftn(ft * mask, s=(d1, d2, d3), dim=(-3, -2, -1))
 
 
 # --- the partial-DFT path -----------------------------------------------------

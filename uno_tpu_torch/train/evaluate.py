@@ -1,9 +1,9 @@
-"""Evaluation (port of the Darcy and NS-2D parts of
+"""Evaluation (port of the Darcy, NS-2D and NS-3D parts of
 ``uno_tpu/train/evaluate.py``).
 
 U-NO's blocks size every internal grid as a ratio of the padded input grid,
-so trained weights evaluate at any resolution.  The NS-3D and
-super-resolution evaluators come with those slices (ROADMAP.md Queue 1).
+so trained weights evaluate at any resolution.  The super-resolution
+evaluator comes with its slice (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -55,3 +55,27 @@ def evaluate_ns2d(model: torch.nn.Module, a: np.ndarray, u: np.ndarray, t_f: int
             traj_total += relative_lp_loss(pred, yy, reduction="sum")
     return {"step_rel_l2": float(step_total) / n / t_f,
             "traj_rel_l2": float(traj_total) / n}
+
+
+def evaluate_ns3d(model: torch.nn.Module, a: np.ndarray, u: np.ndarray, t_f: int,
+                  batch_size: int = 8) -> Dict[str, float]:
+    """One-shot spatiotemporal forecast metrics on an (a, u) split, on the
+    model's device: the full-field rel-L2 (the training and model-selection
+    loss, ns_train_3d.py:64-65), summed and divided by n, and the per-step
+    rel-L2 (the reference's logged step loss, :56-62), summed over samples
+    and steps and divided by n * T_f."""
+    from uno_tpu_torch.train.ns3d import forecast, step_rel_l2
+
+    n = len(a)
+    device = next(model.parameters()).device
+    full_total = torch.zeros((), device=device)
+    step_total = torch.zeros((), device=device)
+    with torch.no_grad():
+        for i in range(0, n, batch_size):
+            xx = torch.from_numpy(np.ascontiguousarray(a[i : i + batch_size])).to(device)
+            yy = torch.from_numpy(np.ascontiguousarray(u[i : i + batch_size])).to(device)
+            out = forecast(model, xx, t_f)
+            full_total += relative_lp_loss(out, yy, reduction="sum")
+            step_total += step_rel_l2(out, yy)
+    return {"field_rel_l2": float(full_total) / n,
+            "step_rel_l2": float(step_total) / (n * t_f)}

@@ -1,0 +1,180 @@
+"""NS-3D spatiotemporal trainer (port of ``uno_tpu/train/ns3d.py``).
+
+Behavioral contract from ns_train_3d.py:15-147: one forward maps the T_in
+input window to all T_f output steps at once (a 3-D U-NO over (x, y, t));
+backward on the full-field relative-L2; the per-timestep losses are computed
+without gradients and only logged; validation every ``cfg.eval_every``
+epochs (those with ``epoch % eval_every == 0``); the best params are those
+with the lowest **per-step** validation loss; the test pass, on the best
+params, reports both.  No rematerialisation: ``uno_tpu``'s ``remat_blocks``
+is off in every NS-3D preset.
+
+Batches, checkpoints and resume follow ``uno_tpu_torch.train.darcy``: the
+same ``numpy`` batch order as ``uno_tpu`` from ``default_rng(cfg.seed)``
+(a resumed run redraws epoch 0's order, as ``uno_tpu``'s does), splits
+resident on the model's device, losses summed there and read once per
+epoch, ``step_ms`` from CUDA events.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from uno_tpu_torch.data.batching import num_batches
+from uno_tpu_torch.losses import relative_lp_loss
+from uno_tpu_torch.train.checkpoint import CheckpointManager
+from uno_tpu_torch.train.common import (
+    BestTracker,
+    GracefulStop,
+    StepClock,
+    TrainConfig,
+    device_batches,
+    lr_at,
+    make_optimizer,
+)
+from uno_tpu_torch.train.metrics import MetricLogger
+
+
+def forecast(model: torch.nn.Module, x: torch.Tensor, t_f: int) -> torch.Tensor:
+    """x (B, S, S, T_in) -> the model's (B, S, S, T_f) forecast, f32."""
+    b, s = x.shape[0], x.shape[1]
+    return model(x.float()[..., None]).reshape(b, s, s, t_f)
+
+
+def step_rel_l2(out: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sum over samples and time steps of each step's relative L2 (the
+    reference's logged step loss); out, y (B, S, S, T)."""
+    n = out.shape[0] * out.shape[-1]
+    return relative_lp_loss(out.movedim(-1, 1).reshape(n, -1), y.movedim(-1, 1).reshape(n, -1))
+
+
+def train_ns3d(
+    model: torch.nn.Module,
+    train_a: np.ndarray,
+    train_u: np.ndarray,
+    val_a: np.ndarray,
+    val_u: np.ndarray,
+    test_a: np.ndarray,
+    test_u: np.ndarray,
+    cfg: TrainConfig,
+    t_f: int = 10,
+    logger: Optional[MetricLogger] = None,
+) -> Dict[str, Any]:
+    """Train ``model`` in place (its parameters are the initial weights, on
+    its device) and leave the best-val weights loaded in it.  Inputs are
+    (N, S, S, T_in), targets (N, S, S, T_f).  Returns the best state dict,
+    the best val step rel-L2, the test full-field and per-step rel-L2 of the
+    best weights, whether a signal stopped the run, and the optimizer step
+    count."""
+    logger = logger or MetricLogger()
+    rng = np.random.default_rng(cfg.seed)
+    device = next(model.parameters()).device
+
+    ntrain, nval, ntest = len(train_a), len(val_a), len(test_a)
+    steps_per_epoch = num_batches(ntrain, cfg.batch_size, cfg.drop_remainder)
+    opt = make_optimizer(cfg, steps_per_epoch, model.parameters())
+    splits = [
+        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        for a in (train_a, train_u, val_a, val_u, test_a, test_u)
+    ]
+
+    def _eval(ix: int, n: int):
+        full_total = torch.zeros((), device=device)
+        step_total = torch.zeros((), device=device)
+        count = 0
+        with torch.no_grad():
+            for idx in device_batches(rng, n, cfg, device, shuffle=False):
+                yy = splits[ix + 1][idx]
+                out = forecast(model, splits[ix][idx], t_f)
+                full_total += relative_lp_loss(out, yy, reduction="sum")
+                step_total += step_rel_l2(out, yy)
+                count += len(idx)
+        count = max(count, 1)
+        return float(full_total) / count, float(step_total) / (count * t_f)
+
+    ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    best = BestTracker(ckpt)
+    step = 0
+    start_epoch = 0
+    if cfg.resume and ckpt is not None and ckpt.exists("train_state"):
+        restored = ckpt.restore("train_state")
+        model.load_state_dict(restored["params"])
+        opt.load_state_dict({"state": restored["optimizer"],
+                             "param_groups": opt.state_dict()["param_groups"]})
+        step = restored["step"]
+        start_epoch = restored["epoch"] + 1
+        best.best_val = restored["best_val"]
+
+    def save_state(epoch: int) -> None:
+        ckpt.save("train_state", {
+            "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
+            "step": step, "epoch": epoch, "best_val": best.best_val,
+        })
+
+    stopped = False
+    with GracefulStop() as stop:
+        for epoch in range(start_epoch, cfg.epochs):
+            t0 = time.perf_counter()
+            total = torch.zeros((), device=device)
+            seen = 0
+            clock = StepClock(device)
+            clock.mark()
+            for idx in device_batches(rng, ntrain, cfg, device, shuffle=True):
+                yy = splits[1][idx]
+                opt.zero_grad(set_to_none=True)
+                out = forecast(model, splits[0][idx], t_f)
+                relative_lp_loss(out, yy, reduction="sum").backward()
+                opt.step()
+                with torch.no_grad():
+                    total += step_rel_l2(out, yy)
+                seen += len(idx)
+                step += 1
+                clock.mark()
+            train_loss = float(total) / (max(seen, 1) * t_f)  # the epoch's one sync
+            dt = time.perf_counter() - t0
+
+            record = {
+                "task": "ns3d",
+                "epoch": epoch,
+                "step": step,
+                "lr": lr_at(cfg, steps_per_epoch, step),
+                "train_step_rel_l2": train_loss,
+                "epoch_sec": dt,
+                "samples_per_sec": seen / dt,
+                "step_ms": clock.ms(),
+            }
+            if epoch % cfg.eval_every == 0:
+                val_full, val_step = _eval(2, nval)
+                record["val_step_rel_l2"] = val_step
+                record["val_full_rel_l2"] = val_full
+                record["saved"] = best.update(val_step, model)
+            logger.log(record)
+            if ckpt is not None and cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0:
+                save_state(epoch)
+            if stop.requested:
+                if ckpt is not None:
+                    save_state(epoch)
+                logger.log({"task": "ns3d", "stopped_early_after_epoch": epoch})
+                stopped = True
+                break
+
+    if best.best_state is not None:
+        model.load_state_dict(best.best_state)
+    if ntest and not stopped:
+        test_full, test_step = _eval(4, ntest)
+        logger.log({"task": "ns3d", "test_full_rel_l2": test_full,
+                    "test_step_rel_l2": test_step})
+    else:
+        test_full = test_step = float("nan")
+    return {
+        "params": best.best_state if best.best_state is not None else model.state_dict(),
+        "best_val": best.best_val,
+        "test_full_rel_l2": test_full,
+        "test_step_rel_l2": test_step,
+        "stopped_early": stopped,
+        "step": step,
+    }
