@@ -12,7 +12,11 @@ the 64x64 grid, batch 16, each sample a 40-step autoregressive rollout
 (training: full BPTT, each step rematerialised), and the NS generator;
 then the two paths on the NS-3D ``ns3d_t40`` preset, model uno3d_t40 at
 full width (8) on the 64x64 grid with T_in = 10 frames in and T_f = 40
-out of one 3-D forward, batch 16.
+out of one 3-D forward, batch 16, on both spectral paths; then the
+full-resolution Darcy preset ``darcy_s421``, model uno11 at full width (32)
+on the 421x421 grid, batch 4, from a ``.mat`` file that the port's
+generator writes on the card, with a zero-shot super-resolution
+evaluation; then a 1-D operator block.
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, both TF32 flags and cuBLAS's reduced-precision bf16 reduction
@@ -84,11 +88,35 @@ out of one 3-D forward, batch 16.
    64x64, on the card and the CPU with the same weights: the output, the
    loss and every gradient (``[ns3d-cuda-vs-cpu]``).
 
+12. NS-3D on the partial-DFT path (``UNO_TPU_TORCH_DFT=1``): the same
+   predict and train, no contraction launch, both paths' ms per batch and
+   per warm step side by side; uno3d_t40's block-0 conv and truncation at
+   width 4 on the DFT path, card against CPU, forward and gradients
+   (``[dft3d]``);
+13. darcy_s421: ``cli generate --task darcy --size 421`` writes 32 samples
+   on the card (``[s421-generate]``: ms, CG iterations, residual); ``cli
+   train --preset darcy_s421 --data`` of that file, 24/4/4 samples, 3
+   epochs of 6 steps, each kernel's launches from its steps and evaluation
+   batches (``[s421-train]``: warm ms per step with spread, first step,
+   peak device memory); ``cli predict --preset darcy_s421 --data``, 8
+   batches of 4, warm and measured, 7 contractions and 1 head per batch
+   (``[s421-predict]``); darcy_s211 trained 2 epochs on ``::2`` of the same
+   file, then ``evaluate_superres`` of its best params at 211 and 421 on 8
+   held-out samples, batch 8 (``[superres]``: both rel-L2s, finite); the
+   kernels at uno11's seven shapes and its (4, 64, 421*421, 32, 1) head,
+   and the forward kernels at the super-resolution batch of 8 (``[kernels
+   s421]``, ``[kernels s421 superres]``); uno11 at width 4 on the card and
+   the CPU: output, loss, every gradient, f32 and bf16
+   (``[s421-cuda-vs-cpu]``);
+14. a 1-D OperatorBlock (1024 -> 512 points, 64 modes) on the card and the
+   CPU, forward and every gradient, f32 and bf16, on both spectral paths,
+   and the three contractions at its shape (``[1d]``, ``[kernels 1d]``).
+
 Any failed phase raises, and the script exits non-zero.  The line before the
-last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, the
-NS-2D path's under ``ns2d`` and the NS-3D path's under ``ns3d``); the last
-line is ``{"ok": true, "device":
-{...}}``.  Without a CUDA device it exits 1 and prints no result.
+last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, and
+the same keys under ``ns2d``, ``ns3d``, ``s421``, ``superres`` and ``1d``);
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -113,14 +141,22 @@ from uno_tpu_torch.bridge import params_from_flax, params_to_flax
 from uno_tpu_torch.configs.presets import get_preset
 from uno_tpu_torch.data.darcy_solver import generate_darcy_batch, solve_darcy
 from uno_tpu_torch.data.grf import GaussianRF
+from uno_tpu_torch.data.loaders import load_darcy
 from uno_tpu_torch.data.ns_solver import default_forcing, navier_stokes_2d
 from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.models import build_model
+from uno_tpu_torch.nn.layers import OperatorBlock
 from uno_tpu_torch.ops.kernels import _build
 from uno_tpu_torch.ops.kernels import cmul as cmul_k
 from uno_tpu_torch.ops.kernels import mlp_head as head_k
-from uno_tpu_torch.ops.spectral import set_dft_mode, spectral_weight_init
+from uno_tpu_torch.ops.spectral import (
+    fourier_truncate_3d,
+    set_dft_mode,
+    spectral_conv_3d,
+    spectral_weight_init,
+)
 from uno_tpu_torch.train.checkpoint import CheckpointManager
+from uno_tpu_torch.train.evaluate import evaluate_superres
 from uno_tpu_torch.train.ns2d import make_rollout
 from uno_tpu_torch.train.ns3d import forecast
 
@@ -152,6 +188,26 @@ NS3D_CHECK_WIDTH = 4  # ns3d-cuda-vs-cpu: uno3d_t40 at width 4, 2 samples
 NS3D_CMUL_SHAPES = [(16, 8, 16, 6400), (16, 16, 32, 3136), (16, 32, 64, 576),
                     (16, 64, 128, 1008), (16, 128, 32, 1008), (16, 64, 16, 7840),
                     (16, 32, 16, 22400)]
+S421_PRESET, S421 = "darcy_s421", 421  # uno11, width 32, pad 12, batch 4
+S421_BATCH = get_preset(S421_PRESET).train.batch_size
+S421_GEN_N = 32  # the s421-generate phase's .mat: 8 predict batches of 4
+S421_SPLIT = (24, 4, 4)  # the s421-train phase: 6 steps per epoch
+S421_CHECK_WIDTH = 4  # s421-cuda-vs-cpu: uno11 at width 4, 2 samples at 85x85
+# (B, Ci, Co, M = 2*m1*m2) of uno11's seven spectral contractions at darcy_s421
+S421_CMUL_SHAPES = [(4, 32, 64, 648), (4, 64, 128, 128), (4, 128, 256, 18), (4, 256, 256, 18),
+                    (4, 256, 128, 18), (4, 256, 64, 128), (4, 128, 32, 648)]
+# head: B, C (32 from block 6 + 32 from the lift skip), N = 421**2, H, O
+S421_HEAD_SHAPE = (S421_BATCH, 64, S421 * S421, 32, 1)
+# super-resolution: darcy_s211 (uno9) trained on ::2 of the s421 file, its
+# last 8 samples evaluated at 211 and at 421 in one batch of 8 each
+SR_SPLIT, SR_BATCH, SR_EPOCHS = (16, 8, 8), 8, 2
+SR_CMUL_SHAPES = [(SR_BATCH, ci, co, m) for _, ci, co, m in CMUL_SHAPES]
+SR_HEAD_SHAPE = (SR_BATCH, 64, S421 * S421, 32, 1)
+# the 1d phase: a 1-D OperatorBlock (B, Ci, Co, N -> out, modes) and its contraction
+ONE_D = (16, 32, 64, 1024, 512, 64)
+ONE_D_CMUL_SHAPES = [(16, 32, 64, 64)]
+DFT3D_CHECK = (2, 4, 8, (64, 64, 13), (48, 48, 13), (20, 20, 4))  # uno3d_t40 block 0, width 4
+DFT3D_REL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_torch_cuda.py's DFT bounds
 CMUL_ATOL, HEAD_REL = 1e-4, 1e-5          # the CPU tests' bounds
 HEAD_GX_REL = 4e-3                         # gx is bf16: one ulp
 E2E_REL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -279,10 +335,11 @@ def _cmul_case(name, kernel, plain, args, flush, res):
 
 
 def phase_kernels(dev, cmul_shapes=CMUL_SHAPES, head_shape=HEAD_SHAPE,
-                  tag: str = "kernels") -> dict:
+                  tag: str = "kernels", forward_only: bool = False) -> dict:
     """The five kernels at one path's shapes (the three contractions only
-    when ``head_shape`` is None): errors, bits, times, bounds; summed per
-    kernel over the shapes."""
+    when ``head_shape`` is None; the two forward kernels only when
+    ``forward_only``, for a path that serves): errors, bits, times, bounds;
+    summed per kernel over the shapes."""
     g = torch.Generator().manual_seed(0)
     flush = torch.ones(256 * 2**20, dtype=torch.uint8, device=dev)  # 5x the 50 MB L2
     res = {}
@@ -301,14 +358,14 @@ def phase_kernels(dev, cmul_shapes=CMUL_SHAPES, head_shape=HEAD_SHAPE,
                   "einsum g.conj(w)"),
                  ("cmul_bwd_w", cmul_k.cmul_bwd_w, cmul_k.cmul_bwd_w_plain, (x, gy),
                   "einsum conj(x).g")]
-        for name, kernel, plain, args, what in cases:
+        for name, kernel, plain, args, what in cases[:1] if forward_only else cases:
             err, km, pm, (bd, by) = _cmul_case(name, kernel, plain, args, flush, res)
             print(f"[{tag}] {name} B={b} Ci={ci} Co={co} M={m}: max_abs_err {err:.3g}, "
                   f"same bits twice; kernel {km:.4f} ms  plain = library ({what}) {pm:.4f} ms"
                   f"  bound {bd:.4f} ms ({by})")
 
     if head_shape is not None:  # None: the path runs no head kernel
-        _head_cases(dev, head_shape, g, flush, res, tag)
+        _head_cases(dev, head_shape, g, flush, res, tag, forward_only)
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[{tag}] {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -318,9 +375,9 @@ def phase_kernels(dev, cmul_shapes=CMUL_SHAPES, head_shape=HEAD_SHAPE,
     return res
 
 
-def _head_cases(dev, head_shape, g, flush, res, tag: str) -> None:
-    """The head's forward and backward kernels at one shape: errors, bits,
-    times, bounds."""
+def _head_cases(dev, head_shape, g, flush, res, tag: str, forward_only: bool = False) -> None:
+    """The head's forward and backward kernels (the forward alone when
+    ``forward_only``) at one shape: errors, bits, times, bounds."""
     b, c, n, h, o = head_shape
     x = torch.randn(b, c, n, generator=g).to(dev, torch.bfloat16)
     bound = lambda *s: (torch.rand(*s, generator=g) * 2 - 1).to(dev)
@@ -344,6 +401,8 @@ def _head_cases(dev, head_shape, g, flush, res, tag: str) -> None:
           f"max_abs_err {err:.3g}, same bits twice; kernel {km:.4f} ms  plain (unfused "
           f"f32) {pm:.4f} ms  bound {bd[0]:.4f} ms ({bd[1]}); no one-call library version")
     _add(res, "mlp_head_fwd", err, km, pm, bd, None)
+    if forward_only:
+        return
 
     gy = torch.randn(b, o, n, generator=g).to(dev)
     args = (x, gy, k1, b1, k2)
@@ -774,9 +833,10 @@ def _write_ns3d_split(path: str, rng, ntest: int) -> None:
              test_a=a, test_u=u, config_sig=np.asarray(cli._gen_sig(preset)))
 
 
-def phase_ns3d_predict(tmp: str) -> list:
+def phase_ns3d_predict(tmp: str, tag: str = "ns3d-predict", dft: bool = False) -> list:
     """``cli predict --preset ns3d_t40``: 8 batches of 16 input windows, each
-    one 3-D forward to 40 steps; returns the measured run's ms per batch."""
+    one 3-D forward to 40 steps, on one spectral path; returns the measured
+    run's ms per batch."""
     data, out = os.path.join(tmp, "ns3d.npz"), os.path.join(tmp, "ns3d_preds.npz")
     _write_ns3d_split(data, np.random.default_rng(5), NS3D_PREDICT)
     t_f = get_preset(NS3D_PRESET).t_f
@@ -791,26 +851,28 @@ def phase_ns3d_predict(tmp: str) -> list:
     batches = len(ms)
     pred = np.load(out)["pred"]
     if pred.shape != (NS3D_PREDICT, NS_S, NS_S, t_f) or not np.isfinite(pred).all():
-        raise AssertionError(f"ns3d-predict output: shape {pred.shape}, "
+        raise AssertionError(f"{tag} output: shape {pred.shape}, "
                              f"finite {np.isfinite(pred).all()}")
-    if report["spectral"] != "fft" or report["dtype"] != "bfloat16":
-        raise AssertionError(f"ns3d-predict ran with {report}")
-    if (batches != NS3D_PREDICT // BATCH or launches["cmul_fwd"] != 7 * batches
+    if report["spectral"] != ("dft" if dft else "fft") or report["dtype"] != "bfloat16":
+        raise AssertionError(f"{tag} ran with {report}")
+    if (batches != NS3D_PREDICT // BATCH or launches["cmul_fwd"] != (0 if dft else 7 * batches)
             or launches["mlp_head_fwd"] or launches["mlp_head_bwd"]
             or launches["cmul_bwd_x"] or launches["cmul_bwd_w"]):
-        raise AssertionError(f"ns3d-predict kernel launches {launches} over {batches} batches")
+        raise AssertionError(f"{tag} kernel launches {launches} over {batches} batches")
     per_batch = {k: v / batches for k, v in launches.items()}
-    print(f"[ns3d-predict] {NS3D_PRESET} uno3d_t40 bf16 b{BATCH} T_in=10 -> T_f={t_f}: "
+    print(f"[{tag}] {NS3D_PRESET} uno3d_t40 bf16 b{BATCH} T_in=10 -> T_f={t_f} "
+          f"{report['spectral']} path: "
           f"{batches} warm batches, ms per batch {_spread(ms)} ({[round(v, 3) for v in ms]}; "
           f"first run {[round(v, 3) for v in warm['batch_ms']]}); launches per batch "
           f"{per_batch}")
     return ms
 
 
-def phase_ns3d_train(tmp: str, dev) -> tuple:
-    """``cli train --preset ns3d_t40 --generate``: a generated 32/4/4 split,
-    3 epochs of 2 steps, validation on epochs 0 and 2; returns (launches,
-    warm ms per step)."""
+def phase_ns3d_train(tmp: str, dev, tag: str = "ns3d-train", dft: bool = False) -> tuple:
+    """``cli train --preset ns3d_t40 --generate``: a generated 32/4/4 split
+    (made once, then read from its cache), 3 epochs of 2 steps on one
+    spectral path, validation on epochs 0 and 2; returns (launches, warm ms
+    per step)."""
     data = os.path.join(tmp, "ns3d_train.npz")
     ntrain, nval, ntest = NS3D_SPLIT
     argv = ["train", "--preset", NS3D_PRESET, "--dtype", "bfloat16", "--epochs", str(EPOCHS),
@@ -829,27 +891,30 @@ def phase_ns3d_train(tmp: str, dev) -> tuple:
     losses += [records[-1]["test_full_rel_l2"], records[-1]["test_step_rel_l2"]]
     if (len(epochs) != EPOCHS or [r["epoch"] for r in evaluated] != [0, 2]
             or not np.isfinite(losses).all()):
-        raise AssertionError(f"ns3d-train: {len(epochs)} epochs, validated "
+        raise AssertionError(f"{tag}: {len(epochs)} epochs, validated "
                              f"{[r['epoch'] for r in evaluated]}, losses {losses}")
     if not epochs[-1]["train_step_rel_l2"] < epochs[0]["train_step_rel_l2"]:
-        raise AssertionError(f"ns3d-train: loss did not fall: "
+        raise AssertionError(f"{tag}: loss did not fall: "
                              f"{[r['train_step_rel_l2'] for r in epochs]}")
     steps = epochs[-1]["step"]
     evals = len(evaluated) * -(-nval // BATCH) + -(-ntest // BATCH)  # forward-only batches
     want = {"cmul_fwd": 7 * (steps + evals), "cmul_bwd_x": 7 * steps,
             "cmul_bwd_w": 7 * steps, "mlp_head_fwd": 0, "mlp_head_bwd": 0}
+    if dft:  # the DFT path contracts with an einsum: no contraction kernel
+        want.update(cmul_fwd=0, cmul_bwd_x=0, cmul_bwd_w=0)
     if launches != want:
-        raise AssertionError(f"ns3d-train kernel launches {launches}, expected {want} "
+        raise AssertionError(f"{tag} kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
     warm = [ms for r in epochs[1:] for ms in r["step_ms"]]
-    print(f"[ns3d-train] {NS3D_PRESET} uno3d_t40 bf16 b{BATCH}: generated {sum(NS3D_SPLIT)} "
+    print(f"[{tag}] {NS3D_PRESET} uno3d_t40 bf16 b{BATCH} {'dft' if dft else 'fft'} path: "
+          f"generated {sum(NS3D_SPLIT)} "
           f"trajectories, {steps} steps in {EPOCHS} epochs, train_step_rel_l2 "
           f"{[round(r['train_step_rel_l2'], 5) for r in epochs]}, val_step_rel_l2 "
           f"{[round(r['val_step_rel_l2'], 5) for r in evaluated]}, val_full_rel_l2 "
           f"{[round(r['val_full_rel_l2'], 5) for r in evaluated]}, test full/step "
           f"{records[-1]['test_full_rel_l2']:.5f}/{records[-1]['test_step_rel_l2']:.5f}; "
           f"launches {launches} ({steps} steps, {evals} eval batches)")
-    print(f"[ns3d-train] ms per step: warm median {statistics.median(warm):.3f} "
+    print(f"[{tag}] ms per step: warm median {statistics.median(warm):.3f} "
           f"(epochs 2-{EPOCHS}: {[round(v, 3) for v in warm]}), first step "
           f"{epochs[0]['step_ms'][0]:.1f}; peak device memory {peak_gb:.3f} GB; wall "
           f"{wall:.1f} s (generation included)")
@@ -895,6 +960,274 @@ def phase_ns3d_cuda_vs_cpu(dev) -> None:
               f"(bound {GRAD_REL[dtype]})")
 
 
+def phase_s421_generate(tmp: str) -> str:
+    """``cli generate --task darcy --size 421``: 32 samples on the card, to
+    the ``.mat`` file the s421 phases read; returns its path."""
+    path = os.path.join(tmp, "darcy_s421.mat")
+    rep = _run_cli(["generate", "--task", "darcy", "--out", path, "--n", str(S421_GEN_N),
+                    "--size", str(S421), "--seed", "0", "--device", "cuda"])[-1]
+    a, u = load_darcy(1, S421_GEN_N, 1, path)[:2]
+    values = sorted(np.unique(a).tolist())
+    if (a.shape != (S421_GEN_N, S421, S421, 1) or values != [4.0, 12.0]
+            or not np.isfinite(u).all() or not np.abs(u).max() > 0):
+        raise AssertionError(f"s421-generate: shapes {a.shape} {u.shape}, coefficient values "
+                             f"{values}, finite {np.isfinite(u).all()}")
+    print(f"[s421-generate] cli generate --task darcy n={S421_GEN_N} s={S421} on the card: "
+          f"{rep['ms']:.1f} ms (the host copy included), CG iterations {rep['cg_iterations']} "
+          f"(one system for the batch; the cap is 2000, as in uno_tpu), final relative "
+          f"residual {rep['residual']:.3g}; coefficient values {values}")
+    return path
+
+
+def phase_s421_train(mat: str, dev) -> tuple:
+    """``cli train --preset darcy_s421 --data``: uno11 at full width on the
+    421 grid, 24/4/4 samples of the generated file, 3 epochs of 6 steps at
+    batch 4; returns (launches, warm ms per step)."""
+    ntrain, nval, ntest = S421_SPLIT
+    argv = ["train", "--preset", S421_PRESET, "--data", mat, "--ntrain", str(ntrain),
+            "--nval", str(nval), "--ntest", str(ntest), "--epochs", str(EPOCHS),
+            "--dtype", "bfloat16", "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    records = _run_cli(argv)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    epochs = [r for r in records if "train_rel_l2" in r]
+    losses = [r[k] for r in epochs for k in ("train_rel_l2", "val_rel_l2")]
+    losses.append(records[-1]["test_rel_l2"])
+    if len(epochs) != EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"s421-train: {len(epochs)} epochs, losses {losses}")
+    if not epochs[-1]["train_rel_l2"] < epochs[0]["train_rel_l2"]:
+        raise AssertionError(f"s421-train: loss did not fall: "
+                             f"{[r['train_rel_l2'] for r in epochs]}")
+    steps = epochs[-1]["step"]
+    evals = EPOCHS * -(-nval // S421_BATCH) + -(-ntest // S421_BATCH)  # forward-only batches
+    want = {"cmul_fwd": 7 * (steps + evals), "cmul_bwd_x": 7 * steps, "cmul_bwd_w": 7 * steps,
+            "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps}
+    if launches != want:
+        raise AssertionError(f"s421-train kernel launches {launches}, expected {want} "
+                             f"({steps} steps, {evals} eval batches)")
+    warm = [ms for r in epochs[1:] for ms in r["step_ms"]]
+    print(f"[s421-train] {S421_PRESET} uno11 bf16 b{S421_BATCH} fft path, --data of the "
+          f"generated file: {steps} steps in {EPOCHS} epochs, train_rel_l2 "
+          f"{[round(r['train_rel_l2'], 5) for r in epochs]}, val_rel_l2 "
+          f"{[round(r['val_rel_l2'], 5) for r in epochs]}, test_rel_l2 "
+          f"{records[-1]['test_rel_l2']:.5f}; launches {launches}")
+    print(f"[s421-train] ms per step: warm {_spread(warm)} (epochs 2-{EPOCHS}: "
+          f"{[round(v, 3) for v in warm]}), first step {epochs[0]['step_ms'][0]:.1f}; peak "
+          f"device memory {peak_gb:.3f} GB; wall {wall:.1f} s (the .mat read included)")
+    return launches, warm
+
+
+def phase_s421_predict(tmp: str, mat: str) -> list:
+    """``cli predict --preset darcy_s421 --data``: all 32 generated samples
+    as the test split, 8 batches of 4, warm and measured; returns the
+    measured run's ms per batch."""
+    out = os.path.join(tmp, "s421_preds.npz")
+    argv = ["predict", "--preset", S421_PRESET, "--data", mat, "--ntrain", "0", "--nval", "0",
+            "--ntest", str(S421_GEN_N), "--dtype", "bfloat16", "--init-seed", "0",
+            "--split", "test", "--out", out, "--device", "cuda"]
+    warm = _run_cli(argv)[-1]
+    _zero_launches()
+    report = _run_cli(argv)[-1]
+    launches = _launches()
+    ms = report["batch_ms"]
+    batches = len(ms)
+    pred = np.load(out)["pred"]
+    if pred.shape != (S421_GEN_N, S421, S421) or not np.isfinite(pred).all():
+        raise AssertionError(f"s421-predict output: shape {pred.shape}, "
+                             f"finite {np.isfinite(pred).all()}")
+    if (report["spectral"] != "fft" or report["dtype"] != "bfloat16"
+            or batches != S421_GEN_N // S421_BATCH or launches["cmul_fwd"] != 7 * batches
+            or launches["mlp_head_fwd"] != batches or launches["cmul_bwd_x"]
+            or launches["cmul_bwd_w"] or launches["mlp_head_bwd"]):
+        raise AssertionError(f"s421-predict: {report['spectral']} path, kernel launches "
+                             f"{launches} over {batches} batches")
+    print(f"[s421-predict] {S421_PRESET} uno11 bf16 b{S421_BATCH}, --data of the generated "
+          f"file: {batches} warm batches host to host, ms per batch {_spread(ms)} "
+          f"({[round(v, 3) for v in ms]}; first run {[round(v, 3) for v in warm['batch_ms']]}); "
+          f"launches {launches}")
+    return ms
+
+
+def phase_superres(tmp: str, dev, mat: str) -> dict:
+    """darcy_s211 (uno9) trained on ``::2`` of the s421 file (16/8/8
+    samples, 2 epochs), then ``evaluate_superres`` of its best params on
+    the last 8 samples at 211 and at 421, one batch of 8 each; returns the
+    evaluation's launches.  Two epochs teach little: only finite values are
+    asserted."""
+    ck = os.path.join(tmp, "sr_ck")
+    ntrain, nval, ntest = SR_SPLIT
+    records = _run_cli(["train", "--preset", PRESET, "--data", mat, "--ntrain", str(ntrain),
+                        "--nval", str(nval), "--ntest", str(ntest), "--epochs", str(SR_EPOCHS),
+                        "--dtype", "bfloat16", "--device", "cuda", "--checkpoint-dir", ck])
+    _, _, x_lo, y_lo = load_darcy(2, ntrain + nval, ntest, mat)
+    _, _, x_hi, y_hi = load_darcy(1, ntrain + nval, ntest, mat)
+    if not np.array_equal(x_lo, x_hi[:, ::2, ::2]) or x_lo.shape[1:3] != (S, S):
+        raise AssertionError(f"superres: the {S} split is not ::2 of the {S421} one")
+    model = build_model("uno9", dtype="bfloat16", device=dev,
+                        generator=torch.Generator().manual_seed(0),
+                        **get_preset(PRESET).model_kwargs)
+    model.load_state_dict(CheckpointManager(ck).restore("best_params"))
+    model.eval()
+    _zero_launches()
+    res = evaluate_superres(model, x_lo, y_lo, x_hi, y_hi, batch_size=SR_BATCH)
+    launches = _launches()
+    want = {"cmul_fwd": 2 * 5, "cmul_bwd_x": 0, "cmul_bwd_w": 0, "mlp_head_fwd": 2,
+            "mlp_head_bwd": 0}
+    if not all(np.isfinite(v) for v in res.values()) or launches != want:
+        raise AssertionError(f"superres: {res}, launches {launches}, expected {want}")
+    print(f"[superres] {PRESET} uno9 bf16 trained {SR_EPOCHS} epochs on ::2 of the s421 file "
+          f"(train_rel_l2 {[round(r['train_rel_l2'], 5) for r in records if 'train_rel_l2' in r]}"
+          f"), evaluate_superres on {ntest} held-out samples, batch {SR_BATCH}: rel_l2_train_res "
+          f"({S}x{S}) {res['rel_l2_train_res']:.5f}, rel_l2_super_res ({S421}x{S421}) "
+          f"{res['rel_l2_super_res']:.5f} (2 epochs: no accuracy asserted); launches {launches}")
+    return launches
+
+
+def phase_s421_cuda_vs_cpu(dev) -> None:
+    """uno11 (darcy_s421's model, the residual block included) at width 4,
+    2 samples at 85x85: the output, the loss and every gradient with the
+    same weights on the card and the CPU."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 85, 85, 1)).astype(np.float32))
+    y = (x[..., 0] + x[..., 0].roll(1, 1) + x[..., 0].roll(1, 2)) / 3.0
+    kw = dict(get_preset(S421_PRESET).model_kwargs, width=S421_CHECK_WIDTH)
+    for dtype in ("float32", "bfloat16"):
+        cpu = build_model("uno11", dtype=dtype, generator=torch.Generator().manual_seed(0), **kw)
+        gpu = build_model("uno11", dtype=dtype, device=dev, **kw)
+        params_from_flax(gpu, params_to_flax(cpu))
+        c0 = _launches()
+        res = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            with torch.no_grad():
+                out = model(x.to(d))
+            res.append((out, *_grads(model, x.to(d), y.to(d))))
+        want, got = res
+        moved = {k: v - c0[k] for k, v in _launches().items()}
+        fused = int(dtype == "bfloat16")
+        if moved != {"cmul_fwd": 14, "cmul_bwd_x": 7, "cmul_bwd_w": 7,
+                     "mlp_head_fwd": 2 * fused, "mlp_head_bwd": fused}:
+            raise AssertionError(f"s421-cuda-vs-cpu, {dtype}: the card launched {moved}")
+        ro, rl, rg = (_rel(g, w) for g, w in zip(got, want))
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[2]).all()
+                and ro <= E2E_REL[dtype] and max(rl, rg) <= GRAD_REL[dtype]):
+            raise AssertionError(f"s421-cuda-vs-cpu, {dtype}: output rel-L2 {ro} (bound "
+                                 f"{E2E_REL[dtype]}), loss rel {rl}, grads rel-L2 {rg} "
+                                 f"(bound {GRAD_REL[dtype]})")
+        print(f"[s421-cuda-vs-cpu] uno11 width {S421_CHECK_WIDTH} 85x85 b2 {dtype}: output "
+              f"rel-L2 {ro:.3g} (bound {E2E_REL[dtype]}), loss rel {rl:.3g}, all gradients "
+              f"rel-L2 {rg:.3g} (bound {GRAD_REL[dtype]}); card launches {moved}")
+
+
+def _spectral_cases(dev, fn, x, params, cot):
+    """``fn(x, *params)`` and the gradients of (fn * cot).sum() on the CPU
+    and on the card: [(out, grads...)] per device, complex as (re, im)."""
+    res = []
+    for d in ("cpu", dev):
+        leaves = [t.to(d).detach().requires_grad_() for t in (x, *params)]
+        y = fn(*leaves)
+        (y.float() * cot.to(d)).sum().backward()
+        res.append([y.detach()] + [torch.view_as_real(t.grad) if t.is_complex() else t.grad
+                                   for t in leaves])
+    return res
+
+
+def phase_dft3d(tmp: str, dev, fft_predict_ms: list, fft_train_ms: list) -> None:
+    """ns3d_t40 serving and training on the partial-DFT path, beside the FFT
+    path's numbers from this run; then uno3d_t40's block-0 conv and
+    truncation at width 4 on the DFT path, card against CPU."""
+    with _dft_path():
+        dft_predict_ms = phase_ns3d_predict(tmp, "dft3d", dft=True)
+        _, dft_train_ms = phase_ns3d_train(tmp, dev, "dft3d", dft=True)
+    print(f"[dft3d] {NS3D_PRESET} serving ms per batch of {BATCH}: dft "
+          f"{_spread(dft_predict_ms)}; fft {_spread(fft_predict_ms)}")
+    print(f"[dft3d] {NS3D_PRESET} training ms per warm step: dft {_spread(dft_train_ms)}; fft "
+          f"{_spread(fft_train_ms)}")
+    b, ci, co, grid, out_size, modes = DFT3D_CHECK
+    g = torch.Generator().manual_seed(8)
+    set_dft_mode(True)
+    try:
+        for dtype in ("float32", "bfloat16"):
+            x = torch.randn((b, ci) + grid, generator=g).to(getattr(torch, dtype))
+            w = torch.complex(torch.randn((4, ci, co) + modes, generator=g),
+                              torch.randn((4, ci, co) + modes, generator=g)) / (2 * ci) ** 0.5
+            c0 = _launches()
+            conv = _spectral_cases(dev, lambda a, w_: spectral_conv_3d(a, w_, out_size, modes),
+                                   x, (w,), torch.randn((b, co) + out_size, generator=g))
+            trunc = _spectral_cases(dev, lambda a: fourier_truncate_3d(a, out_size), x, (),
+                                    torch.randn((b, ci) + out_size, generator=g))
+            rels = [_rel(gt, wt) for gt, wt in zip(conv[1] + trunc[1], conv[0] + trunc[0])]
+            bound = DFT3D_REL[dtype]
+            if (_launches() != c0 or conv[1][0].dtype != x.dtype
+                    or not all(torch.isfinite(t).all() for t in conv[1] + trunc[1])
+                    or max(rels) > bound):
+                raise AssertionError(f"dft3d card vs CPU, {dtype}: rel-L2 (conv out, gx, gw; "
+                                     f"truncation out, gx) {rels} > {bound}, launches "
+                                     f"{_launches()} from {c0}")
+            print(f"[dft3d] _DFTConv3d {b}x{ci}x{grid} -> {co}x{out_size} modes {modes} and "
+                  f"_DFTTruncate3d, {dtype}, card vs CPU: rel-L2 conv out/gx/gw "
+                  f"{rels[0]:.3g}/{rels[1]:.3g}/{rels[2]:.3g}, truncation out/gx "
+                  f"{rels[3]:.3g}/{rels[4]:.3g} (bound {bound}); no contraction launch")
+    finally:
+        set_dft_mode(None)
+
+
+def phase_1d(dev) -> dict:
+    """A 1-D OperatorBlock (normalised, 1024 -> 512 points, 64 modes) card
+    against CPU, the forward and every gradient, f32 and bf16, on the FFT
+    path (one contraction of each use) and the DFT path (none); returns the
+    FFT path's launches."""
+    b, ci, co, n, d, m = ONE_D
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((b, ci, n)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((b, co, d)).astype(np.float32))
+    fft_launches = {}
+    for dft in (False, True):
+        set_dft_mode(dft)
+        try:
+            for dtype in ("float32", "bfloat16"):
+                tdt = getattr(torch, dtype)
+                res = []
+                c0 = _launches()
+                for dv in ("cpu", dev):
+                    blk = OperatorBlock(ci, co, (m,), normalize=True, dtype=tdt, device=dv,
+                                        generator=torch.Generator().manual_seed(0))
+                    xt = x.to(dv, tdt).detach().requires_grad_()
+                    y = blk(xt, (d,))
+                    (y.float() * cot.to(dv)).sum().backward()
+                    names = [k for k, _ in blk.named_parameters()]
+                    res.append([y.detach(), xt.grad] + [
+                        torch.view_as_real(p.grad) if p.is_complex() else p.grad
+                        for p in blk.parameters()])
+                moved = {k: v - c0[k] for k, v in _launches().items()}
+                want = {k: 0 for k in moved}
+                if not dft:
+                    want.update(cmul_fwd=1, cmul_bwd_x=1, cmul_bwd_w=1)
+                    fft_launches = moved
+                rels = [_rel(g, w) for g, w in zip(res[1], res[0])]
+                # the norm cancels the 1x1 conv's bias: its gradient is
+                # rounding, held absolutely against the whole gradient
+                total = torch.cat([t.double().flatten().cpu() for t in res[0][2:]]).norm()
+                i = 2 + names.index("w.bias")
+                rels[i] = float(max(res[1][i].double().norm(), res[0][i].double().norm())
+                                / total)
+                bound = {"float32": 1e-4, "bfloat16": GRAD_REL["bfloat16"]}[dtype]
+                if (moved != want or res[1][0].dtype != tdt or max(rels) > bound
+                        or not all(torch.isfinite(t.float()).all() for t in res[1])):
+                    raise AssertionError(f"1d, {'dft' if dft else 'fft'} {dtype}: rel-L2 "
+                                         f"{rels} > {bound}, launches {moved}, expected {want}")
+                print(f"[1d] OperatorBlock {b}x{ci}x{n} -> {co}x{d} modes {m} "
+                      f"{'dft' if dft else 'fft'} path {dtype}, card vs CPU: rel-L2 output "
+                      f"{rels[0]:.3g}, gx {rels[1]:.3g}, parameter gradients "
+                      f"{max(rels[2:]):.3g} (bound {bound}); card launches {moved}")
+        finally:
+            set_dft_mode(None)
+    return fft_launches
+
+
 def main() -> int:
     phase_device()
     dev = torch.device("cuda", 0)
@@ -902,6 +1235,10 @@ def main() -> int:
     times = phase_kernels(dev)
     ns_times = phase_kernels(dev, NS_CMUL_SHAPES, NS_HEAD_SHAPE, "kernels ns2d")
     ns3d_times = phase_kernels(dev, NS3D_CMUL_SHAPES, None, "kernels ns3d")
+    s421_times = phase_kernels(dev, S421_CMUL_SHAPES, S421_HEAD_SHAPE, "kernels s421")
+    sr_times = phase_kernels(dev, SR_CMUL_SHAPES, SR_HEAD_SHAPE, "kernels s421 superres",
+                             forward_only=True)
+    oned_times = phase_kernels(dev, ONE_D_CMUL_SHAPES, None, "kernels 1d")
     with tempfile.TemporaryDirectory() as tmp:
         fft_predict_ms = phase_predict(tmp)
         launches, fft_train_ms = phase_train(tmp, dev)
@@ -911,8 +1248,13 @@ def main() -> int:
         phase_ns_generate(dev)
         phase_ns_predict(tmp)
         ns_launches, _ = phase_ns_train(tmp, dev)
-        phase_ns3d_predict(tmp)
-        ns3d_launches, _ = phase_ns3d_train(tmp, dev)
+        ns3d_predict_ms = phase_ns3d_predict(tmp)
+        ns3d_launches, ns3d_train_ms = phase_ns3d_train(tmp, dev)
+        phase_dft3d(tmp, dev, ns3d_predict_ms, ns3d_train_ms)
+        mat = phase_s421_generate(tmp)
+        s421_launches, _ = phase_s421_train(mat, dev)
+        phase_s421_predict(tmp, mat)
+        sr_launches = phase_superres(tmp, dev, mat)
     phase_grads_cpu_vs_cuda(dev)
     phase_cpu_vs_cuda(dev)
     set_dft_mode(True)
@@ -923,16 +1265,24 @@ def main() -> int:
         set_dft_mode(None)
     phase_ns_cuda_vs_cpu(dev)
     phase_ns3d_cuda_vs_cpu(dev)
+    phase_s421_cuda_vs_cpu(dev)
+    oned_launches = phase_1d(dev)
     # top level: the Darcy path (darcy_s211 shapes, launches of its train
-    # run); "ns2d" and "ns3d": the same keys at those paths' shapes and
-    # their train runs (no head kernel runs on the NS-3D path)
+    # run); "ns2d", "ns3d", "s421" (darcy_s421: its train run), "superres"
+    # (the super-resolution evaluation at 421, forward only) and "1d" (the
+    # 1-D block's card check): the same keys at those paths' shapes; a
+    # kernel a path does not run has launches 0 and on_path false
+    paths = {"ns2d": (ns_times, ns_launches), "ns3d": (ns3d_times, ns3d_launches),
+             "s421": (s421_times, s421_launches), "superres": (sr_times, sr_launches),
+             "1d": (oned_times, oned_launches)}
     kernels = []
     for name, (_, _, src, rep) in KERNELS.items():
-        ns3d = dict(launches=ns3d_launches[name], **ns3d_times[name]) if name in ns3d_times \
-            else dict(launches=ns3d_launches[name], on_path=False)
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                            launches=launches[name], **times[name],
-                            ns2d=dict(launches=ns_launches[name], **ns_times[name]), ns3d=ns3d))
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=launches[name], **times[name])
+        for path, (t, n) in paths.items():
+            entry[path] = (dict(launches=n[name], **t[name]) if name in t
+                           else dict(launches=n[name], on_path=False))
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

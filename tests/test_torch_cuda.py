@@ -1,8 +1,9 @@
 """The port's CUDA kernels and model on the card, against their plain PyTorch
-versions, forward and backward, at the Darcy, NS-2D and NS-3D paths'
-shapes; the NS-2D rollout, the NS-3D model, the partial-DFT spectral path,
-the Darcy and NS solvers and checkpoints on the card against the CPU.  Every case needs a CUDA
-device and skips without one.
+versions, forward and backward, at the Darcy (darcy_s211, darcy_s421 and
+its super-resolution evaluation), NS-2D and NS-3D paths' shapes; uno11, the
+NS-2D rollout, the NS-3D model, the partial-DFT spectral path (2-D and
+3-D), the Darcy and NS solvers and checkpoints on the card against the
+CPU.  Every case needs a CUDA device and skips without one.
 
 This file imports no JAX, so it runs where the port runs; tests/conftest.py
 imports JAX, so on a machine without it run
@@ -28,6 +29,13 @@ NS2D = [(16, 32, 48, 968), (16, 48, 96, 392), (16, 96, 192, 72), (16, 192, 192, 
 # width 8), batch 16: M up to 22,400 (a grid of 5,600 blocks along x)
 NS3D = [(16, 8, 16, 6400), (16, 16, 32, 3136), (16, 32, 64, 576), (16, 64, 128, 1008),
         (16, 128, 32, 1008), (16, 64, 16, 7840), (16, 32, 16, 22400)]
+# (B, Ci, Co, M) of the seven uno11 contractions at darcy_s421 (width 32), batch 4:
+# dw's channels (the batch) are a quarter of its 16-row tile
+UNO11_S421 = [(4, 32, 64, 648), (4, 64, 128, 128), (4, 128, 256, 18), (4, 256, 256, 18),
+              (4, 256, 128, 18), (4, 256, 64, 128), (4, 128, 32, 648)]
+# uno9's five forward contractions in the super-resolution evaluation, batch 8
+SUPERRES = [(8, 32, 64, 648), (8, 64, 128, 128), (8, 128, 128, 128), (8, 128, 64, 128),
+            (8, 128, 32, 648)]
 
 
 @pytest.fixture
@@ -72,7 +80,7 @@ def _misaligned(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D)
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D + UNO11_S421 + SUPERRES)
 def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
     g = torch.Generator().manual_seed(1)
     x = _rand_c(g, b, ci, m).to(cuda)
@@ -89,7 +97,7 @@ def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D)
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D + UNO11_S421)
 def test_cmul_backward_kernels_match_plain(cuda, b, ci, co, m):
     g_ = torch.Generator().manual_seed(3)
     x = _rand_c(g_, b, ci, m).to(cuda)
@@ -133,7 +141,9 @@ def test_cmul_wrapper_raises_on_the_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,h,o", [((2, 8, 37, 45), 32, 1), ((1, 16, 64, 64), 64, 3),
                                        ((16, 64, 211, 211), 32, 1), ((3, 5, 7, 300), 40, 4),
-                                       ((16, 64, 64, 64), 128, 1)])  # the ns2d head
+                                       ((16, 64, 64, 64), 128, 1),  # the ns2d head
+                                       # darcy_s421 (uno11) and its super-resolution batch
+                                       ((4, 64, 421, 421), 32, 1), ((8, 64, 421, 421), 32, 1)])
 def test_mlp_head_kernel_matches_plain(cuda, shape, h, o):
     g = torch.Generator().manual_seed(2)
     c = shape[1]
@@ -186,7 +196,8 @@ def test_mlp_head_kernel_at_the_plans_edges(cuda, b, c, n, h, o):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,h,o", [((2, 8, 37 * 45), 32, 1), ((1, 16, 4096), 64, 3),
-                                       ((3, 5, 2100), 40, 4), ((16, 64, 211 * 211), 32, 1)])
+                                       ((3, 5, 2100), 40, 4), ((16, 64, 211 * 211), 32, 1),
+                                       ((4, 64, 421 * 421), 32, 1)])  # darcy_s421
 def test_mlp_head_backward_kernel_matches_plain(cuda, shape, h, o):
     g_ = torch.Generator().manual_seed(4)
     b, c, n = shape
@@ -473,3 +484,74 @@ def test_uno3d_t40_on_the_card_matches_the_cpu(cuda, dtype, bound, grad_bound):
     assert _rel(res[1][0], res[0][0]) <= bound
     assert _rel(res[1][1], res[0][1]) <= grad_bound
     assert _rel(res[1][2], res[0][2]) <= grad_bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_uno11_on_the_card_matches_the_cpu(cuda, dtype, bound):
+    """uno11 (width 4, 85x85, the residual block included): the forward,
+    then one training loss and all gradients, through the kernels on the
+    card and the plain versions on the CPU; 7 contractions of each use and,
+    under bf16, the fused head forward and backward."""
+    from uno_tpu_torch.losses import relative_lp_loss
+
+    kw = dict(in_width=3, width=4, pad=1)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 85, 85, 1)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((2, 85, 85)).astype(np.float32))
+    c0, h0 = dict(C.LAUNCHES), dict(H.LAUNCHES)
+    res = []
+    for dev in ("cpu", cuda):
+        model = build_model("uno11", dtype=dtype, device=dev,
+                            generator=torch.Generator().manual_seed(0), **kw)
+        with torch.no_grad():
+            out = model(x.to(dev))
+        loss = relative_lp_loss(model(x.to(dev)).reshape(2, 85, 85), y.to(dev))
+        loss.backward()
+        grads = torch.cat([torch.view_as_real(p.grad).flatten() if p.is_complex()
+                           else p.grad.flatten() for p in model.parameters()])
+        res.append((out, loss.detach(), grads))
+    assert C.LAUNCHES["fwd"] - c0["fwd"] == 2 * 7
+    assert C.LAUNCHES["bwd_x"] - c0["bwd_x"] == C.LAUNCHES["bwd_w"] - c0["bwd_w"] == 7
+    fused = 1 if dtype == "bfloat16" else 0
+    assert (H.LAUNCHES["fwd"] - h0["fwd"], H.LAUNCHES["bwd"] - h0["bwd"]) == (2 * fused, fused)
+    assert torch.isfinite(res[1][0]).all() and torch.isfinite(res[1][2]).all()
+    assert _rel(res[1][0], res[0][0]) <= (1e-4 if dtype == "float32" else 3e-2)
+    assert _rel(res[1][1], res[0][1]) <= bound
+    assert _rel(res[1][2], res[0][2]) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_dft_conv_3d_and_truncation_on_the_card_match_the_cpu(cuda, dft_path, dtype, bound):
+    """uno3d_t40's block 0 at width 4 (Ci 4, Co 8, 64x64x13 to 48x48x13,
+    modes (20, 20, 4)) on the partial-DFT path: the conv's forward and the
+    gradients of x and the weights, and the truncation's forward and
+    gradient, cuBLAS einsums on the card against the CPU's; no contraction
+    kernel runs on this path."""
+    from uno_tpu_torch.ops.spectral import fourier_truncate_3d, spectral_conv_3d
+
+    out_size, modes = (48, 48, 13), (20, 20, 4)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 4, 64, 64, 13, generator=g).to(getattr(torch, dtype))
+    wt = _rand_c(g, 4, 4, 8, *modes) / 8**0.5
+    cot = torch.randn((2, 8) + out_size, generator=g)
+    cot_t = torch.randn((2, 4) + out_size, generator=g)
+    c0 = dict(C.LAUNCHES)
+    res = []
+    for dev in ("cpu", cuda):
+        xt = x.to(dev).detach().requires_grad_()
+        wtt = wt.to(dev).detach().requires_grad_()
+        y = spectral_conv_3d(xt, wtt, out_size, modes)
+        (y.float() * cot.to(dev)).sum().backward()
+        gx_conv = xt.grad
+        xt.grad = None
+        t = fourier_truncate_3d(xt, out_size)
+        (t.float() * cot_t.to(dev)).sum().backward()
+        res.append((y, gx_conv, wtt.grad, t, xt.grad))
+    assert C.LAUNCHES == c0
+    assert res[1][0].dtype == res[1][3].dtype == x.dtype
+    for got, want in zip(res[1], res[0]):
+        got, want = (torch.view_as_real(t) if t.is_complex() else t for t in (got, want))
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= bound

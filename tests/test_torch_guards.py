@@ -162,6 +162,8 @@ def test_idct2_matrix_equals_uno_tpus():
     (tmat.MatReader, jmat.MatReader),
     (tloaders._bilinear_resize_hw, jloaders._bilinear_resize_hw),
     (tloaders.load_navier_stokes, jloaders.load_navier_stokes),
+    (tloaders.load_darcy, jloaders.load_darcy),
+    (tloaders.load_darcy_multi, jloaders.load_darcy_multi),
     (tgrf._wavenumbers, jgrf._wavenumbers),
 ])
 def test_data_copies_equal_uno_tpus(copy, original):

@@ -1,10 +1,12 @@
 """The port's UNO model, weight bridge and predict CLI against uno_tpu.
 
 The same numpy inputs and the same weights (through uno_tpu_torch.bridge) go
-through the flax model and the port on the CPU.  Bounds: rel-L2 <= 1e-4 at
-f32 (FFT and summation order differ); <= 2e-2 under the bf16 policy with the
-fused head on both sides (bf16 rounds at slightly different points in the two
-frameworks; the bound of tests/test_fused_head.py).
+through the flax model and the port on the CPU: uno9, and uno11 (the only
+factory with a residual block) forward and gradients.  Bounds: rel-L2 <=
+1e-4 at f32 (FFT and summation order differ); <= 2e-2 under the bf16 policy
+with the fused head on both sides (bf16 rounds at slightly different points
+in the two frameworks; the bound of tests/test_fused_head.py); gradients as
+in tests/test_torch_train.py.
 """
 
 import dataclasses
@@ -16,10 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_train import _darcy_data, _flat_tree, _port_grads
+from tests.test_torch_train import _rel as _crel
+from uno_tpu.losses import relative_lp_loss as j_relative_lp_loss
 from uno_tpu.models import build_model as jax_build_model
+from uno_tpu.nn.layers import OperatorBlock as JBlock
 from uno_tpu.ops.pallas.mlp_head import set_fused_head_mode
 from uno_tpu_torch import bridge, cli
+from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.models import build_model
+from uno_tpu_torch.nn.layers import OperatorBlock
 
 
 def _rel(a, b):
@@ -134,9 +142,10 @@ def test_port_init_matches_uno_tpu_distributions():
 
 
 def test_3d_spec_is_not_ported():
-    """uno_tpu's 3-D spec builds in the port since the NS-3D slice; what is
-    not ported is its partial-DFT path, which raises rather than run the
-    FFT path, and 1-D specs."""
+    """uno_tpu's 3-D spec builds in the port (the name is kept from before
+    the NS-3D slice) and runs on both spectral paths: the partial-DFT
+    forward matches the FFT one within the f32 model bound.  A 1-D spec
+    raises: uno_tpu's UNOModel has no 1-D form."""
     from uno_tpu.models.uno3d import uno3d_t9
     from uno_tpu_torch.models.core import BlockSpec, UNOModel, UNOSpec
     from uno_tpu_torch.ops.spectral import set_dft_mode
@@ -145,15 +154,19 @@ def test_3d_spec_is_not_ported():
     fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
     fields["blocks"] = tuple(BlockSpec(**dataclasses.asdict(b)) for b in spec.blocks)
     model = UNOModel(UNOSpec(**fields), generator=torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 40, 40, 6, 1)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 40, 40, 6, 1))
+                         .astype(np.float32))
     set_dft_mode(True)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model(x)
+        with torch.no_grad():
+            dft_out = model(x)
     finally:
         set_dft_mode(None)
-    assert model(x).shape == (1, 40, 40, 9, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with torch.no_grad():
+        fft_out = model(x)
+    assert fft_out.shape == dft_out.shape == (1, 40, 40, 9, 1)
+    assert _rel(dft_out.numpy(), fft_out.numpy()) <= 1e-4
+    with pytest.raises(NotImplementedError, match="2-D and 3-D specs only"):
         UNOModel(UNOSpec(**dict(fields, ndim=1)))
 
 
@@ -227,3 +240,119 @@ def test_cli_predict_refuses_a_missing_cuda_device(tmp_path):
     args[args.index("--device") + 1] = "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(args)
+
+
+# uno11 (the residual stack) at width 4 on the 85x85 grid with pad 1: the
+# smallest grid on which its mode counts (18, 8, 3) fit; padded to 86, its
+# seven blocks run at 43, 21, 10, 10, 21, 43 and 86
+KW11 = dict(in_width=3, width=4, pad=1)
+
+
+def _uno11_both(dtype, seed):
+    """(port, uno_tpu) uno11 models with the port's init carried to flax,
+    and one batch of 2 at 85x85 with the local-average target of
+    tests/test_torch_train.py."""
+    model = build_model("uno11", dtype=dtype, generator=torch.Generator().manual_seed(seed),
+                        **KW11)
+    tree = jax.tree.map(jnp.asarray, bridge.params_to_flax(model))
+    x, y = _darcy_data(2, 85, seed)
+    return model, jax_build_model("uno11", dtype=dtype, **KW11), tree, x, y
+
+
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_uno11_forward_matches_uno_tpu(dtype, bound):
+    model, jm, tree, x, _ = _uno11_both(dtype, 0)
+    assert [b.residual for b in model.spec.blocks] == [False, False, False, True, False,
+                                                       False, False]
+    set_fused_head_mode(dtype == "bfloat16")
+    try:
+        want = np.asarray(jax.jit(jm.apply)(tree, jnp.asarray(x)), np.float32)
+    finally:
+        set_fused_head_mode(None)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 85, 85, 1) and got.dtype == np.float32
+    assert _rel(got, want) <= bound, _rel(got, want)
+
+
+def _uno11_grads(model, jm, tree, x, y, fused):
+    def loss(p):
+        out = jm.apply(p, jnp.asarray(x)).reshape(2, 85, 85)
+        return j_relative_lp_loss(out, jnp.asarray(y), reduction="sum")
+
+    set_fused_head_mode(fused)
+    try:
+        jl, jg = jax.jit(jax.value_and_grad(loss))(tree)
+    finally:
+        set_fused_head_mode(None)
+    tl = relative_lp_loss(model(torch.from_numpy(x)).reshape(2, 85, 85), torch.from_numpy(y),
+                          reduction="sum")
+    tl.backward()
+    return tl.item(), _port_grads(model), float(jl), _flat_tree(jg)
+
+
+def test_uno11_loss_and_gradients_match_uno_tpu_f32():
+    """Bounds of tests/test_torch_train.py: loss rel 1e-5, each leaf's
+    gradient rel-L2 <= 1e-4 (the conjugate of jax.grad's for complex
+    leaves), a normalised block's 1x1-conv bias (zero gradient up to
+    rounding) under 1e-6 of the whole gradient's norm."""
+    model, jm, tree, x, y = _uno11_both("float32", 0)
+    tl, tg, jl, jg = _uno11_grads(model, jm, tree, x, y, fused=False)
+    assert abs(tl - jl) <= 1e-5 * abs(jl), (tl, jl)
+    assert set(tg) == set(jg)
+    total = np.sqrt(sum(np.linalg.norm(g) ** 2 for g in jg.values()))
+    normed = {i for i, b in enumerate(model.spec.blocks) if b.normalize}
+    for path, g in tg.items():
+        want = np.conj(jg[path])
+        assert g.shape == want.shape, path
+        if path[1:] == ("w", "bias") and int(path[0][len("block"):]) in normed:
+            assert max(np.linalg.norm(g), np.linalg.norm(want)) <= 1e-6 * total, path
+        else:
+            assert _crel(g, want) <= 1e-4, (path, _crel(g, want))
+
+
+def test_uno11_bf16_gradients_are_as_accurate_as_uno_tpus():
+    """The ratio test of tests/test_torch_train.py: under bf16 with the
+    fused head on both sides, each leaf's gradient is no further from
+    uno_tpu's f32 gradient than 2x uno_tpu's own bf16 error + 0.02."""
+    model, jm, tree, x, y = _uno11_both("bfloat16", 1)
+    _, tg, _, jg = _uno11_grads(model, jm, tree, x, y, fused=True)
+    j32 = jax_build_model("uno11", **KW11)
+
+    def loss32(p):
+        return j_relative_lp_loss(j32.apply(p, jnp.asarray(x)).reshape(2, 85, 85),
+                                  jnp.asarray(y), reduction="sum")
+
+    g32 = _flat_tree(jax.jit(jax.grad(loss32))(tree))
+    for path, g in tg.items():
+        assert np.isfinite(g).all(), path
+        truth = np.conj(g32[path])
+        err_port = _crel(g, truth)
+        err_jax = _crel(np.conj(np.asarray(jg[path], np.complex128)), truth)
+        assert err_port <= 2.0 * err_jax + 0.02, (path, err_port, err_jax)
+
+
+def test_uno11_residual_block_needs_matching_shapes():
+    """The residual is added after the norm and before the GELU, and only
+    between tensors of one shape, as in uno_tpu; a block that changes the
+    channels or the grid raises in both packages."""
+    x = np.random.default_rng(3).standard_normal((2, 4, 10, 10)).astype(np.float32)
+    block = OperatorBlock(4, 4, (3, 3), normalize=True, residual=True,
+                          generator=torch.Generator().manual_seed(0))
+    tree = jax.tree.map(jnp.asarray, bridge.params_to_flax(block))
+    jblock = JBlock(4, 4, (3, 3), normalize=True, residual=True)
+    want = jax.jit(jblock.apply, static_argnums=2)(tree, jnp.asarray(x), (10, 10))
+    with torch.no_grad():
+        got = block(torch.from_numpy(x), (10, 10))
+        plain = OperatorBlock(4, 4, (3, 3), normalize=True,
+                              generator=torch.Generator().manual_seed(0))(
+            torch.from_numpy(x), (10, 10))
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-5
+    assert _rel(got.numpy(), plain.numpy()) > 0.1  # the residual is there
+    for ci, co, out in ((4, 4, (8, 8)), (4, 6, (10, 10))):
+        b = OperatorBlock(ci, co, (3, 3), residual=True, generator=torch.Generator())
+        with pytest.raises(ValueError, match="residual block needs matching shapes"):
+            b(torch.from_numpy(x), out)
+        jb = JBlock(ci, co, (3, 3), residual=True)
+        with pytest.raises(ValueError, match="residual block needs matching shapes"):
+            jax.eval_shape(lambda a: jb.init(jax.random.PRNGKey(0), a, out), jnp.asarray(x))

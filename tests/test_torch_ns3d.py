@@ -10,7 +10,9 @@ conjugate of ``jax.grad``'s, so complex leaves are compared conjugated.
 Bounds:
 
 * forward: rel-L2 <= 1e-4 at f32 (FFT and summation orders differ); <=
-  2e-2 under the bf16 policy, the bound of tests/test_torch_model.py;
+  2e-2 under the bf16 policy, the bound of tests/test_torch_model.py; the
+  same on the partial-DFT path (both packages under ``set_dft_mode(True)``),
+  where a training step's gradients are held as on the FFT path;
 * one training step's loss rel 1e-5 and every gradient leaf rel-L2 <= 1e-4
   at f32;
 * trainer: each logged rel-L2 within rel 1e-3 of uno_tpu's ``train_ns3d``
@@ -38,6 +40,7 @@ from uno_tpu.train.evaluate import evaluate_ns3d as j_evaluate_ns3d
 from uno_tpu_torch import bridge, cli
 from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.models import build_model, core
+from uno_tpu_torch.ops.spectral import set_dft_mode
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import TrainConfig
 from uno_tpu_torch.train.evaluate import evaluate_ns3d
@@ -51,10 +54,20 @@ S, T_IN, T_F = 32, 10, 10
 
 @pytest.fixture(autouse=True)
 def jax_fft():
-    """uno_tpu on its FFT path, the port's only 3-D path."""
+    """uno_tpu on its FFT path, the port's default."""
     jspec.set_dft_mode(False)
     yield
     jspec.set_dft_mode(None)
+
+
+@pytest.fixture
+def dft_mode():
+    """Both packages on the partial-DFT path."""
+    jspec.set_dft_mode(True)
+    set_dft_mode(True)
+    yield
+    jspec.set_dft_mode(False)
+    set_dft_mode(None)
 
 
 def _ns_data(n, seed=0, s=S, t_in=T_IN, t_f=T_F):
@@ -117,6 +130,22 @@ def test_uno3d_t40_forward_matches_uno_tpu_bf16(monkeypatch):
     assert _rel(got.numpy(), want) <= 2e-2, _rel(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_uno3d_t40_on_the_dft_path_matches_uno_tpu(dtype, bound, dft_mode):
+    """uno3d_t40 at width 4 on the 64x64 grid, both packages on the
+    partial-DFT path; under bf16 the DFT transforms keep bf16 operands, as
+    uno_tpu's do."""
+    name, kw, s, t_in, t_out = MODEL_CASES[0]
+    x = np.random.default_rng(3).standard_normal((1, s, s, t_in, 1)).astype(np.float32)
+    model = _port(name, kw, dtype)
+    jm = jax_build_model(name, dtype=dtype, **kw)
+    want = np.asarray(jax.jit(jm.apply)(_tree(model), jnp.asarray(x)), np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == want.shape == (1, s, s, t_out, 1)
+    assert _rel(got.numpy(), want) <= bound, _rel(got.numpy(), want)
+
+
 def test_bridge_carries_a_3d_model_both_ways():
     """The port's parameter names and shapes are uno_tpu's (its init's tree,
     from ``jax.eval_shape``), the spectral weights (4, Ci, Co, m1, m2, m3);
@@ -138,6 +167,16 @@ def test_bridge_carries_a_3d_model_both_ways():
 def test_train_step_loss_and_gradients_match_jax_value_and_grad():
     """The trainer's loss (the full-field rel-L2 of the forecast, summed) and
     its gradients against ``jax.value_and_grad`` of uno_tpu's."""
+    _check_step_loss_and_gradients()
+
+
+def test_train_step_on_the_dft_path_matches_jax_value_and_grad(dft_mode):
+    """The same with both packages on the partial-DFT path: the hand-written
+    backward of the 3-D conv and truncation against JAX's."""
+    _check_step_loss_and_gradients()
+
+
+def _check_step_loss_and_gradients():
     a, u = _ns_data(2)
     model = _port("uno3d_t10", T10)
     jm = jax_build_model("uno3d_t10", **T10)

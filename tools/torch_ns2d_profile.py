@@ -1,20 +1,24 @@
-"""Device busy time and idle share of the PyTorch port's NS serving batch and
-training step on one CUDA card.
+"""Device busy time and idle share of the PyTorch port's serving batch and
+training step on one CUDA card, for an NS or a Darcy preset.
 
-    python3 tools/torch_ns2d_profile.py [--preset ns2d|ns3d_t40] [--reps 5] [--trace-dir DIR]
+    python3 tools/torch_ns2d_profile.py [--preset ns2d|ns3d_t40|darcy_s211|darcy_s421] \
+        [--reps 5] [--trace-dir DIR]
 
 Builds the preset's model at full width with the bf16 policy and random
 weights from seed 0 on ``cuda:0`` (``ns2d``: ``uno``, width 32, 64x64,
 batch 16, T_f 40; ``ns3d_t40``: ``uno3d_t40``, width 8, 64x64, batch 16,
-T_in 10 -> T_f 40) and times two calls:
+T_in 10 -> T_f 40; ``darcy_s211``: ``uno9``, width 32, 211x211, batch 16;
+``darcy_s421``: ``uno11``, width 32, 421x421, batch 4) and times two
+calls:
 
 * serving: the ``cli predict`` batch without its host copies, under
   ``torch.inference_mode()``: for ns2d one 40-step rollout, for ns3d_t40
-  one 3-D forward to all 40 steps;
+  one 3-D forward to all 40 steps, for Darcy one forward;
 * training: one step of the preset's trainer, then ComplexAdam: for ns2d
   ``train_ns2d``'s (the checkpointed 40-step rollout and its backward
   through every step), for ns3d_t40 ``train_ns3d``'s (the forward, the
-  full-field loss's backward, the per-step losses without gradients).
+  full-field loss's backward, the per-step losses without gradients), for
+  Darcy ``train_darcy``'s (the forward, the summed rel-L2's backward).
 
 For each it reports the warm time between CUDA events recorded before and
 after the call, unprofiled (the median of ``--reps``; idle gaps where the
@@ -126,7 +130,8 @@ def _measure(name: str, fn, reps: int, trace_dir, preset: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--preset", default="ns2d", choices=["ns2d", "ns3d_t40"])
+    ap.add_argument("--preset", default="ns2d",
+                    choices=["ns2d", "ns3d_t40", "darcy_s211", "darcy_s421"])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--trace-dir", default=None, help="keep the chrome traces here")
     args = ap.parse_args(argv)
@@ -143,14 +148,29 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     preset = get_preset(args.preset)
     bs, t_f, s = preset.train.batch_size, preset.t_f, preset.size
+    darcy = preset.task == "darcy"
+    if darcy:
+        s, t_f = (421 - 1) // preset.sub + 1, None
     model = build_model(preset.model, dtype="bfloat16", device=dev,
                         generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
     rng = np.random.default_rng(0)
-    xx = torch.from_numpy(rng.standard_normal((bs, s, s, preset.t_in)).astype(np.float32)).to(dev)
-    yy = torch.from_numpy(rng.standard_normal((bs, s, s, t_f)).astype(np.float32)).to(dev)
+    x_shape, y_shape = ((bs, s, s, 1), (bs, s, s)) if darcy else (
+        (bs, s, s, preset.t_in), (bs, s, s, t_f))
+    xx = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(dev)
+    yy = torch.from_numpy(rng.standard_normal(y_shape).astype(np.float32)).to(dev)
     opt = make_optimizer(preset.train, num_batches(preset.ntrain, bs), model.parameters())
 
-    if preset.task == "ns2d":
+    if darcy:
+        def serve():
+            with torch.inference_mode():
+                model(xx)
+
+        def train_step():
+            opt.zero_grad(set_to_none=True)
+            out = model(xx).reshape(yy.shape)
+            relative_lp_loss(out, yy, reduction="sum").backward()
+            opt.step()
+    elif preset.task == "ns2d":
         rollout = make_rollout(model, t_f)
 
         def serve():

@@ -1,7 +1,7 @@
 """Command-line entry point of the PyTorch port.
 
-    python -m uno_tpu_torch.cli train --preset darcy_s211 \\
-        (--data-cache D.npz | --generate [--data-cache D.npz]) \\
+    python -m uno_tpu_torch.cli train --preset darcy_s211|darcy_s421 \\
+        (--data f.mat [g.mat ...] | --data-cache D.npz | --generate [--data-cache D.npz]) \\
         [--dtype bfloat16] [--device cuda] [--epochs N] [--log run.jsonl] \\
         [--checkpoint-dir CK [--checkpoint-every K] [--resume]]
     python -m uno_tpu_torch.cli train --preset ns2d|ns3d_t40 \\
@@ -19,8 +19,11 @@
 
 ``train`` is the counterpart of ``uno_tpu``'s ``cli train`` for the Darcy,
 NS-2D and NS-3D presets: it reads or writes the six-key split ``.npz``
-(``--data-cache``) or, for NS, reads the generator's ``.mat`` (``--data``),
-draws the model's weights from the preset's seed, and runs
+(``--data-cache``) or reads ``.mat`` files (``--data``: for Darcy the
+``coeff``/``sol`` fields, one file split first-n/last-n or several pooled
+and permuted as the reference's multi-file recipe, ``data/loaders.py``;
+for NS the generator's trajectories), draws the model's weights from the
+preset's seed, and runs
 ``train.darcy.train_darcy``, ``train.ns2d.train_ns2d`` (the 40-step
 rollout with full BPTT) or ``train.ns3d.train_ns3d`` (one 3-D forward from
 the T_in window to all T_f steps), printing one JSON line per epoch and a
@@ -49,15 +52,15 @@ come from a checkpoint's best params, from an ``.npz`` param tree
 (``uno_tpu_torch/bridge.py``), or are drawn from a seed.  ``eval`` reports a
 checkpoint's val and test rel-L2 (for NS-2D, per step and per trajectory;
 for NS-3D, over the full field and per step).  ``generate --task darcy``
-writes ``coeff`` and ``sol`` to a ``.mat`` file; ``generate --task ns``
+writes ``coeff`` and ``sol`` to a ``.mat`` file and prints its solve (ms,
+CG iterations, final residual); ``generate --task ns``
 writes ``a{i}`` (the initial vorticity), ``u{i}`` (the recorded
 trajectory) and ``t{i}`` (its times) per batch of 20, compressed.
 
 ``UNO_TPU_TORCH_DFT=1`` runs the spectral transforms as partial-DFT matmuls
-(``ops/spectral.py``) instead of FFTs.  Every entry point turns TF32 and
-cuBLAS's reduced-precision bf16 reductions off and states it in its output.
-The NS-3D ops have no partial-DFT path yet: under ``UNO_TPU_TORCH_DFT=1``
-an NS-3D preset raises ``NotImplementedError``.
+(``ops/spectral.py``) instead of FFTs, for the 2-D and the 3-D presets.
+Every entry point turns TF32 and cuBLAS's reduced-precision bf16 reductions
+off and states it in its output.
 """
 
 from __future__ import annotations
@@ -215,13 +218,28 @@ def _load_ns_mat(path, preset):
     return (ta[:i1], tu[:i1], ta[i1:], tu[i1:], sa, su)
 
 
+def _load_darcy_mat(paths, preset):
+    """The preset's split from Darcy ``.mat`` files, as ``uno_tpu``'s cli
+    reads them: one file gives train and val from its first ntrain + nval
+    samples and test from its last ntest; two or more go through the
+    reference's multi-file recipe, permuted by the preset's seed."""
+    from uno_tpu_torch.data.loaders import load_darcy, load_darcy_multi
+
+    if len(paths) > 1:
+        return load_darcy_multi(paths, preset.ntrain, preset.nval, preset.ntest,
+                                sub=preset.sub, seed=preset.train.seed)
+    xt, yt, xs, ys = load_darcy(preset.sub, preset.ntrain + preset.nval, preset.ntest,
+                                paths[0])
+    i1 = preset.ntrain
+    return (xt[:i1], yt[:i1], xt[i1:], yt[i1:], xs, ys)
+
+
 def _load_data(args, preset, device):
     """The preset's six-array split from ``--data``, ``--data-cache`` and
     ``--generate``, the same way for train, predict and eval."""
     if args.data and not args.generate:
         if preset.task == "darcy":
-            raise SystemExit("--data with a Darcy preset is not ported yet "
-                             "(ROADMAP.md Queue 1 item 9): use --data-cache or --generate")
+            return _load_darcy_mat(args.data, preset)
         return _load_ns_mat(args.data[0], preset)
     if not args.generate and not args.data_cache:
         raise SystemExit("pass --data-cache with a split npz, or --generate")
@@ -434,8 +452,15 @@ def cmd_generate(args) -> int:
     if args.task == "darcy":
         from uno_tpu_torch.data.darcy_solver import generate_darcy_batch
 
-        a, p = generate_darcy_batch(gen, args.n, args.size or 421, device=device)
-        scipy.io.savemat(args.out, {"coeff": a.cpu().numpy(), "sol": p.cpu().numpy()})
+        info = {}
+        t0 = time.perf_counter()
+        a, p = generate_darcy_batch(gen, args.n, args.size or 421, device=device, info=info)
+        a, p = a.cpu().numpy(), p.cpu().numpy()  # the copy to host waits for the solve
+        ms = (time.perf_counter() - t0) * 1e3
+        scipy.io.savemat(args.out, {"coeff": a, "sol": p})
+        print(json.dumps({"generate": "darcy", "n": args.n, "size": args.size or 421,
+                          "device": str(device), "ms": ms, "cg_iterations": info["iterations"],
+                          "residual": info["residual"]}))
     else:
         mdict = {}
         batches = _ns_trajectories(gen, args.n, args.size or 64, device, visc=args.visc,
@@ -454,8 +479,10 @@ def _add_data_args(p: argparse.ArgumentParser) -> None:
     """The preset, its split and the device: common to train, predict and eval."""
     p.add_argument("--preset", required=True)
     p.add_argument("--data", default=None, nargs="+",
-                   help="NS presets: the generator's .mat file (a{i}, u{i} per batch "
-                        "of 20); the first is read")
+                   help="Darcy presets: .mat files of coeff and sol on the 421 grid (one: "
+                        "first ntrain+nval / last ntest; several: the reference's pooled, "
+                        "seeded multi-file split); NS presets: the generator's .mat file "
+                        "(a{i}, u{i} per batch of 20), the first is read")
     p.add_argument("--data-cache", default=None,
                    help="six-key split npz (uno_tpu's or the port's); with "
                         "--generate it is written if missing")
@@ -490,7 +517,6 @@ def main(argv=None) -> int:
         "train", help="train a Darcy, NS-2D or NS-3D preset's model",
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="Not ported yet, with the ROADMAP.md item that brings each:\n"
-               "  --data for Darcy           Queue 1 item 9 (data loaders)\n"
                "  --data-parallel, --spatial, --tensor-parallel\n"
                "                             Queue 1 item 8 (parallel/)",
     )

@@ -8,8 +8,9 @@ copies of ``uno_tpu``'s (tests/test_torch_guards.py holds them field-for-field
 equal); grid arithmetic uses ``fractions.Fraction`` floors, exactly.
 
 2-D specs (Darcy, NS-2D) and 3-D specs (NS-3D: space contracts through the
-encoder while the time axis expands through the decoder) are ported; 1-D
-specs are not.
+encoder while the time axis expands through the decoder) are interpreted,
+as in ``uno_tpu``, whose model has no 1-D padding mode and so no 1-D spec;
+the 1-D operator layers are in ``nn/layers.py``.
 """
 
 from __future__ import annotations
@@ -94,7 +95,8 @@ class UNOModel(nn.Module):
         super().__init__()
         if spec.ndim not in _PAD_MODES:
             raise NotImplementedError(
-                f"{spec.name}: {spec.ndim}-D models are not ported yet (ROADMAP.md, Queue 1)"
+                f"{spec.name}: uno_tpu's UNOModel interprets 2-D and 3-D specs only, not "
+                f"{spec.ndim}-D (the 1-D operator layers are in nn/layers.py)"
             )
         if spec.pad_mode not in _PAD_MODES[spec.ndim]:
             raise ValueError(

@@ -1,9 +1,10 @@
-"""Operator layers: port of ``uno_tpu/nn/layers.py`` (2-D and 3-D; the
+"""Operator layers: port of ``uno_tpu/nn/layers.py`` (1-, 2- and 3-D; the
 number of spatial dimensions is ``len(modes)``).
 
 * ``SpectralConv``  — truncated-mode Fourier integral operator
-* ``PointwiseOp``   — 1x1 channel conv + resampling: bicubic-antialias in
-  2-D, the Fourier truncation then an (identity) trilinear resize in 3-D
+* ``PointwiseOp``   — 1x1 channel conv + resampling: linear-antialias in
+  1-D, bicubic-antialias in 2-D, the Fourier truncation then an (identity)
+  trilinear resize in 3-D
 * ``OperatorBlock`` — u' = GELU(InstanceNorm(K(u) + W(u)))
 
 Initialisation matches ``uno_tpu``'s distributions, drawn from an explicit
@@ -33,6 +34,7 @@ from uno_tpu_torch.ops.norm import instance_norm
 from uno_tpu_torch.ops.resample import resize
 from uno_tpu_torch.ops.spectral import (
     fourier_truncate_3d,
+    spectral_conv_1d,
     spectral_conv_2d,
     spectral_conv_3d,
     spectral_weight_init,
@@ -69,12 +71,12 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-_SPECTRAL_FNS = {2: spectral_conv_2d, 3: spectral_conv_3d}
-_N_BLOCKS = {2: 2, 3: 4}  # corner blocks of the spectrum: kx signs, or (kx, ky) signs
+_SPECTRAL_FNS = {1: spectral_conv_1d, 2: spectral_conv_2d, 3: spectral_conv_3d}
+_N_BLOCKS = {1: 1, 2: 2, 3: 4}  # corner blocks of the spectrum: none, kx signs, (kx, ky) signs
 
 
 class SpectralConv(nn.Module):
-    """Truncated-mode Fourier integral operator in 2 or 3 dimensions (one
+    """Truncated-mode Fourier integral operator in 1, 2 or 3 dimensions (one
     entry of ``modes`` each); ``out_size`` at call time sets the output
     grid."""
 
@@ -87,13 +89,16 @@ class SpectralConv(nn.Module):
 
     def forward(self, x: torch.Tensor, out_size: Tuple[int, ...]) -> torch.Tensor:
         fn = _SPECTRAL_FNS[len(self.modes)]
+        if len(self.modes) == 1:
+            return fn(x, self.weights, out_size[0], self.modes[0])
         return fn(x, self.weights, tuple(out_size), self.modes)
 
 
 class PointwiseOp(nn.Module):
     """1x1 conv (channel mixing) + resampling to ``out_size``, whose length
-    is the number of spatial dimensions: bicubic antialiased
-    (align_corners=True) in 2-D; in 3-D the Fourier truncation (backward
+    is the number of spatial dimensions: linear antialiased in 1-D and
+    bicubic antialiased in 2-D (both align_corners=True, as matrix tables:
+    torch's interpolate has no 1-D antialias); in 3-D the Fourier truncation (backward
     norm, f32 out) then a trilinear resize (align_corners=True, no
     antialias), the identity once the truncation has set the size."""
 
@@ -112,6 +117,8 @@ class PointwiseOp(nn.Module):
         return y.reshape(b, self.out_codim, *spatial)
 
     def _resize(self, z: torch.Tensor, out_size) -> torch.Tensor:
+        if len(out_size) == 1:
+            return resize(z, out_size, (2,), "linear", True, True)
         if len(out_size) == 2:
             return resize(z, out_size, (2, 3), "cubic", True, True)
         # kept as uno_tpu keeps it; resize skips the axes already at size
@@ -144,7 +151,8 @@ class PointwiseOp(nn.Module):
         # n_in / n_out, so a bias added after it takes that gain, and one
         # added before it gets it from the truncation.  The dtype flow is
         # uno_tpu's: the resize-first branch ends in the conv's dtype; the
-        # conv-first branch ends in the resize's, f32 after a 3-D truncation.
+        # conv-first branch ends in the resize's, f32 after a 3-D truncation
+        # on the FFT path (the DFT path keeps bf16 through it).
         n_in = math.prod(in_grid)
         n_out = math.prod(out_size)
         conv_first = n_in * self.in_codim * self.out_codim + resize_flops(self.out_codim)

@@ -1,6 +1,6 @@
-"""Spectral (Fourier) integral operators: port of the 2-D and 3-D convs and
-the 3-D Fourier truncation of ``uno_tpu/ops/spectral.py``.  The 2-D conv
-runs on both of its transform paths, the 3-D ops on the FFT path only.
+"""Spectral (Fourier) integral operators: port of the 1-, 2- and 3-D convs
+and the 3-D Fourier truncation of ``uno_tpu/ops/spectral.py``, each on both
+of its transform paths.
 
 Behavioural contract, as in ``uno_tpu``:
 
@@ -24,10 +24,10 @@ None, by the environment variable ``UNO_TPU_TORCH_DFT=1``:
   einsum against a table of ``ops/dft.py`` on (re, im)-plane data, and the
   contraction is one einsum against a 2x2 block weight tensor.  A bf16
   input runs with bf16 operands and f32 accumulation and gives a bf16
-  output; anything else computes in f32.  Its backward is written by hand as
-  the mirrored chain of transposed stages (``_DFTConv2d``).  The 3-D conv
-  and truncation raise ``NotImplementedError`` on this path: their DFT
-  forms are not ported yet (ROADMAP.md Queue 1, the 3-D partial-DFT path).
+  output; anything else computes in f32.  The backward of each conv and of
+  the truncation is written by hand as the mirrored chain of transposed
+  stages (``_DFTConv1d``, ``_DFTConv2d``, ``_DFTConv3d``,
+  ``_DFTTruncate3d``).
 """
 
 from __future__ import annotations
@@ -139,13 +139,24 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
-def _refuse_dft_3d(name: str) -> None:
+def spectral_conv_1d(x: torch.Tensor, weights: torch.Tensor, out_size: int,
+                     modes: int) -> torch.Tensor:
+    """1D spectral conv.  x: (B, Ci, N) real -> (B, Co, out_size): f32 on
+    the FFT path (float64 for a float64 x); on the DFT path bf16 for a bf16
+    x, else f32.
+
+    weights: (1, Ci, Co, modes) complex64, multiplying the first ``modes``
+    bins of the rfft spectrum.
+    """
+    d1, m1 = out_size, modes
+    if m1 > x.shape[-1] // 2 + 1 or m1 > d1 // 2 + 1:
+        raise ValueError(f"modes1={m1} incompatible with input {x.shape[-1]} / output {d1}")
     if _dft_enabled():
-        raise NotImplementedError(
-            f"{name}: the partial-DFT path of the 3-D spectral ops is not ported yet "
-            "(ROADMAP.md Queue 1, the 3-D partial-DFT path); unset UNO_TPU_TORCH_DFT "
-            "or set_dft_mode(False) for the FFT path"
-        )
+        return _DFTConv1d.apply(x, weights[0], d1, m1)
+    x_ft = torch.fft.rfft(_f32(x), norm="forward")
+    out = complex_mode_matmul(x_ft[:, :, :m1].contiguous(), weights[0])  # (B, Co, m1)
+    tail = out.new_zeros(out.shape[:2] + (d1 // 2 + 1 - m1,))
+    return torch.fft.irfft(torch.cat([out, tail], dim=-1), n=d1, norm="forward")
 
 
 def spectral_conv_3d(
@@ -154,8 +165,9 @@ def spectral_conv_3d(
     out_size: Tuple[int, int, int],
     modes: Tuple[int, int, int],
 ) -> torch.Tensor:
-    """3D spectral conv on the FFT path.  x: (B, Ci, X, Y, T) real -> (B,
-    Co, d1, d2, d3) f32 (float64 for a float64 x).
+    """3D spectral conv.  x: (B, Ci, X, Y, T) real -> (B, Co, d1, d2, d3):
+    f32 on the FFT path (float64 for a float64 x); on the DFT path bf16 for
+    a bf16 x, else f32.
 
     weights: (4, Ci, Co, m1, m2, m3) complex64, the four (kx, ky) sign
     quadrants in the reference's order: (+,+), (-,+), (+,-), (-,-).
@@ -165,11 +177,12 @@ def spectral_conv_3d(
     sx, sy, st = x.shape[-3:]
     if m1 > d1 or m1 > sx or m2 > d2 or m2 > sy or m3 > d3 // 2 + 1 or m3 > st // 2 + 1:
         raise ValueError(f"modes {modes} incompatible with in {tuple(x.shape)} out {out_size}")
-    _refuse_dft_3d("spectral_conv_3d")
 
     w_lo = torch.cat([weights[0], weights[2]], dim=3)
     w_hi = torch.cat([weights[1], weights[3]], dim=3)
     w = torch.cat([w_lo, w_hi], dim=2)  # (Ci, Co, 2*m1, 2*m2, m3)
+    if _dft_enabled():
+        return _DFTConv3d.apply(x, w, (d1, d2, d3), (m1, m2, m3))
     x_ft = torch.fft.rfftn(_f32(x), dim=(-3, -2, -1), norm="forward")
     # the four corners as one (B, Ci, 2*m1, 2*m2, m3) block laid out
     # [[(+,+), (+,-)], [(-,+), (-,-)]], so one contraction covers all
@@ -207,9 +220,9 @@ def _truncate_mask(sx: int, sy: int, st: int, m1: int, m2: int, m3: int, device)
 
 
 def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int]) -> torch.Tensor:
-    """Low-pass the spectrum as the reference's 3-D pointwise op does, on
-    the FFT path.  x: (..., X, Y, T) -> (..., d1, d2, d3), f32 whatever the
-    input dtype (but float64).
+    """Low-pass the spectrum as the reference's 3-D pointwise op does.  x:
+    (B, C, X, Y, T) -> (B, C, d1, d2, d3): on the FFT path f32 whatever the
+    input dtype (but float64); on the DFT path bf16 for a bf16 x, else f32.
 
     As in ``uno_tpu``, a reference quirk is kept: the default (backward)
     norm, an unnormalised rfftn and an irfftn that divides by the output
@@ -218,10 +231,12 @@ def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int]) -> torc
     indices, so their net effect is a 0/1 mask over the union of the
     quadrant slices, ``m = d // 2`` per axis, at the input's indices; the
     irfftn to ``out_size`` then trims or zero-pads the trailing entries of
-    each axis.
+    each axis.  The DFT path computes the same map from the kept bins
+    alone (``_DFTTruncate3d``).
     """
     d1, d2, d3 = out_size
-    _refuse_dft_3d("fourier_truncate_3d")
+    if _dft_enabled():
+        return _DFTTruncate3d.apply(x, (d1, d2, d3))
     ft = torch.fft.rfftn(_f32(x), dim=(-3, -2, -1))
     mask = _truncate_mask(*ft.shape[-3:], d1 // 2, d2 // 2, d3 // 2, ft.device)
     return torch.fft.irfftn(ft * mask, s=(d1, d2, d3), dim=(-3, -2, -1))
@@ -354,3 +369,122 @@ class _DFTConv2d(torch.autograd.Function):
             gx = dft.t_fwd_real(gxp, -2, h, _rows(m1, h)).to(xdtype)
         gw = _cmul_grad_w(xp, gout).to(w.dtype) if ctx.needs_input_grad[1] else None
         return gx, gw, None, None
+
+
+class _DFTConv1d(torch.autograd.Function):
+    """The 1-D conv on the partial-DFT path (``uno_tpu``'s ``_dft_conv1d``).
+
+    x: (B, Ci, N); w: (Ci, Co, m1) complex.  The backward is the chain of
+    ``dft.t_*`` transposes and returns the weight's gradient in torch's
+    complex convention."""
+
+    @staticmethod
+    def forward(ctx, x, w, d1, m1):
+        n = x.shape[-1]
+        xp = dft.fwd_real(_dft_in(x), -1, n, range(m1))  # (B, Ci, 2, m1)
+        ctx.save_for_backward(xp, w)
+        ctx.geometry = (d1, m1, n, x.dtype)
+        return dft.inv_real(_cmul_planes(xp, w), -1, d1)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        d1, m1, n, xdtype = ctx.geometry
+        gout = dft.t_inv_real(_dft_in(g), -1, m1, d1)
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gx = dft.t_fwd_real(_cmul_planes_t(gout, w), -1, n, range(m1)).to(xdtype)
+        gw = _cmul_grad_w(xp, gout).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw, None, None
+
+
+class _DFTConv3d(torch.autograd.Function):
+    """The 3-D conv on the partial-DFT path (``uno_tpu``'s ``_dft_conv3d``).
+
+    x: (B, Ci, X, Y, T); w: (Ci, Co, 2*m1, 2*m2, m3) complex, the four
+    quadrant blocks laid out as the FFT path's.  The time axis is
+    transformed first (real to complex), then kx and ky at the kept rows;
+    where 2*m > d the positive blocks keep their first d - m rows, as on
+    the FFT path.  The backward is the mirrored chain of ``dft.t_*``
+    transposes and returns the weight's gradient in torch's complex
+    convention."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_size, modes):
+        (d1, d2, d3), (m1, m2, m3) = out_size, modes
+        sx, sy, t_in = x.shape[-3:]
+        xp = dft.fwd_real(_dft_in(x), -1, t_in, range(m3))
+        xp = dft.fwd_cplx(xp, -3, sx, _rows(m1, sx))
+        xp = dft.fwd_cplx(xp, -2, sy, _rows(m2, sy))  # (B, Ci, 2, 2*m1, 2*m2, m3)
+        out = _cmul_planes(xp, w)
+        (n_x, idx_x), (n_y, idx_y) = _keep_idx(m1, d1), _keep_idx(m2, d2)
+        kept = _slice_pm(_slice_pm(out, -3, m1, n_x), -2, m2, n_y)
+        yp = dft.inv_cplx(dft.inv_cplx(kept, -3, d1, idx_x), -2, d2, idx_y)
+        ctx.save_for_backward(xp, w)
+        ctx.geometry = (out_size, modes, (sx, sy, t_in), x.dtype)
+        return dft.inv_real(yp, -1, d3)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        (d1, d2, d3), (m1, m2, m3), (sx, sy, t_in), xdtype = ctx.geometry
+        (n_x, idx_x), (n_y, idx_y) = _keep_idx(m1, d1), _keep_idx(m2, d2)
+        gyp = dft.t_inv_real(_dft_in(g), -1, m3, d3)
+        gkept = dft.t_inv_cplx(dft.t_inv_cplx(gyp, -2, d2, idx_y), -3, d1, idx_x)
+        gout = _unslice_pm(_unslice_pm(gkept, -2, m2, n_y), -3, m1, n_x)
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gxp = dft.t_fwd_cplx(_cmul_planes_t(gout, w), -2, sy, _rows(m2, sy))
+            gxp = dft.t_fwd_cplx(gxp, -3, sx, _rows(m1, sx))
+            gx = dft.t_fwd_real(gxp, -1, t_in, range(m3)).to(xdtype)
+        gw = _cmul_grad_w(xp, gout).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw, None, None
+
+
+def _truncate_bins(shape, out_size):
+    """The kept bins of ``fourier_truncate_3d``'s DFT path per axis, at
+    their original indices: the union of the quadrant slices (m = d // 2),
+    filtered by the irfftn's trailing trim to the output length.  Negative
+    frequencies are not relocated when the input is smaller than the
+    output, as in the reference's backward-norm quirk."""
+    (sx, sy, t_full), (d1, d2, d3) = shape, out_size
+    m1, m2, m3 = d1 // 2, d2 // 2, d3 // 2
+    kx = tuple(k for k in range(sx) if (k < m1 or k >= sx - m1) and k < d1)
+    ky = tuple(k for k in range(sy) if (k < m2 or k >= sy - m2) and k < d2)
+    kt = tuple(range(min(m3, t_full // 2 + 1, d3 // 2 + 1)))
+    return kx, ky, kt
+
+
+class _DFTTruncate3d(torch.autograd.Function):
+    """``fourier_truncate_3d`` on the partial-DFT path (``uno_tpu``'s DFT
+    branch): unscaled forward transforms at the kept bins, inverse
+    transforms divided by the output sizes (the backward norm).  The map is
+    linear, so the backward saves nothing: it is the chain of ``dft.t_*``
+    transposes in reverse."""
+
+    @staticmethod
+    def forward(ctx, x, out_size):
+        d1, d2, d3 = out_size
+        sx, sy, t_full = x.shape[-3:]
+        kx, ky, kt = _truncate_bins((sx, sy, t_full), out_size)
+        xp = dft.fwd_real(_dft_in(x), -1, t_full, kt, scaled=False)
+        xp = dft.fwd_cplx(xp, -3, sx, kx, scaled=False)
+        xp = dft.fwd_cplx(xp, -2, sy, ky, scaled=False)
+        yp = dft.inv_cplx(xp, -3, d1, kx, scaled=True)
+        yp = dft.inv_cplx(yp, -2, d2, ky, scaled=True)
+        ctx.geometry = (out_size, (sx, sy, t_full), x.dtype)
+        return dft.inv_real(yp, -1, d3, scaled=True)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (d1, d2, d3), (sx, sy, t_full), xdtype = ctx.geometry
+        kx, ky, kt = _truncate_bins((sx, sy, t_full), (d1, d2, d3))
+        gp = dft.t_inv_real(_dft_in(g), -1, len(kt), d3, scaled=True)
+        gp = dft.t_inv_cplx(gp, -2, d2, ky, scaled=True)
+        gp = dft.t_inv_cplx(gp, -3, d1, kx, scaled=True)
+        gp = dft.t_fwd_cplx(gp, -2, sy, ky, scaled=False)
+        gp = dft.t_fwd_cplx(gp, -3, sx, kx, scaled=False)
+        return dft.t_fwd_real(gp, -1, t_full, kt, scaled=False).to(xdtype), None

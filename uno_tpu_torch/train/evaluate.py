@@ -2,8 +2,8 @@
 ``uno_tpu/train/evaluate.py``).
 
 U-NO's blocks size every internal grid as a ratio of the padded input grid,
-so trained weights evaluate at any resolution.  The super-resolution
-evaluator comes with its slice (ROADMAP.md Queue 1).
+so trained weights evaluate at any resolution: ``evaluate_superres`` holds
+the same weights to the training grid and to a finer one.
 """
 
 from __future__ import annotations
@@ -31,6 +31,17 @@ def evaluate_darcy(model: torch.nn.Module, x: np.ndarray, y: np.ndarray,
             out = model(xb.float()).reshape(xb.shape[0], s, s)
             total += relative_lp_loss(out, yb, reduction="sum")
     return float(total) / n
+
+
+def evaluate_superres(model: torch.nn.Module, x_lo: np.ndarray, y_lo: np.ndarray,
+                      x_hi: np.ndarray, y_hi: np.ndarray,
+                      batch_size: int = 8) -> Dict[str, float]:
+    """Same weights at the training grid and at a finer grid: U-NO's
+    discretisation-invariance contract (``uno_tpu``'s ``evaluate_superres``)."""
+    return {
+        "rel_l2_train_res": evaluate_darcy(model, x_lo, y_lo, batch_size),
+        "rel_l2_super_res": evaluate_darcy(model, x_hi, y_hi, batch_size),
+    }
 
 
 def evaluate_ns2d(model: torch.nn.Module, a: np.ndarray, u: np.ndarray, t_f: int,
