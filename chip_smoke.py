@@ -110,13 +110,42 @@ evaluation; then a 1-D operator block.
    (``[s421-cuda-vs-cpu]``);
 14. a 1-D OperatorBlock (1024 -> 512 points, 64 modes) on the card and the
    CPU, forward and every gradient, f32 and bf16, on both spectral paths,
-   and the three contractions at its shape (``[1d]``, ``[kernels 1d]``).
+   and the three contractions at its shape (``[1d]``, ``[kernels 1d]``);
+15. data parallelism (``uno_tpu_torch.parallel``): ``cli train --preset
+   darcy_s211 --dtype bfloat16 --data-parallel`` as one NCCL rank
+   (``RANK=0 WORLD_SIZE=1``) against the same run without it, losses and
+   final weights within rel 1e-6, both ``step_ms`` medians
+   (``[dp-nccl]``); two ranks on the one card over gloo (NCCL refuses two
+   ranks on one device), started by this script as two processes: darcy_s211
+   uno9 in f32, global batch 16 (8 a rank), 2 epochs, against one process
+   at batch 16 (train loss per epoch within rel 1e-4, final weights rel-L2
+   within 1e-3 per parameter, the ranks' weights equal bit for bit, every
+   dw launch at B = 8: ``[dp]``), then ns3d_t40 bf16, global batch 16, one
+   epoch of 2 steps on the generated NS-3D split (finite losses within rel
+   5e-2 of one process, the ranks' weights equal, each rank's ``step_ms``:
+   ``[dp-ns3d]``); the contractions at the ranks' B = 8 (``[kernels dp]``,
+   ``[kernels dp ns3d]``);
+16. ``cli export`` of darcy_s211 uno9 bf16 at ``--serve-batch 16`` on the
+   card, served from a fresh process that imports only
+   ``uno_tpu_torch.export``: 8 batches of the predict split, outputs within
+   rel 1e-6 of the eager model's, the graph's ``contract`` and
+   ``mlp_head_fwd`` nodes and the process's launch counts, the artifact's
+   MB and ms per batch beside the eager model's; ns3d_t40's forward and an
+   ``ns2d`` rollout step exported and served against eager (``[export]``);
+17. ``cli train --profile-dir`` of a short darcy_s211 run: the trace names
+   the port's kernels (``[profile]``);
+18. ``[predict]`` and ``[ns-train]`` again with every eager forward launch
+   routed through the kernels' ``torch.library`` custom ops, then directly
+   again, and the host time of one call each way (``[custom-ops]``).
 
 Any failed phase raises, and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, and
-the same keys under ``ns2d``, ``ns3d``, ``s421``, ``superres`` and ``1d``);
-the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
-it exits 1 and prints no result.
+the same keys under ``ns2d``, ``ns3d``, ``s421``, ``superres``, ``1d``,
+``dp_nccl``, ``dp``, ``dp_ns3d`` and ``export``); the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
+prints no result.
+
+    python3 chip_smoke.py --dp-rank DIR   # one rank of [dp]/[dp-ns3d] (started by the script)
 """
 
 from __future__ import annotations
@@ -127,11 +156,13 @@ import io
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -155,10 +186,14 @@ from uno_tpu_torch.ops.spectral import (
     spectral_conv_3d,
     spectral_weight_init,
 )
+from uno_tpu_torch.export import export_forward, load_forward
+from uno_tpu_torch.parallel import initialize_from_env, make_mesh
 from uno_tpu_torch.train.checkpoint import CheckpointManager
+from uno_tpu_torch.train.darcy import train_darcy
 from uno_tpu_torch.train.evaluate import evaluate_superres
+from uno_tpu_torch.train.metrics import MetricLogger
 from uno_tpu_torch.train.ns2d import make_rollout
-from uno_tpu_torch.train.ns3d import forecast
+from uno_tpu_torch.train.ns3d import forecast, train_ns3d
 
 PRESET = "darcy_s211"
 S, BATCH, NTEST = 211, 16, 16
@@ -207,6 +242,12 @@ SR_HEAD_SHAPE = (SR_BATCH, 64, S421 * S421, 32, 1)
 ONE_D = (16, 32, 64, 1024, 512, 64)
 ONE_D_CMUL_SHAPES = [(16, 32, 64, 64)]
 DFT3D_CHECK = (2, 4, 8, (64, 64, 13), (48, 48, 13), (20, 20, 4))  # uno3d_t40 block 0, width 4
+DP_WORLD, DP_EPOCHS = 2, 2  # [dp]: two ranks on the one card, darcy_s211 f32, 2 epochs
+DP_CMUL_SHAPES = [(BATCH // DP_WORLD, ci, co, m) for _, ci, co, m in CMUL_SHAPES]
+DP_NS3D_CMUL_SHAPES = [(BATCH // DP_WORLD, ci, co, m) for _, ci, co, m in NS3D_CMUL_SHAPES]
+DP_TRAIN_REL, DP_WEIGHT_REL, DP_NS3D_REL = 1e-4, 1e-3, 5e-2  # [dp], [dp-ns3d] bounds
+DP_NCCL_REL, EXPORT_REL = 1e-6, 1e-6  # [dp-nccl] against no dp; the served artifact
+EXPORT_NS_REL = 1e-5  # tests/test_export.py's round-trip bound
 DFT3D_REL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_torch_cuda.py's DFT bounds
 CMUL_ATOL, HEAD_REL = 1e-4, 1e-5          # the CPU tests' bounds
 HEAD_GX_REL = 4e-3                         # gx is bf16: one ulp
@@ -743,7 +784,7 @@ def phase_ns_predict(tmp: str) -> list:
     return ms
 
 
-def phase_ns_train(tmp: str, dev) -> tuple:
+def phase_ns_train(tmp: str, dev, tag: str = "ns-train") -> tuple:
     """``cli train --preset ns2d --generate``: a generated 32/4/4 split, 3
     epochs of 2 steps of the 40-step rollout with full BPTT, validation on
     epochs 0 and 2; returns (launches, warm ms per step)."""
@@ -766,10 +807,10 @@ def phase_ns_train(tmp: str, dev) -> tuple:
     losses += [records[-1]["test_step_rel_l2"], records[-1]["test_traj_rel_l2"]]
     if (len(epochs) != EPOCHS or [r["epoch"] for r in evaluated] != [0, 2]
             or not np.isfinite(losses).all()):
-        raise AssertionError(f"ns-train: {len(epochs)} epochs, validated "
+        raise AssertionError(f"{tag}: {len(epochs)} epochs, validated "
                              f"{[r['epoch'] for r in evaluated]}, losses {losses}")
     if not epochs[-1]["train_step_rel_l2"] < epochs[0]["train_step_rel_l2"]:
-        raise AssertionError(f"ns-train: loss did not fall: "
+        raise AssertionError(f"{tag}: loss did not fall: "
                              f"{[r['train_step_rel_l2'] for r in epochs]}")
     steps = epochs[-1]["step"]
     evals = len(evaluated) * -(-nval // BATCH) + -(-ntest // BATCH)  # forward-only batches
@@ -779,16 +820,16 @@ def phase_ns_train(tmp: str, dev) -> tuple:
             "cmul_bwd_w": 7 * t_f * steps, "mlp_head_fwd": t_f * (2 * steps + evals),
             "mlp_head_bwd": t_f * steps}
     if launches != want:
-        raise AssertionError(f"ns-train kernel launches {launches}, expected {want} "
+        raise AssertionError(f"{tag} kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
     warm = [ms for r in epochs[1:] for ms in r["step_ms"]]
-    print(f"[ns-train] {NS_PRESET} uno bf16 b{BATCH} T_f={t_f} BPTT: generated {sum(NS_SPLIT)} "
+    print(f"[{tag}] {NS_PRESET} uno bf16 b{BATCH} T_f={t_f} BPTT: generated {sum(NS_SPLIT)} "
           f"trajectories, {steps} steps in {EPOCHS} epochs, train_step_rel_l2 "
           f"{[round(r['train_step_rel_l2'], 5) for r in epochs]}, val_step_rel_l2 "
           f"{[round(r['val_step_rel_l2'], 5) for r in evaluated]}, test step/traj "
           f"{records[-1]['test_step_rel_l2']:.5f}/{records[-1]['test_traj_rel_l2']:.5f}; "
           f"launches {launches}")
-    print(f"[ns-train] ms per step: warm median {statistics.median(warm):.3f} "
+    print(f"[{tag}] ms per step: warm median {statistics.median(warm):.3f} "
           f"(epochs 2-{EPOCHS}: {[round(v, 3) for v in warm]}), first step "
           f"{epochs[0]['step_ms'][0]:.1f}; peak device memory {peak_gb:.3f} GB; wall "
           f"{wall:.1f} s (generation included)")
@@ -1228,6 +1269,427 @@ def phase_1d(dev) -> dict:
     return fft_launches
 
 
+class _Records(MetricLogger):
+    """Keeps the trainer's records instead of printing them."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, record):
+        self.records.append(record)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _load_split(path: str) -> tuple:
+    with np.load(path) as z:
+        return tuple(z[k] for k in cli._SPLIT_KEYS)
+
+
+def _param_rels(got: dict, want: dict) -> dict:
+    """Per-parameter rel-L2 of two state dicts (complex as (re, im))."""
+    real = lambda t: torch.view_as_real(t) if t.is_complex() else t  # noqa: E731
+    return {k: _rel(real(got[k]), real(want[k])) for k in want}
+
+
+def _darcy_want(steps: int, evals: int, heads: bool) -> dict:
+    """uno9's launches over ``steps`` training steps and ``evals`` forward-only
+    batches: 5 contractions a forward, the head under bf16."""
+    h = int(heads)
+    return {"cmul_fwd": 5 * (steps + evals), "cmul_bwd_x": 5 * steps, "cmul_bwd_w": 5 * steps,
+            "mlp_head_fwd": h * (steps + evals), "mlp_head_bwd": h * steps}
+
+
+def phase_dp_nccl(tmp: str) -> dict:
+    """``cli train --data-parallel`` as one NCCL rank (RANK=0, WORLD_SIZE=1)
+    against the same run without it, on phase_train's split: the same losses
+    and final weights; returns the data-parallel run's launches."""
+    data = os.path.join(tmp, "darcy_s211_train.npz")
+    argv = ["train", "--preset", PRESET, "--dtype", "bfloat16", "--epochs", str(EPOCHS),
+            "--device", "cuda", "--data-cache", data, "--ntrain", str(NTRAIN),
+            "--nval", str(NVAL), "--ntest", str(NTEST)]
+    cks = [os.path.join(tmp, n) for n in ("dp_nccl_plain", "dp_nccl")]
+    plain = _run_cli(argv + ["--checkpoint-dir", cks[0]])
+    _zero_launches()
+    with _env(MASTER_ADDR="localhost", MASTER_PORT=_free_port(), RANK=0, WORLD_SIZE=1,
+              LOCAL_RANK=0):
+        dp = _run_cli(argv + ["--data-parallel", "--checkpoint-dir", cks[1]])
+    launches = _launches()
+    if torch.distributed.is_initialized():
+        raise AssertionError("dp-nccl: cli train left its process group initialized")
+    runs = [[r for r in recs if "train_rel_l2" in r] for recs in (plain, dp)]
+    losses = [[r[k] for r in ep for k in ("train_rel_l2", "val_rel_l2")] + [recs[-1]["test_rel_l2"]]
+              for ep, recs in zip(runs, (plain, dp))]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0]))
+    states = [CheckpointManager(ck).restore("train_state")["params"] for ck in cks]
+    rels = _param_rels(states[1], states[0])
+    bitwise = all(torch.equal(states[1][k], states[0][k]) for k in states[0])
+    steps = runs[1][-1]["step"]
+    want = _darcy_want(steps, EPOCHS * -(-NVAL // BATCH) + -(-NTEST // BATCH), heads=True)
+    if (len(losses[1]) != len(losses[0]) or loss_rel > DP_NCCL_REL
+            or max(rels.values()) > DP_NCCL_REL or launches != want):
+        raise AssertionError(f"dp-nccl: losses {losses}, rel {loss_rel}, weights rel "
+                             f"{max(rels.values())} (bound {DP_NCCL_REL}), launches {launches}, "
+                             f"expected {want}")
+    warm = [[ms for r in ep[1:] for ms in r["step_ms"]] for ep in runs]
+    print(f"[dp-nccl] cli train --data-parallel, {PRESET} uno9 bf16 b{BATCH}, one NCCL rank: "
+          f"losses per epoch and test max rel {loss_rel:.3g} of the run without it, final "
+          f"weights max rel-L2 {max(rels.values()):.3g} (bound {DP_NCCL_REL}; "
+          f"{'bit for bit' if bitwise else 'not bit for bit'}); launches {launches}")
+    print(f"[dp-nccl] ms per warm step: data-parallel {_spread(warm[1])}; without "
+          f"{_spread(warm[0])}")
+    return launches
+
+
+def dp_rank_main(out_dir: str, darcy_path: str, ns3d_path: str) -> int:
+    """One rank of ``[dp]`` and ``[dp-ns3d]``, started by ``phase_dp``: darcy_s211
+    uno9 f32 for DP_EPOCHS epochs, then ns3d_t40 bf16 for one epoch, each at
+    global batch 16 on cuda:0, over gloo (NCCL refuses two ranks on one
+    device; gloo stages the card's tensors through the host).  Saves its
+    records, launches, dw batch sizes, step_ms and final weights."""
+    cli._no_tf32()
+    _build.library()
+    if not initialize_from_env("gloo"):
+        raise SystemExit("--dp-rank needs MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK")
+    dp = make_mesh(device="cuda:0")
+    dw_rows = Counter()
+    plain_bwd_w = cmul_k.cmul_bwd_w
+
+    def bwd_w(x, g):  # the autograd backward calls the module's cmul_bwd_w
+        dw_rows[x.shape[0]] += 1
+        return plain_bwd_w(x, g)
+
+    cmul_k.cmul_bwd_w = bwd_w
+    res = {}
+    for task, path, name, epochs, dtype in (("darcy", darcy_path, PRESET, DP_EPOCHS, "float32"),
+                                             ("ns3d", ns3d_path, NS3D_PRESET, 1, "bfloat16")):
+        preset = get_preset(name)
+        model = build_model(preset.model, dtype=dtype, device=dp.device,
+                            generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
+        cfg = dataclasses.replace(preset.train, epochs=epochs)
+        rec = _Records()
+        dw_rows.clear()
+        _zero_launches()
+        if task == "darcy":
+            out = train_darcy(model, *_load_split(path), cfg, logger=rec, dp=dp)
+        else:
+            out = train_ns3d(model, *_load_split(path), cfg, t_f=preset.t_f, logger=rec, dp=dp)
+        torch.cuda.synchronize()
+        res[task] = dict(records=rec.records, launches=_launches(), dw_rows=dict(dw_rows),
+                         step_ms=out["step_ms"],
+                         state={k: v.cpu() for k, v in model.state_dict().items()})
+    torch.save(res, os.path.join(out_dir, f"rank{dp.rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_dp(tmp: str, dev) -> tuple:
+    """Two ranks on the one card (``dp_rank_main``, two processes), then the
+    same two trainings in this process at batch 16; returns rank 0's launches
+    of the Darcy and the NS-3D runs."""
+    out_dir = os.path.join(tmp, "dp")
+    os.makedirs(out_dir)
+    darcy = os.path.join(tmp, "dp_split.npz")
+    _write_split(darcy, np.random.default_rng(11), NTRAIN, NVAL)
+    ns3d = os.path.join(tmp, "ns3d_train.npz")  # phase_ns3d_train's generated split
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(DP_WORLD), LOCAL_RANK="0")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", out_dir,
+                               darcy, ns3d], env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[dp] rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+
+    # the same trainings in one process at batch 16
+    ref = {}
+    for task, path, name, epochs, dtype in (("darcy", darcy, PRESET, DP_EPOCHS, "float32"),
+                                             ("ns3d", ns3d, NS3D_PRESET, 1, "bfloat16")):
+        preset = get_preset(name)
+        model = build_model(preset.model, dtype=dtype, device=dev,
+                            generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
+        cfg = dataclasses.replace(preset.train, epochs=epochs)
+        rec = _Records()
+        if task == "darcy":
+            out = train_darcy(model, *_load_split(path), cfg, logger=rec)
+        else:
+            out = train_ns3d(model, *_load_split(path), cfg, t_f=preset.t_f, logger=rec)
+        ref[task] = dict(records=rec.records, step_ms=out["step_ms"],
+                         state={k: v.cpu() for k, v in model.state_dict().items()})
+
+    for task in ("darcy", "ns3d"):
+        r0, r1 = ranks[0][task], ranks[1][task]
+        if r1["records"] or not all(torch.equal(r0["state"][k], r1["state"][k])
+                                    for k in r0["state"]):
+            raise AssertionError(f"[dp] {task}: rank 1 logged {len(r1['records'])} records, or "
+                                 "the ranks' weights differ")
+    # darcy_s211 f32
+    key = "train_rel_l2"
+    got = [r[key] for r in ranks[0]["darcy"]["records"] if key in r]
+    want = [r[key] for r in ref["darcy"]["records"] if key in r]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    rels = _param_rels(ranks[0]["darcy"]["state"], ref["darcy"]["state"])
+    steps = DP_EPOCHS * (NTRAIN // BATCH)
+    evals = DP_EPOCHS * (NVAL // BATCH) + NTEST // BATCH
+    want_launches = _darcy_want(steps, evals, heads=False)
+    launches = ranks[0]["darcy"]["launches"]
+    dw_rows = [rk["darcy"]["dw_rows"] for rk in ranks]
+    if (len(got) != DP_EPOCHS or len(want) != DP_EPOCHS or loss_rel > DP_TRAIN_REL
+            or max(rels.values()) > DP_WEIGHT_REL or launches != want_launches
+            or any(d != {BATCH // DP_WORLD: 5 * steps} for d in dw_rows)):
+        raise AssertionError(f"[dp] darcy: train losses {got} against {want} (rel {loss_rel}, "
+                             f"bound {DP_TRAIN_REL}), weights max rel-L2 {max(rels.values())} "
+                             f"(bound {DP_WEIGHT_REL}), launches {launches} (expected "
+                             f"{want_launches}), dw rows per launch {dw_rows}")
+    val = [[r["val_rel_l2"] for r in recs if "val_rel_l2" in r]
+           for recs in (ranks[0]["darcy"]["records"], ref["darcy"]["records"])]
+    print(f"[dp] {PRESET} uno9 f32, 2 ranks on one card over gloo, global batch {BATCH} "
+          f"({BATCH // DP_WORLD} a rank), {DP_EPOCHS} epochs of {NTRAIN // BATCH} steps: "
+          f"train_rel_l2 {[round(v, 6) for v in got]} against one process's "
+          f"{[round(v, 6) for v in want]} (max rel {loss_rel:.3g}, bound {DP_TRAIN_REL}); val "
+          f"{[round(v, 6) for v in val[0]]} against {[round(v, 6) for v in val[1]]}; final "
+          f"weights max rel-L2 {max(rels.values()):.3g} (bound {DP_WEIGHT_REL}); the ranks' "
+          f"weights equal bit for bit; rank 0 launches {launches}, dw rows per launch "
+          f"{dw_rows}; wall {wall:.1f} s for both ranks (start-up included)")
+    for r, rk in enumerate(ranks):
+        warm = [ms for ep in rk["darcy"]["step_ms"][1:] for ms in ep]
+        print(f"[dp] rank {r} ms per warm step (two processes sharing one card): "
+              f"{_spread(warm)}")
+    ref_warm = [ms for ep in ref["darcy"]["step_ms"][1:] for ms in ep]
+    print(f"[dp] one process at batch {BATCH}, ms per warm step: {_spread(ref_warm)}")
+
+    # ns3d_t40 bf16, one epoch
+    key = "train_step_rel_l2"
+    got = [r[key] for r in ranks[0]["ns3d"]["records"] if key in r]
+    want = [r[key] for r in ref["ns3d"]["records"] if key in r]
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    finite = all(np.isfinite(v) for r in ranks[0]["ns3d"]["records"] for v in r.values()
+                 if isinstance(v, float))
+    steps = NS3D_SPLIT[0] // BATCH
+    ns_launches = ranks[0]["ns3d"]["launches"]
+    want_ns = {"cmul_fwd": 7 * steps, "cmul_bwd_x": 7 * steps, "cmul_bwd_w": 7 * steps,
+               "mlp_head_fwd": 0, "mlp_head_bwd": 0}  # val and test below the batch: none
+    if len(got) != 1 or not finite or rel > DP_NS3D_REL or ns_launches != want_ns:
+        raise AssertionError(f"[dp-ns3d]: train step loss {got} against {want} (rel {rel}, "
+                             f"bound {DP_NS3D_REL}), finite {finite}, launches {ns_launches} "
+                             f"(expected {want_ns})")
+    print(f"[dp-ns3d] {NS3D_PRESET} uno3d_t40 bf16, 2 ranks on one card over gloo, global "
+          f"batch {BATCH}, 1 epoch of {steps} steps: train_step_rel_l2 {got[0]:.6f} against one "
+          f"process's {want[0]:.6f} (rel {rel:.3g}, bound {DP_NS3D_REL}); val and test splits "
+          f"of {NS3D_SPLIT[1]} under the batch evaluate nothing (0.0, as under uno_tpu's mesh); "
+          f"the ranks' weights equal bit for bit; rank 0 launches {ns_launches}")
+    for r, rk in enumerate(ranks):
+        print(f"[dp-ns3d] rank {r} step_ms (two processes sharing one card): "
+              f"{[round(v, 3) for v in rk['ns3d']['step_ms'][0]]}; one process: "
+              f"{[round(v, 3) for v in ref['ns3d']['step_ms'][0]]}")
+    return launches, ns_launches
+
+
+_SERVE_CODE = r"""
+import json, sys, time
+import numpy as np
+import torch
+from uno_tpu_torch.export import load_forward
+from uno_tpu_torch.ops.kernels import cmul, mlp_head
+
+path, xs_path, out_path, batch = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+fn = load_forward(path)
+nodes = {}
+for n in fn.graph.nodes:
+    if str(n.target).startswith("uno_tpu_torch."):
+        nodes[str(n.target)] = nodes.get(str(n.target), 0) + 1
+xs = np.load(xs_path)
+dev = torch.device("cuda", 0)
+with torch.inference_mode():
+    fn(torch.from_numpy(xs[:batch]).to(dev)).cpu()  # warm: cuFFT plans, allocator
+    for counts in (cmul.LAUNCHES, mlp_head.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    ms, outs = [], []
+    for i in range(0, len(xs), batch):
+        t0 = time.perf_counter()
+        outs.append(fn(torch.from_numpy(xs[i:i + batch]).to(dev)).cpu().numpy())
+        ms.append((time.perf_counter() - t0) * 1e3)
+np.save(out_path, np.concatenate(outs))
+mods = sorted(m for m in sys.modules if m.startswith((
+    "uno_tpu_torch.models", "uno_tpu_torch.nn", "uno_tpu_torch.ops.spectral",
+    "uno_tpu_torch.train", "jax", "flax", "uno_tpu.")))
+print(json.dumps({"ms": ms, "nodes": nodes, "modules": mods, "launches": {
+    **{"cmul_" + k: v for k, v in cmul.LAUNCHES.items()},
+    **{"mlp_head_" + k: v for k, v in mlp_head.LAUNCHES.items()}}}))
+"""
+CONTRACT_OP, HEAD_OP = "uno_tpu_torch.contract.default", "uno_tpu_torch.mlp_head_fwd.default"
+
+
+def phase_export(tmp: str, dev) -> dict:
+    """``cli export`` of darcy_s211 uno9 bf16 at batch 16, served by a fresh
+    process that imports only ``uno_tpu_torch.export``; then ns3d_t40's
+    forward and an ns2d rollout step exported and served in this process.
+    Returns the serving process's launches."""
+    art, xs_path, out_path = (os.path.join(tmp, n) for n in ("uno9.pt2", "xs.npy", "ys.npy"))
+    t0 = time.perf_counter()
+    report = _run_cli(["export", "--preset", PRESET, "--dtype", "bfloat16", "--init-seed", "0",
+                       "--serve-batch", str(BATCH), "--out", art, "--device", "cuda"])[-1]
+    export_s = time.perf_counter() - t0
+    with np.load(os.path.join(tmp, "darcy_s211.npz")) as z:  # phase_predict's test split
+        xs = z["test_a"]
+    np.save(xs_path, xs)
+    proc = subprocess.run([sys.executable, "-c", _SERVE_CODE, art, xs_path, out_path,
+                           str(BATCH)], capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"export: the serving process exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = torch.from_numpy(np.load(out_path))
+
+    model = build_model("uno9", dtype="bfloat16", device=dev,
+                        generator=torch.Generator().manual_seed(0),
+                        **get_preset(PRESET).model_kwargs).eval()
+    eager_ms, outs = [], []
+    with torch.inference_mode():
+        model(torch.from_numpy(xs[:BATCH]).to(dev)).cpu()
+        for i in range(0, len(xs), BATCH):
+            t1 = time.perf_counter()
+            outs.append(model(torch.from_numpy(xs[i : i + BATCH]).to(dev)).cpu())
+            eager_ms.append((time.perf_counter() - t1) * 1e3)
+    rel = _rel(got, torch.cat(outs))
+    batches = len(xs) // BATCH
+    launches = served["launches"]
+    want = {"cmul_fwd": 5 * batches, "cmul_bwd_x": 0, "cmul_bwd_w": 0,
+            "mlp_head_fwd": batches, "mlp_head_bwd": 0}
+    if (rel > EXPORT_REL or served["nodes"] != {CONTRACT_OP: 5, HEAD_OP: 1}
+            or launches != want or served["modules"] or len(served["ms"]) != batches):
+        raise AssertionError(f"export: rel-L2 {rel} (bound {EXPORT_REL}), nodes "
+                             f"{served['nodes']}, launches {launches} (expected {want}), model "
+                             f"modules imported {served['modules']}")
+    print(f"[export] cli export {PRESET} uno9 bf16 --serve-batch {BATCH}: "
+          f"{report['bytes'] / 1e6:.1f} MB in {export_s:.1f} s; graph nodes {served['nodes']}; "
+          f"a fresh process importing only uno_tpu_torch.export served {batches} batches, "
+          f"launches {launches}, no model-building module imported; output rel-L2 {rel:.3g} "
+          f"against the eager model (bound {EXPORT_REL})")
+    print(f"[export] ms per batch of {BATCH}, host to host: exported {_spread(served['ms'])}; "
+          f"eager {_spread(eager_ms)}")
+
+    g = torch.Generator().manual_seed(12)
+    for name, shape, nodes in ((NS3D_PRESET, (BATCH, NS_S, NS_S, 10, 1), {CONTRACT_OP: 7}),
+                               (NS_PRESET, (BATCH, NS_S, NS_S, 10), {CONTRACT_OP: 7, HEAD_OP: 1})):
+        p = get_preset(name)
+        model = build_model(p.model, dtype="bfloat16", device=dev,
+                            generator=torch.Generator().manual_seed(0), **p.model_kwargs).eval()
+        x = torch.randn(shape, generator=g).to(dev)
+        data = export_forward(model, x)
+        fn = load_forward(data)
+        found = Counter(str(n.target) for n in fn.graph.nodes
+                        if str(n.target).startswith("uno_tpu_torch."))
+        c0 = _launches()
+        with torch.inference_mode():
+            got, want_y = fn(x), model(x)
+        moved = {k: v - c0[k] for k, v in _launches().items()}
+        rel = _rel(got, want_y)
+        if rel > EXPORT_NS_REL or dict(found) != nodes or moved["cmul_fwd"] != 14:
+            raise AssertionError(f"export {name}: rel-L2 {rel} (bound {EXPORT_NS_REL}), nodes "
+                                 f"{dict(found)}, launches {moved}")
+        print(f"[export] {name} {p.model} bf16 forward {tuple(shape)}: {len(data) / 1e6:.1f} MB, "
+              f"nodes {dict(found)}, served against eager rel-L2 {rel:.3g} (bound "
+              f"{EXPORT_NS_REL}); launches of both {moved}")
+    return launches
+
+
+def phase_profile(tmp: str) -> None:
+    """``cli train --profile-dir``: one epoch of darcy_s211 on phase_checkpoint's
+    generated split; the trace must name the port's kernels."""
+    prof = os.path.join(tmp, "prof")
+    argv = ["train", "--preset", PRESET, "--data-cache", os.path.join(tmp, "generated.npz"),
+            "--ntrain", str(CK_SPLIT[0]), "--nval", str(CK_SPLIT[1]), "--ntest",
+            str(CK_SPLIT[2]), "--dtype", "bfloat16", "--device", "cuda", "--epochs", "1",
+            "--profile-dir", prof]
+    t0 = time.perf_counter()
+    _run_cli(argv)
+    wall = time.perf_counter() - t0
+    files = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"profile: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    found = {k: sum(n for name, n in kernels.items() if k in name)
+             for k in ("contract_kernel", "mlp_head")}
+    if not all(found.values()):
+        raise AssertionError(f"profile: the trace names no {found}; kernels {list(kernels)[:20]}")
+    print(f"[profile] cli train --profile-dir, 1 epoch of {PRESET} uno9 bf16 ({CK_SPLIT[0]} "
+          f"samples): {os.path.getsize(files[0]) / 1e6:.1f} MB trace, {sum(kernels.values())} "
+          f"kernel events of {len(kernels)} names; the port's kernels {found}; wall {wall:.1f} s")
+
+
+def phase_custom_ops(tmp: str, dev, predict_ms: list, ns_train_ms: list) -> None:
+    """``[predict]`` and ``[ns-train]`` with every eager forward launch routed
+    through the kernels' custom ops, then directly again, beside the first
+    direct run; and the host time of one call each way at ns2d's deepest
+    contraction (enqueue only: 200 calls, one synchronisation after)."""
+    direct = (cmul_k._forward, head_k._forward)
+    routes = {"direct": direct, "custom op": (cmul_k.contract, head_k.mlp_head_fwd)}
+    g = torch.Generator().manual_seed(13)
+    b, ci, co, m = NS_CMUL_SHAPES[3]
+    x = torch.complex(torch.randn(b, ci, m, generator=g), torch.randn(b, ci, m, generator=g))
+    w = torch.complex(torch.randn(ci, co, m, generator=g), torch.randn(ci, co, m, generator=g))
+    x, w = x.to(dev), w.to(dev)
+    host_us = {}
+    for name, (fwd, _) in list(routes.items()) * 2:
+        for _ in range(10):
+            fwd(x, w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fwd(x, w)
+        host_us.setdefault(name, []).append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    res = {"direct": [(predict_ms, ns_train_ms)]}
+    try:
+        for name in ("custom op", "direct"):
+            cmul_k._forward, head_k._forward = routes[name]
+            p = phase_predict(tmp, f"custom-ops predict, {name}")
+            _, t = phase_ns_train(tmp, dev, f"custom-ops ns-train, {name}")
+            res[name] = res.get(name, []) + [(p, t)]
+    finally:
+        cmul_k._forward, head_k._forward = direct
+    print(f"[custom-ops] host us per contraction call {b}x{ci}x{co}x{m}, enqueue only: direct "
+          f"{[round(v, 2) for v in host_us['direct']]}, through the custom op "
+          f"{[round(v, 2) for v in host_us['custom op']]}")
+    for i, what in enumerate(("predict ms per batch", "ns-train ms per warm step")):
+        parts = [f"{name} run {k + 1} {_spread(runs[i])}" for name in ("direct", "custom op")
+                 for k, runs in enumerate(res[name])]
+        print(f"[custom-ops] {what}: " + "; ".join(parts))
+
+
 def main() -> int:
     phase_device()
     dev = torch.device("cuda", 0)
@@ -1239,6 +1701,8 @@ def main() -> int:
     sr_times = phase_kernels(dev, SR_CMUL_SHAPES, SR_HEAD_SHAPE, "kernels s421 superres",
                              forward_only=True)
     oned_times = phase_kernels(dev, ONE_D_CMUL_SHAPES, None, "kernels 1d")
+    dp_times = phase_kernels(dev, DP_CMUL_SHAPES, None, "kernels dp")
+    dp_ns3d_times = phase_kernels(dev, DP_NS3D_CMUL_SHAPES, None, "kernels dp ns3d")
     with tempfile.TemporaryDirectory() as tmp:
         fft_predict_ms = phase_predict(tmp)
         launches, fft_train_ms = phase_train(tmp, dev)
@@ -1247,7 +1711,7 @@ def main() -> int:
         phase_checkpoint(tmp, dev)
         phase_ns_generate(dev)
         phase_ns_predict(tmp)
-        ns_launches, _ = phase_ns_train(tmp, dev)
+        ns_launches, ns_train_ms = phase_ns_train(tmp, dev)
         ns3d_predict_ms = phase_ns3d_predict(tmp)
         ns3d_launches, ns3d_train_ms = phase_ns3d_train(tmp, dev)
         phase_dft3d(tmp, dev, ns3d_predict_ms, ns3d_train_ms)
@@ -1255,6 +1719,11 @@ def main() -> int:
         s421_launches, _ = phase_s421_train(mat, dev)
         phase_s421_predict(tmp, mat)
         sr_launches = phase_superres(tmp, dev, mat)
+        dp_nccl_launches = phase_dp_nccl(tmp)
+        dp_launches, dp_ns3d_launches = phase_dp(tmp, dev)
+        export_launches = phase_export(tmp, dev)
+        phase_profile(tmp)
+        phase_custom_ops(tmp, dev, fft_predict_ms, ns_train_ms)
     phase_grads_cpu_vs_cuda(dev)
     phase_cpu_vs_cuda(dev)
     set_dft_mode(True)
@@ -1271,10 +1740,16 @@ def main() -> int:
     # run); "ns2d", "ns3d", "s421" (darcy_s421: its train run), "superres"
     # (the super-resolution evaluation at 421, forward only) and "1d" (the
     # 1-D block's card check): the same keys at those paths' shapes; a
-    # kernel a path does not run has launches 0 and on_path false
+    # kernel a path does not run has launches 0 and on_path false; "dp_nccl"
+    # (the Darcy train run as one NCCL rank: the Darcy shapes), "dp" and
+    # "dp_ns3d" (rank 0 of the two-rank runs, at B = 8) and "export" (the
+    # served artifact: the Darcy forward shapes)
+    export_times = {k: times[k] for k in ("cmul_fwd", "mlp_head_fwd")}
     paths = {"ns2d": (ns_times, ns_launches), "ns3d": (ns3d_times, ns3d_launches),
              "s421": (s421_times, s421_launches), "superres": (sr_times, sr_launches),
-             "1d": (oned_times, oned_launches)}
+             "1d": (oned_times, oned_launches), "dp_nccl": (times, dp_nccl_launches),
+             "dp": (dp_times, dp_launches), "dp_ns3d": (dp_ns3d_times, dp_ns3d_launches),
+             "export": (export_times, export_launches)}
     kernels = []
     for name, (_, _, src, rep) in KERNELS.items():
         entry = dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1291,4 +1766,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(*sys.argv[2:]))
     sys.exit(main())

@@ -3,7 +3,8 @@ versions, forward and backward, at the Darcy (darcy_s211, darcy_s421 and
 its super-resolution evaluation), NS-2D and NS-3D paths' shapes; uno11, the
 NS-2D rollout, the NS-3D model, the partial-DFT spectral path (2-D and
 3-D), the Darcy and NS solvers and checkpoints on the card against the
-CPU.  Every case needs a CUDA device and skips without one.
+CPU; the kernels' custom ops (``torch.library``) and an exported program
+served on the card.  Every case needs a CUDA device and skips without one.
 
 This file imports no JAX, so it runs where the port runs; tests/conftest.py
 imports JAX, so on a machine without it run
@@ -555,3 +556,82 @@ def test_dft_conv_3d_and_truncation_on_the_card_match_the_cpu(cuda, dft_path, dt
         got, want = (torch.view_as_real(t) if t.is_complex() else t for t in (got, want))
         assert torch.isfinite(got).all()
         assert _rel(got, want) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ci,co,m", DARCY_S211[:2] + NS3D[-1:])
+def test_contract_custom_op_launches_the_kernel(cuda, b, ci, co, m):
+    """``uno_tpu_torch::contract`` on the card: the kernel (one launch),
+    equal to the wrapper's launch bit for bit and to the plain version
+    within the kernel's bound."""
+    g = torch.Generator().manual_seed(b * ci + m)
+    x = _rand_c(g, b, ci, m).to(cuda)
+    w = (_rand_c(g, ci, co, m) / ci**0.5).to(cuda)
+    n0 = C.LAUNCHES["fwd"]
+    got = torch.ops.uno_tpu_torch.contract(x, w)
+    assert C.LAUNCHES["fwd"] == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, C.cmul(x, w))
+    assert float((got - C.cmul_plain(x, w)).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,h,o", [((16, 64, 211 * 211), 32, 1), ((16, 64, 4096), 128, 1)])
+def test_mlp_head_fwd_custom_op_launches_the_kernel(cuda, shape, h, o):
+    g = torch.Generator().manual_seed(h)
+    b, c, n = shape
+    x = torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+    k1, b1 = torch.randn(c, h, generator=g) / c**0.5, torch.randn(h, generator=g) / c**0.5
+    k2, b2 = torch.randn(h, o, generator=g) / h**0.5, torch.randn(o, generator=g) / h**0.5
+    args = [t.to(cuda) for t in (k1, b1, k2, b2)]
+    n0 = H.LAUNCHES["fwd"]
+    got = torch.ops.uno_tpu_torch.mlp_head_fwd(x, *args)
+    assert H.LAUNCHES["fwd"] == n0 + 1 and got.is_contiguous()
+    torch.cuda.synchronize()
+    assert torch.equal(got, H.mlp_head(x, *args))
+    assert _rel(got, H.mlp_head_plain(x, *args)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_exported_uno9_serves_through_the_kernels_on_the_card(cuda, tmp_path):
+    """uno9 bf16 exported on the CPU, moved to the card on load: it launches
+    the kernels (5 contractions and the head per call) and matches the eager
+    model on the card."""
+    from uno_tpu_torch.export import export_forward, load_forward
+
+    kw = dict(in_width=3, width=8, pad=1)
+    cpu = build_model("uno9", dtype="bfloat16", generator=torch.Generator().manual_seed(0), **kw)
+    x = torch.randn(2, 85, 85, 1, generator=torch.Generator().manual_seed(1))
+    path = str(tmp_path / "m.pt2")
+    export_forward(cpu, x, path=path)
+    served = load_forward(path, device=cuda)
+    card = build_model("uno9", dtype="bfloat16", device=cuda, **kw)
+    card.load_state_dict(cpu.state_dict())
+    c0, h0 = C.LAUNCHES["fwd"], H.LAUNCHES["fwd"]
+    got = served(x.to(cuda))
+    assert (C.LAUNCHES["fwd"] - c0, H.LAUNCHES["fwd"] - h0) == (5, 1)
+    with torch.no_grad():
+        want = card.eval()(x.to(cuda))
+    assert _rel(got, want) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_all_reduce_sum_of_cuda_tensors_over_a_world_of_one(cuda):
+    """The data-parallel bucket path on the card (NCCL, one rank): the loss
+    and a complex and a real gradient come back unchanged, bit for bit."""
+    import torch.distributed as dist
+
+    from uno_tpu_torch.parallel import all_reduce_sum, initialize_from_env, make_mesh
+
+    assert initialize_from_env("nccl", world_size=1, rank=0)
+    try:
+        dp = make_mesh(device=cuda)
+        g = torch.Generator().manual_seed(0)
+        ts = [torch.randn((), generator=g), _rand_c(g, 3, 4, 5), torch.randn(7, generator=g)]
+        ts = [t.to(dp.device) for t in ts]
+        want = [t.clone() for t in ts]
+        all_reduce_sum(dp, ts)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(ts, want))
+    finally:
+        dist.destroy_process_group()

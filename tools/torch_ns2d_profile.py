@@ -14,6 +14,10 @@ calls:
 * serving: the ``cli predict`` batch without its host copies, under
   ``torch.inference_mode()``: for ns2d one 40-step rollout, for ns3d_t40
   one 3-D forward to all 40 steps, for Darcy one forward;
+* exported serving: the same batch through the model's ``torch.export``
+  artifact (``uno_tpu_torch.export``, exported on the card at the batch's
+  shape and loaded back) in place of the eager model: for ns2d the
+  rollout calls the exported step 40 times;
 * training: one step of the preset's trainer, then ComplexAdam: for ns2d
   ``train_ns2d``'s (the checkpointed 40-step rollout and its backward
   through every step), for ns3d_t40 ``train_ns3d``'s (the forward, the
@@ -53,6 +57,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from uno_tpu_torch.configs.presets import get_preset  # noqa: E402
 from uno_tpu_torch.data.batching import num_batches  # noqa: E402
+from uno_tpu_torch.export import export_forward, load_forward  # noqa: E402
 from uno_tpu_torch.models import build_model  # noqa: E402
 from uno_tpu_torch.train.common import make_optimizer  # noqa: E402
 from uno_tpu_torch.losses import relative_lp_loss  # noqa: E402
@@ -159,11 +164,13 @@ def main(argv=None) -> int:
     xx = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(dev)
     yy = torch.from_numpy(rng.standard_normal(y_shape).astype(np.float32)).to(dev)
     opt = make_optimizer(preset.train, num_batches(preset.ntrain, bs), model.parameters())
+    step_in = xx if darcy else xx[..., None] if preset.task == "ns3d" else xx
+    exported = load_forward(export_forward(model, step_in))
 
     if darcy:
-        def serve():
+        def serve(m=model):
             with torch.inference_mode():
-                model(xx)
+                m(xx)
 
         def train_step():
             opt.zero_grad(set_to_none=True)
@@ -173,9 +180,9 @@ def main(argv=None) -> int:
     elif preset.task == "ns2d":
         rollout = make_rollout(model, t_f)
 
-        def serve():
+        def serve(m=model):
             with torch.inference_mode():
-                rollout(xx, torch.zeros_like(yy))
+                make_rollout(m, t_f)(xx, torch.zeros_like(yy))
 
         def train_step():
             opt.zero_grad(set_to_none=True)
@@ -183,9 +190,9 @@ def main(argv=None) -> int:
             loss.backward()
             opt.step()
     else:
-        def serve():
+        def serve(m=model):
             with torch.inference_mode():
-                forecast(model, xx, t_f)
+                forecast(m, xx, t_f)
 
         def train_step():
             opt.zero_grad(set_to_none=True)
@@ -195,7 +202,9 @@ def main(argv=None) -> int:
             with torch.no_grad():
                 step_rel_l2(out, yy)
 
-    for name, fn in (("serving_batch", serve), ("training_step", train_step)):
+    calls = (("serving_batch", serve), ("exported_serving_batch", lambda: serve(exported)),
+             ("training_step", train_step))
+    for name, fn in calls:
         print(json.dumps({"preset": args.preset, "model": preset.model, "dtype": "bfloat16",
                           "batch": bs, "t_f": t_f,
                           **_measure(name, fn, args.reps, args.trace_dir, args.preset)}))

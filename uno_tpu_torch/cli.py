@@ -3,13 +3,17 @@
     python -m uno_tpu_torch.cli train --preset darcy_s211|darcy_s421 \\
         (--data f.mat [g.mat ...] | --data-cache D.npz | --generate [--data-cache D.npz]) \\
         [--dtype bfloat16] [--device cuda] [--epochs N] [--log run.jsonl] \\
-        [--checkpoint-dir CK [--checkpoint-every K] [--resume]]
+        [--checkpoint-dir CK [--checkpoint-every K] [--resume]] \\
+        [--data-parallel] [--profile-dir DIR] [--tensorboard DIR]
     python -m uno_tpu_torch.cli train --preset ns2d|ns3d_t40 \\
         (--data ns.mat | --data-cache D.npz | --generate [--gen-dt DT] [--gen-T T]) ...
     python -m uno_tpu_torch.cli predict --preset darcy_s211|ns2d|ns3d_t40 \\
         (--data ... | --data-cache D.npz | --generate ...) \\
         (--params P.npz | --init-seed N | --checkpoint-dir CK) \\
         --split test --out preds.npz [--dtype bfloat16] [--device cuda]
+    python -m uno_tpu_torch.cli export --preset darcy_s211|ns2d|ns3d_t40 \\
+        (--params P.npz | --init-seed N | --checkpoint-dir CK) --out model.pt2 \\
+        [--serve-batch 16] [--dtype bfloat16] [--device cuda]
     python -m uno_tpu_torch.cli eval --preset darcy_s211|ns2d|ns3d_t40 \\
         (--data ... | --data-cache D.npz | --generate ...) --checkpoint-dir CK
     python -m uno_tpu_torch.cli generate --task darcy --out darcy.mat \\
@@ -29,6 +33,16 @@ rollout with full BPTT) or ``train.ns3d.train_ns3d`` (one 3-D forward from
 the T_in window to all T_f steps), printing one JSON line per epoch and a
 final test line.  With ``--checkpoint-dir`` it saves the best params and
 the training state, and ``--resume`` continues from that state.
+``--data-parallel`` makes the process one rank of a data-parallel run
+(``uno_tpu_torch.parallel``): start one process per rank with torch's
+launcher variables (``torchrun``, or ``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) or ``uno_tpu``'s
+(``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID``); the backend is
+NCCL for ``--device cuda`` (each rank on ``cuda:LOCAL_RANK``) and gloo for
+``--device cpu``; the global batch is ``--batch-size``, split evenly over
+the ranks; rank 0 writes any data cache first, and alone logs and writes
+checkpoints.  ``--profile-dir`` writes a ``torch.profiler`` trace of the
+run there, ``--tensorboard`` a TensorBoard scalar per logged number.
 
 ``--generate`` makes the preset's split with the port's generators on
 ``--device``, from a ``torch.Generator`` seeded with the preset's seed:
@@ -49,8 +63,11 @@ of T_f steps, fed zero targets as ``uno_tpu`` does; for NS-3D the one
 forward to all T_f steps) and writes ``input``, ``pred`` and ``target`` to
 ``--out``, and prints the host time of each batch (``batch_ms``).  Weights
 come from a checkpoint's best params, from an ``.npz`` param tree
-(``uno_tpu_torch/bridge.py``), or are drawn from a seed.  ``eval`` reports a
-checkpoint's val and test rel-L2 (for NS-2D, per step and per trajectory;
+(``uno_tpu_torch/bridge.py``), or are drawn from a seed.  ``export`` writes the
+serving artifact of one input shape (``--serve-batch`` samples at the
+preset's grid) through ``torch.export``, the weights baked in
+(``uno_tpu_torch/export.py``); ``export.load_forward`` serves it.  ``eval``
+reports a checkpoint's val and test rel-L2 (for NS-2D, per step and per trajectory;
 for NS-3D, over the full field and per step).  ``generate --task darcy``
 writes ``coeff`` and ``sol`` to a ``.mat`` file and prints its solve (ms,
 CG iterations, final residual); ``generate --task ns``
@@ -91,7 +108,7 @@ def _build_preset(args):
     train_over = {k: getattr(args, k) for k in _TRAIN_FLAGS
                   if getattr(args, k, None) is not None}
     data_over = {k: getattr(args, k) for k in ("ntrain", "nval", "ntest", "size")
-                 if getattr(args, k) is not None}
+                 if getattr(args, k, None) is not None}
     return dataclasses.replace(
         preset, train=dataclasses.replace(preset.train, **train_over), **data_over
     )
@@ -323,10 +340,14 @@ class _Tee:
 
 def cmd_train(args) -> int:
     """Train a Darcy, NS-2D or NS-3D preset's model; JSONL metrics."""
+    import torch.distributed as dist
+
     from uno_tpu_torch.train.darcy import train_darcy
     from uno_tpu_torch.train.metrics import MetricLogger
     from uno_tpu_torch.train.ns2d import train_ns2d
     from uno_tpu_torch.train.ns3d import train_ns3d
+    from uno_tpu_torch.train.common import barrier
+    from uno_tpu_torch.utils.profiling import trace
 
     device = _device(args.device)
     _no_tf32()
@@ -337,26 +358,59 @@ def cmd_train(args) -> int:
             checkpoint_every=args.checkpoint_every, resume=args.resume))
     elif args.resume:
         raise SystemExit("train --resume needs --checkpoint-dir")
-    data = _load_data(args, preset, device)
-    model = _model(args, preset, device)
-    print(f"precision {json.dumps(_precision_report())}")
-    tee = _Tee(args.log) if args.log else None
+    if args.tensorboard:
+        preset = dataclasses.replace(preset, train=dataclasses.replace(
+            preset.train, log_tensorboard=args.tensorboard))
+    dp, owns_group = None, False
+    if args.data_parallel:
+        from uno_tpu_torch.parallel import initialize_from_env, make_mesh
+
+        owns_group = not dist.is_initialized()
+        initialize_from_env("nccl" if device.type == "cuda" else "gloo")
+        dp = make_mesh(device=device)
+        device = dp.device
+    main = dp is None or dp.main
+    tee = _Tee(args.log) if args.log and main else None
+    logger = None
     try:
-        if preset.task == "darcy":
-            train_darcy(model, *data, preset.train, logger=MetricLogger(tee))
-        else:
-            trainer = train_ns2d if preset.task == "ns2d" else train_ns3d
-            trainer(model, *data, preset.train, t_f=preset.t_f, logger=MetricLogger(tee))
+        if not main:
+            barrier(dp)  # rank 0 writes a missing data cache first
+        data = _load_data(args, preset, device)
+        if main:
+            barrier(dp)
+        model = _model(args, preset, device)
+        if main:  # only rank 0 prints and logs
+            print(f"precision {json.dumps(_precision_report())}")
+            logger = MetricLogger(tee, tensorboard_dir=preset.train.log_tensorboard)
+        with trace(args.profile_dir):
+            if preset.task == "darcy":
+                train_darcy(model, *data, preset.train, logger=logger, dp=dp)
+            else:
+                trainer = train_ns2d if preset.task == "ns2d" else train_ns3d
+                trainer(model, *data, preset.train, t_f=preset.t_f, logger=logger, dp=dp)
     finally:
+        if logger is not None:
+            logger.close()
         if tee is not None:
             tee.close()
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
+
+
+def _load_weights(model, args) -> None:
+    """``--params`` or ``--checkpoint-dir`` into ``model`` (``--init-seed``:
+    the weights it was built with)."""
+    from uno_tpu_torch.bridge import load_npz, params_from_flax
+
+    if args.params:
+        params_from_flax(model, load_npz(args.params))
+    elif args.checkpoint_dir:
+        _restore_best(model, args.checkpoint_dir)
 
 
 def cmd_predict(args) -> int:
     """Batch inference over one split; writes (input, pred, target)."""
-    from uno_tpu_torch.bridge import load_npz, params_from_flax
-
     device = _device(args.device)
     _no_tf32()
     preset = _build_preset(args)
@@ -365,10 +419,7 @@ def cmd_predict(args) -> int:
     a, u = data[split], data[split + 1]
 
     model = _model(args, preset, device, seed=args.init_seed)
-    if args.params:
-        params_from_flax(model, load_npz(args.params))
-    elif args.checkpoint_dir:
-        _restore_best(model, args.checkpoint_dir)
+    _load_weights(model, args)
     model.eval()
 
     if preset.task == "darcy":
@@ -402,6 +453,42 @@ def cmd_predict(args) -> int:
         "dtype": model.spec.dtype, "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "batch_size": bs, "n": int(len(a)), "batch_ms": batch_ms, **_precision_report(),
+    }))
+    return 0
+
+
+def _serve_shape(preset, args) -> tuple:
+    """The model's input shape for ``--serve-batch`` samples, as ``uno_tpu``'s
+    ``cmd_export`` has it: Darcy (B, S, S, 1) at the preset's subsampled
+    421 grid, NS-2D (B, S, S, T_in), NS-3D (B, S, S, T_in, 1); ``--size``
+    sets S."""
+    b = args.serve_batch
+    if preset.task == "darcy":
+        s = args.size or int((421 - 1) / preset.sub) + 1
+        return (b, s, s, 1)
+    s = args.size or preset.size
+    return (b, s, s, preset.t_in) + ((1,) if preset.task == "ns3d" else ())
+
+
+def cmd_export(args) -> int:
+    """The forward at one serving shape as a ``torch.export`` artifact with
+    the weights baked in (``uno_tpu_torch/export.py``)."""
+    from uno_tpu_torch.export import export_forward
+
+    device = _device(args.device)
+    _no_tf32()
+    preset = _build_preset(args)
+    model = _model(args, preset, device, seed=args.init_seed)
+    _load_weights(model, args)
+    sample = torch.zeros(_serve_shape(preset, args), device=device)
+    t0 = time.perf_counter()
+    data = export_forward(model, sample, path=args.out)
+    print(f"wrote {args.out}: {len(data) / 1e6:.1f} MB torch.export artifact for input "
+          f"{tuple(sample.shape)}")
+    print(json.dumps({
+        "export": preset.name, "model": preset.model, "dtype": model.spec.dtype,
+        "device": str(device), "input": list(sample.shape), "bytes": len(data),
+        "seconds": time.perf_counter() - t0, **_precision_report(),
     }))
     return 0
 
@@ -475,9 +562,31 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def _add_model_args(p: argparse.ArgumentParser) -> None:
+    """The preset's model, its dtype and the device."""
+    p.add_argument("--preset", required=True)
+    p.add_argument("--size", type=int, default=None, help="NS presets: the grid")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; a missing CUDA device raises")
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype (bf16 mixed-precision policy: params, "
+                        "optimizer and loss stay f32)")
+    p.add_argument("--seed", type=int, default=None,
+                   help="the preset's seed: weights, batch order, the "
+                        "generator and the data-cache signature")
+
+
+def _add_weight_source(p: argparse.ArgumentParser) -> None:
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--params", help="npz param tree (uno_tpu_torch.bridge)")
+    src.add_argument("--init-seed", type=int,
+                     help="draw random weights from this seed instead")
+    src.add_argument("--checkpoint-dir", help="a training run's best params")
+
+
 def _add_data_args(p: argparse.ArgumentParser) -> None:
     """The preset, its split and the device: common to train, predict and eval."""
-    p.add_argument("--preset", required=True)
+    _add_model_args(p)
     p.add_argument("--data", default=None, nargs="+",
                    help="Darcy presets: .mat files of coeff and sol on the 421 grid (one: "
                         "first ntrain+nval / last ntest; several: the reference's pooled, "
@@ -494,31 +603,26 @@ def _add_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--gen-T", type=float, default=None,
                    help="NS generation horizon in time units (default "
                         "(t_in+t_f)*0.5; the reference uses 50)")
-    p.add_argument("--size", type=int, default=None, help="NS presets: the grid")
-    p.add_argument("--device", default="cuda",
-                   help="torch device; a missing CUDA device raises")
-    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
-                   help="compute dtype (bf16 mixed-precision policy: params, "
-                        "optimizer and loss stay f32)")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--ntrain", type=int, default=None)
     p.add_argument("--nval", type=int, default=None)
     p.add_argument("--ntest", type=int, default=None)
-    p.add_argument("--seed", type=int, default=None,
-                   help="the preset's seed: weights, batch order, the "
-                        "generator and the data-cache signature")
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(prog="uno_tpu_torch")
+    parser = argparse.ArgumentParser(
+        prog="uno_tpu_torch", formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog="Not ported yet, with the ROADMAP.md item that brings it:\n"
+               "  bench                      Queue 1 item 2 (the H100 benchmark)")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser(
         "train", help="train a Darcy, NS-2D or NS-3D preset's model",
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="Not ported yet, with the ROADMAP.md item that brings each:\n"
-               "  --data-parallel, --spatial, --tensor-parallel\n"
-               "                             Queue 1 item 8 (parallel/)",
+               "  --spatial, --tensor-parallel\n"
+               "                             Queue 1 item 8 (spatial decomposition and\n"
+               "                             channel tensor parallelism on DTensor)",
     )
     _add_data_args(p)
     p.add_argument("--epochs", type=int, default=None)
@@ -533,18 +637,31 @@ def main(argv=None) -> int:
                    help="continue from --checkpoint-dir's train_state")
     p.add_argument("--log", default=None,
                    help="append metric JSONL to this file (also printed to stdout)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="run as one rank of a data-parallel job: one process per rank, "
+                        "started with torchrun's variables (MASTER_ADDR, MASTER_PORT, "
+                        "WORLD_SIZE, RANK, LOCAL_RANK) or uno_tpu's (COORDINATOR_ADDRESS, "
+                        "NUM_PROCESSES, PROCESS_ID); NCCL on cuda, gloo on cpu")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the run here")
+    p.add_argument("--tensorboard", default=None,
+                   help="write each logged number as a TensorBoard scalar here")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict", help="batch inference over a data split")
     _add_data_args(p)
-    src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--params", help="npz param tree (uno_tpu_torch.bridge)")
-    src.add_argument("--init-seed", type=int,
-                     help="draw random weights from this seed instead")
-    src.add_argument("--checkpoint-dir", help="a training run's best params")
+    _add_weight_source(p)
     p.add_argument("--split", default="test", choices=["train", "val", "test"])
     p.add_argument("--out", required=True, help="output npz path")
     p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("export", help="the serving artifact of one input shape")
+    _add_model_args(p)
+    _add_weight_source(p)
+    p.add_argument("--out", required=True, help="artifact output path")
+    p.add_argument("--serve-batch", type=int, default=1,
+                   help="batch size of the serving shape")
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("eval", help="a checkpoint's val and test rel-L2")
     _add_data_args(p)

@@ -103,15 +103,25 @@ def _inv_real_T(m: int, n_out: int, scaled: bool) -> np.ndarray:
     return np.stack([w * c, -(w * s)], axis=0)  # (2, m, n_out)
 
 
-@lru_cache(maxsize=256)
-def _device_table(table_fn, args: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """``table_fn(*args)`` as a tensor of ``dtype`` on ``device``, moved once.
+def _build_device_table(table_fn, args: tuple, dtype: torch.dtype,
+                        device: torch.device) -> torch.Tensor:
+    """``table_fn(*args)`` as a tensor of ``dtype`` on ``device``.
 
     Built outside inference mode even when first asked for inside it: a
     cached inference tensor could not be used by a later backward in the
     same process (serving, then training)."""
     with torch.inference_mode(False):
         return torch.from_numpy(table_fn(*args)).to(device=device, dtype=dtype)
+
+
+# moved once per process; while torch.export traces, tensors are fake, and a
+# table built then is not cached (the trace records it as a constant)
+_cached_device_table = lru_cache(maxsize=256)(_build_device_table)
+
+
+def _device_table(table_fn, args: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    build = _build_device_table if torch.compiler.is_exporting() else _cached_device_table
+    return build(table_fn, args, dtype, device)
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -22,6 +22,13 @@ torch's (conjugate-Wirtinger) convention, the conjugates of ``jax.grad``'s:
 ``gx = g @ conj(w)``, ``gw = conj(x) @ g``.  Otherwise (``no_grad``,
 ``inference_mode``) it calls the forward alone and saves nothing.
 
+The forward is also the custom op ``uno_tpu_torch::contract``
+(``torch.library``), so that ``torch.export`` records it as one node of the
+graph and an exported program runs it: the CUDA kernel on the card, the
+plain version on the CPU.  Only tracing goes through the op
+(``torch.compiler.is_exporting()``); eager calls launch directly, because
+the op's Python dispatch adds host time to every call (PERF.md §6).
+
 A tensor on the CPU goes to the plain versions (complex64, or complex128 for
 ``gradcheck``); a CUDA tensor goes to the kernels.
 """
@@ -155,10 +162,14 @@ def _launch(entry: str, key: str, a, b, out_shape, bsz, ci, co, m):
     return out
 
 
-def _cmul_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _validate_fwd(x: torch.Tensor, w: torch.Tensor) -> None:
     _validate("cmul", x, w)
     if x.shape[1] != w.shape[0] or x.shape[2] != w.shape[2]:
         raise ValueError(f"cmul shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}")
+
+
+def _cmul_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _validate_fwd(x, w)
     if x.device.type == "cpu":
         return cmul_plain(x, w)
     (b, ci, m), co = x.shape, w.shape[1]
@@ -187,11 +198,30 @@ def cmul_bwd_w(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return _launch("uno_cmul_bwd_w", "bwd_w", x, g, (ci, co, m), b, ci, co, m)
 
 
+@torch.library.custom_op("uno_tpu_torch::contract", mutates_args=())
+def contract(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward contraction as a custom op: the kernel for a CUDA
+    tensor, the plain version for a CPU one."""
+    return _cmul_fwd(x, w)
+
+
+@contract.register_fake
+def _contract_fake(x, w):
+    _validate_fwd(x, w)
+    return x.new_empty((x.shape[0], w.shape[1], x.shape[2]))
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if torch.compiler.is_exporting():
+        return contract(x, w)
+    return _cmul_fwd(x, w)
+
+
 class _CMul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return _cmul_fwd(x, w)
+        return _forward(x, w)
 
     @staticmethod
     @once_differentiable
@@ -207,4 +237,4 @@ def cmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, Ci, M) complex64, w (Ci, Co, M) complex64 -> (B, Co, M)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _CMul.apply(x, w)
-    return _cmul_fwd(x, w)
+    return _forward(x, w)

@@ -22,6 +22,11 @@ grad it runs as a ``torch.autograd.Function`` that saves ``(x, k1, b1, k2)``
 (as ``_fused_fwd`` does) and whose backward is ``mlp_head_bwd``.  Otherwise
 it calls the forward alone and saves nothing.
 
+The forward is also the custom op ``uno_tpu_torch::mlp_head_fwd``
+(``torch.library``), so that ``torch.export`` records it as one node of the
+graph; as for ``cmul.contract``, only tracing goes through it, and eager
+calls launch directly.
+
 A tensor on the CPU goes to the plain versions; a CUDA tensor goes to the
 kernels.
 """
@@ -304,11 +309,41 @@ def _bwd_launch(x, g, k1, b1, k2):
     return gx, gk1, gb1, gk2, gb2
 
 
+@torch.library.custom_op("uno_tpu_torch::mlp_head_fwd", mutates_args=())
+def mlp_head_fwd(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
+                 b2: torch.Tensor) -> torch.Tensor:
+    """The head's forward on a flat (B, C, N) x as a custom op: the kernel
+    for a CUDA tensor, the plain version for a CPU one."""
+    _validate_flat(x, k1, b1, k2, b2)
+    return _mlp_head_fwd(x, k1, b1, k2, b2).contiguous()
+
+
+def _validate_flat(x, k1, b1, k2, b2) -> None:
+    _validate(x, k1, b1, k2, b2)
+    if x.ndim != 3:
+        raise ValueError(f"mlp_head_fwd takes a flat (B, C, N) x, got {tuple(x.shape)}")
+
+
+@mlp_head_fwd.register_fake
+def _mlp_head_fwd_fake(x, k1, b1, k2, b2):
+    _validate_flat(x, k1, b1, k2, b2)
+    bsz, _, n = x.shape
+    h, o = k2.shape
+    fwd_plan(bsz, x.shape[1], n, h, o)  # raises for a head the kernel does not take
+    return x.new_empty((bsz, o, n), dtype=torch.float32)
+
+
+def _forward(x, k1, b1, k2, b2):
+    if torch.compiler.is_exporting():
+        return mlp_head_fwd(x, k1, b1, k2, b2)
+    return _mlp_head_fwd(x, k1, b1, k2, b2)
+
+
 class _MLPHead(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, k1, b1, k2, b2):
         ctx.save_for_backward(x, k1, b1, k2)
-        return _mlp_head_fwd(x, k1, b1, k2, b2)
+        return _forward(x, k1, b1, k2, b2)
 
     @staticmethod
     @once_differentiable
@@ -327,5 +362,5 @@ def mlp_head(x, k1, b1, k2, b2):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, k1, b1, k2, b2)):
         out = _MLPHead.apply(xf, k1, b1, k2, b2)
     else:
-        out = _mlp_head_fwd(xf, k1, b1, k2, b2)
+        out = _forward(xf, k1, b1, k2, b2)
     return out.reshape((bsz, -1) + spatial)

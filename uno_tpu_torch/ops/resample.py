@@ -103,9 +103,8 @@ def resize_matrix(
     return m.astype(np.float32)
 
 
-@lru_cache(maxsize=256)
-def _table(n_in, n_out, kernel, align_corners, antialias, device, dtype):
-    """``resize_matrix`` as a tensor on ``device``, built once per process.
+def _build_table(n_in, n_out, kernel, align_corners, antialias, device, dtype):
+    """``resize_matrix`` as a tensor on ``device``.
 
     Built outside inference mode even when first asked for inside it: a
     cached inference tensor could not be saved for a later backward in the
@@ -113,6 +112,11 @@ def _table(n_in, n_out, kernel, align_corners, antialias, device, dtype):
     wm = resize_matrix(n_in, n_out, kernel, align_corners, antialias)
     with torch.inference_mode(False):
         return torch.from_numpy(wm).to(device=device, dtype=dtype)
+
+
+# built once per process; while torch.export traces, tensors are fake, and
+# a table built then is not cached (the trace records it as a constant)
+_table = lru_cache(maxsize=256)(_build_table)
 
 
 def resize(
@@ -139,7 +143,8 @@ def resize(
         n_in = x.shape[ax]
         if n_in == out_size:
             continue
-        wm = _table(n_in, out_size, kernel, align_corners, antialias, x.device, cdt)
+        table = _build_table if torch.compiler.is_exporting() else _table
+        wm = table(n_in, out_size, kernel, align_corners, antialias, x.device, cdt)
         xc = x.to(cdt)
         if ax == x.ndim - 1:
             x = torch.matmul(xc, wm.t())

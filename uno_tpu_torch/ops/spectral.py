@@ -205,8 +205,7 @@ def spectral_conv_3d(
     return torch.fft.irfftn(out_ft, s=(d1, d2, d3), dim=(-3, -2, -1), norm="forward")
 
 
-@lru_cache(maxsize=64)
-def _truncate_mask(sx: int, sy: int, st: int, m1: int, m2: int, m3: int, device):
+def _build_truncate_mask(sx: int, sy: int, st: int, m1: int, m2: int, m3: int, device):
     """The 0/1 mask over the union of the four quadrant slices of an (sx, sy,
     st) rfftn spectrum, boolean, on ``device``; built outside inference mode so a
     later backward may save it."""
@@ -217,6 +216,16 @@ def _truncate_mask(sx: int, sy: int, st: int, m1: int, m2: int, m3: int, device)
         keep_t = it < m3
         mask = keep_x[:, None, None] & keep_y[None, :, None] & keep_t[None, None, :]
         return mask.to(device=device)
+
+
+# built once per process; while torch.export traces, tensors are fake, and a
+# mask built then is not cached (the trace records it as a constant)
+_cached_truncate_mask = lru_cache(maxsize=64)(_build_truncate_mask)
+
+
+def _truncate_mask(*args):
+    build = _build_truncate_mask if torch.compiler.is_exporting() else _cached_truncate_mask
+    return build(*args)
 
 
 def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int]) -> torch.Tensor:

@@ -1,11 +1,16 @@
 """Shared trainer machinery (port of ``uno_tpu/train/common.py``): config,
 optimizer wiring, the logged learning rate, graceful stop, best-val tracking;
-and, for both trainers, the step clock and an epoch's batches on the device.
+and, for the trainers, the step clock, an epoch's batches on the device and
+what data parallelism adds to an epoch.
 
 ``uno_tpu``'s ``DataPlacer`` (TPU tile-padding layouts, host-resident
-fallback, mesh placement) and ``DeviceAccumulator`` (a relay workaround) are
-not ported: the trainer moves each split to the card once, indexes batches
-there and sums losses in a device tensor that it reads once per epoch.
+fallback) and ``DeviceAccumulator`` (a relay workaround) are not ported: the
+trainer moves each split to the card once, indexes batches there and sums
+losses in a device tensor that it reads once per epoch.  Its mesh branch is
+``device_batches`` with a ``DataParallel`` rank: every rank draws the same
+permutation and keeps its rows of each global batch; the epoch's sums are
+summed over the ranks when they are read (``reduce_sums``), and a stop
+requested on any rank stops them all after the epoch (``stop_on_any_rank``).
 """
 
 from __future__ import annotations
@@ -16,15 +21,16 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from uno_tpu_torch.data.batching import epoch_batches
 from uno_tpu_torch.optim import ComplexAdam, step_lr
+from uno_tpu_torch.parallel.mesh import DataParallel, shard_batch
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 
 # fields the port does not implement yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    "tensor_parallel": "ROADMAP.md Queue 1 item 8 (parallel/)",
-    "log_tensorboard": "ROADMAP.md Queue 1 item 7 (metrics, profiling)",
+    "tensor_parallel": "ROADMAP.md Queue 1 item 8 (channel tensor parallelism on DTensor)",
 }
 
 
@@ -171,12 +177,57 @@ class StepClock:
         return [(b - a) * 1e3 for a, b in pairs]
 
 
-def device_batches(rng, n: int, cfg: TrainConfig, device, shuffle: bool):
+def device_batches(rng, n: int, cfg: TrainConfig, device, shuffle: bool,
+                   dp: Optional[DataParallel] = None):
     """One epoch's index batches as device tensors (a single host->device
-    copy: a per-batch copy of pageable memory would wait for the card)."""
-    idx = list(epoch_batches(rng, n, cfg.batch_size, shuffle=shuffle,
-                             drop_remainder=cfg.drop_remainder))
+    copy: a per-batch copy of pageable memory would wait for the card).
+
+    With ``dp``, as under ``uno_tpu``'s mesh (``uno_tpu/train/darcy.py:69``):
+    the remainder batch is dropped, for evaluation too, and each batch is
+    this rank's rows of the global one."""
+    drop = cfg.drop_remainder or dp is not None
+    idx = [shard_batch(dp, i) for i in epoch_batches(rng, n, cfg.batch_size, shuffle=shuffle,
+                                                     drop_remainder=drop)]
     if not idx:
         return []
     flat = torch.from_numpy(np.concatenate(idx)).to(device)
     return list(torch.split(flat, [len(i) for i in idx]))
+
+
+def check_data_parallel(cfg: TrainConfig, dp: Optional[DataParallel]) -> int:
+    """The world size (1 without ``dp``); raises unless it divides the batch."""
+    if dp is None:
+        return 1
+    if cfg.batch_size % dp.world:
+        raise ValueError(f"batch size {cfg.batch_size} does not split over {dp.world} ranks")
+    return dp.world
+
+
+def _has_group(dp: Optional[DataParallel]) -> bool:
+    return dp is not None and dp.group is not None
+
+
+def reduce_sums(dp: Optional[DataParallel], *sums: torch.Tensor) -> List[float]:
+    """Device scalars summed over the ranks in one collective, then read
+    (one synchronisation)."""
+    t = torch.stack(sums)
+    if _has_group(dp):
+        dist.all_reduce(t, group=dp.group)
+    return t.tolist()
+
+
+def stop_on_any_rank(dp: Optional[DataParallel], requested: bool) -> bool:
+    """True on every rank when a stop was requested on any: the ranks stop
+    after the same epoch instead of one waiting for the others in the next
+    collective."""
+    if not _has_group(dp):
+        return requested
+    flag = torch.tensor([int(requested)], device=dp.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=dp.group)
+    return bool(flag.item())
+
+
+def barrier(dp: Optional[DataParallel]) -> None:
+    """Wait until every rank gets here (after rank 0 writes a checkpoint)."""
+    if _has_group(dp):
+        reduce_sums(dp, torch.zeros((), device=dp.device))

@@ -22,6 +22,15 @@ epoch's batch indices go over in one copy and batches are gathered there;
 the losses are summed in a device tensor read once per epoch.  Nothing in a
 step waits for the device, so the host queues the next step's kernels while
 the card runs this one.
+
+Data parallelism, the counterpart of ``uno_tpu``'s ``mesh=``: with ``dp``
+(``uno_tpu_torch.parallel``) every rank starts from rank 0's weights, runs
+its rows of each global batch and applies the gradient summed over the
+ranks (``dp_value_and_grad``), so the ranks keep the same weights bit for
+bit.  As under ``uno_tpu``'s mesh the remainder batch is dropped, for
+evaluation too, while the schedule's steps per epoch are still counted with
+``cfg.drop_remainder``.  Only rank 0 logs and writes checkpoints; every rank
+restores on resume.
 """
 
 from __future__ import annotations
@@ -34,15 +43,20 @@ import torch
 
 from uno_tpu_torch.data.batching import num_batches
 from uno_tpu_torch.losses import relative_lp_loss
+from uno_tpu_torch.parallel import DataParallel, dp_value_and_grad, replicate
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import (
     BestTracker,
     GracefulStop,
     StepClock,
     TrainConfig,
+    barrier,
+    check_data_parallel,
     device_batches,
     lr_at,
     make_optimizer,
+    reduce_sums,
+    stop_on_any_rank,
 )
 from uno_tpu_torch.train.metrics import MetricLogger
 
@@ -57,40 +71,48 @@ def train_darcy(
     y_test: np.ndarray,
     cfg: TrainConfig,
     logger: Optional[MetricLogger] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Dict[str, Any]:
     """Train ``model`` in place (its parameters are the initial weights, on
     its device) and leave the best-val weights loaded in it.  Returns the
     best state dict, the best val rel-L2, the test rel-L2 of the best
-    weights, whether a signal stopped the run, and the optimizer step
-    count."""
-    logger = logger or MetricLogger()
+    weights, whether a signal stopped the run, the optimizer step count and
+    this rank's ``step_ms`` per epoch."""
+    main = dp is None or dp.main
+    logger = logger or MetricLogger(tensorboard_dir=cfg.log_tensorboard if main else None)
+    log = logger.log if main else (lambda record: None)
+    world = check_data_parallel(cfg, dp)
     rng = np.random.default_rng(cfg.seed)
     s = y_train.shape[1]
     device = next(model.parameters()).device
 
     ntrain, nval, ntest = len(x_train), len(x_val), len(x_test)
+    # counted with cfg.drop_remainder under data parallelism too, as uno_tpu does
     steps_per_epoch = num_batches(ntrain, cfg.batch_size, cfg.drop_remainder)
     opt = make_optimizer(cfg, steps_per_epoch, model.parameters())
     splits = [
         torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
         for a in (x_train, y_train, x_val, y_val, x_test, y_test)
     ]
+    replicate(dp, model)
 
     def loss_fn(x, y):
         out = model(x).reshape(y.shape[0], s, s)
         return relative_lp_loss(out, y, reduction="sum")
 
+    value_and_grad = dp_value_and_grad(loss_fn, dp, model.parameters())
+
     def _eval(ix: int, n: int) -> float:
         total = torch.zeros((), device=device)
         count = 0
         with torch.no_grad():
-            for idx in device_batches(rng, n, cfg, device, shuffle=False):
+            for idx in device_batches(rng, n, cfg, device, shuffle=False, dp=dp):
                 total += loss_fn(splits[ix][idx], splits[ix + 1][idx])
-                count += len(idx)
-        return float(total) / max(count, 1)
+                count += len(idx) * world
+        return reduce_sums(dp, total)[0] / max(count, 1)
 
     ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
-    best = BestTracker(ckpt)
+    best = BestTracker(ckpt if main else None)
     step = 0
     start_epoch = 0
     if cfg.resume and ckpt is not None and ckpt.exists("train_state"):
@@ -103,12 +125,15 @@ def train_darcy(
         best.best_val = restored["best_val"]
 
     def save_state(epoch: int) -> None:
-        ckpt.save("train_state", {
-            "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
-            "step": step, "epoch": epoch, "best_val": best.best_val,
-        })
+        if main:
+            ckpt.save("train_state", {
+                "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
+                "step": step, "epoch": epoch, "best_val": best.best_val,
+            })
+        barrier(dp)
 
     stopped = False
+    step_ms = []
     with GracefulStop() as stop:
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
@@ -116,13 +141,12 @@ def train_darcy(
             seen = 0
             clock = StepClock(device)
             clock.mark()
-            for idx in device_batches(rng, ntrain, cfg, device, shuffle=True):
+            for idx in device_batches(rng, ntrain, cfg, device, shuffle=True, dp=dp):
                 opt.zero_grad(set_to_none=True)
-                loss = loss_fn(splits[0][idx], splits[1][idx])
-                loss.backward()
+                loss, _ = value_and_grad(splits[0][idx], splits[1][idx])  # summed over ranks
                 opt.step()
-                total += loss.detach()
-                seen += len(idx)
+                total += loss
+                seen += len(idx) * world
                 step += 1
                 clock.mark()
             train_l2 = float(total) / max(seen, 1)  # the epoch's one sync
@@ -130,7 +154,10 @@ def train_darcy(
             val_l2 = _eval(2, nval)
             dt = time.perf_counter() - t0
             improved = best.update(val_l2, model)
-            logger.log(
+            if improved and ckpt is not None:
+                barrier(dp)
+            step_ms.append(clock.ms())
+            log(
                 {
                     "task": "darcy",
                     "epoch": epoch,
@@ -141,15 +168,15 @@ def train_darcy(
                     "epoch_sec": dt,
                     "samples_per_sec": seen / dt,
                     "saved": improved,
-                    "step_ms": clock.ms(),
+                    "step_ms": step_ms[-1],
                 }
             )
             if ckpt is not None and cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0:
                 save_state(epoch)
-            if stop.requested:
+            if stop_on_any_rank(dp, stop.requested):
                 if ckpt is not None:
                     save_state(epoch)
-                logger.log({"task": "darcy", "stopped_early_after_epoch": epoch})
+                log({"task": "darcy", "stopped_early_after_epoch": epoch})
                 stopped = True
                 break
 
@@ -157,11 +184,12 @@ def train_darcy(
         model.load_state_dict(best.best_state)
     test_l2 = _eval(4, ntest) if ntest and not stopped else float("nan")
     if not stopped:
-        logger.log({"task": "darcy", "test_rel_l2": test_l2})
+        log({"task": "darcy", "test_rel_l2": test_l2})
     return {
         "params": best.best_state if best.best_state is not None else model.state_dict(),
         "best_val": best.best_val,
         "test_rel_l2": test_l2,
         "stopped_early": stopped,
         "step": step,
+        "step_ms": step_ms,
     }

@@ -25,6 +25,11 @@ resident on the model's device, losses summed there and read once per
 epoch, ``step_ms`` from CUDA events.  The reference's scheduler bug
 (stepping only on even epochs) is reproducible through
 ``cfg.compat_even_epoch_scheduler``.
+
+Data parallelism (``dp``) as in ``uno_tpu_torch.train.darcy``: rank 0's
+weights, each rank's rows of every global batch, the loss and gradients
+summed over the ranks after the whole rollout's backward, the remainder batch dropped for
+evaluation too, only rank 0 logging and writing checkpoints.
 """
 
 from __future__ import annotations
@@ -38,15 +43,20 @@ from torch.utils.checkpoint import checkpoint
 
 from uno_tpu_torch.data.batching import num_batches
 from uno_tpu_torch.losses import relative_lp_loss
+from uno_tpu_torch.parallel import DataParallel, dp_value_and_grad, replicate
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import (
     BestTracker,
     GracefulStop,
     StepClock,
     TrainConfig,
+    barrier,
+    check_data_parallel,
     device_batches,
     lr_at,
     make_optimizer,
+    reduce_sums,
+    stop_on_any_rank,
 )
 from uno_tpu_torch.train.metrics import MetricLogger
 
@@ -91,41 +101,50 @@ def train_ns2d(
     cfg: TrainConfig,
     t_f: int = 40,
     logger: Optional[MetricLogger] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Dict[str, Any]:
     """Train ``model`` in place (its parameters are the initial weights, on
     its device) and leave the best-val weights loaded in it.  Returns the
     best state dict, the best val step rel-L2, the test step and trajectory
-    rel-L2 of the best weights, whether a signal stopped the run, and the
-    optimizer step count."""
-    logger = logger or MetricLogger()
+    rel-L2 of the best weights, whether a signal stopped the run, the
+    optimizer step count and this rank's ``step_ms`` per epoch."""
+    main = dp is None or dp.main
+    logger = logger or MetricLogger(tensorboard_dir=cfg.log_tensorboard if main else None)
+    log = logger.log if main else (lambda record: None)
+    world = check_data_parallel(cfg, dp)
     rng = np.random.default_rng(cfg.seed)
     device = next(model.parameters()).device
 
     ntrain, nval, ntest = len(train_a), len(val_a), len(test_a)
+    # counted with cfg.drop_remainder under data parallelism too, as uno_tpu does
     steps_per_epoch = num_batches(ntrain, cfg.batch_size, cfg.drop_remainder)
     opt = make_optimizer(cfg, steps_per_epoch, model.parameters())
     splits = [
         torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
         for a in (train_a, train_u, val_a, val_u, test_a, test_u)
     ]
+    replicate(dp, model)
     rollout = make_rollout(model, t_f)
+    value_and_grad = dp_value_and_grad(lambda xx, yy: rollout(xx, yy)[0], dp,
+                                       model.parameters())
 
     def _eval(ix: int, n: int):
         step_total = torch.zeros((), device=device)
         traj_total = torch.zeros((), device=device)
         count = 0
         with torch.no_grad():
-            for idx in device_batches(rng, n, cfg, device, shuffle=False):
+            for idx in device_batches(rng, n, cfg, device, shuffle=False, dp=dp):
                 yy = splits[ix + 1][idx]
                 loss, pred = rollout(splits[ix][idx], yy)
                 step_total += loss
                 traj_total += relative_lp_loss(pred, yy, reduction="sum")
-                count += len(idx)
+                count += len(idx) * world
         count = max(count, 1)
-        return float(step_total) / count / t_f, float(traj_total) / count
+        step_sum, traj_sum = reduce_sums(dp, step_total, traj_total)
+        return step_sum / count / t_f, traj_sum / count
 
     ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
-    best = BestTracker(ckpt)
+    best = BestTracker(ckpt if main else None)
     step = 0
     start_epoch = 0
     if cfg.resume and ckpt is not None and ckpt.exists("train_state"):
@@ -138,12 +157,15 @@ def train_ns2d(
         best.best_val = restored["best_val"]
 
     def save_state(epoch: int) -> None:
-        ckpt.save("train_state", {
-            "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
-            "step": step, "epoch": epoch, "best_val": best.best_val,
-        })
+        if main:
+            ckpt.save("train_state", {
+                "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
+                "step": step, "epoch": epoch, "best_val": best.best_val,
+            })
+        barrier(dp)
 
     stopped = False
+    step_ms = []
     with GracefulStop() as stop:
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
@@ -151,17 +173,17 @@ def train_ns2d(
             seen = 0
             clock = StepClock(device)
             clock.mark()
-            for idx in device_batches(rng, ntrain, cfg, device, shuffle=True):
+            for idx in device_batches(rng, ntrain, cfg, device, shuffle=True, dp=dp):
                 opt.zero_grad(set_to_none=True)
-                loss, _ = rollout(splits[0][idx], splits[1][idx])
-                loss.backward()
+                loss, _ = value_and_grad(splits[0][idx], splits[1][idx])  # summed over ranks
                 opt.step()
-                total += loss.detach()
-                seen += len(idx)
+                total += loss
+                seen += len(idx) * world
                 step += 1
                 clock.mark()
             train_loss = float(total) / max(seen, 1) / t_f  # the epoch's one sync
             dt = time.perf_counter() - t0
+            step_ms.append(clock.ms())
 
             record = {
                 "task": "ns2d",
@@ -171,20 +193,22 @@ def train_ns2d(
                 "train_step_rel_l2": train_loss,
                 "epoch_sec": dt,
                 "samples_per_sec": seen / dt,
-                "step_ms": clock.ms(),
+                "step_ms": step_ms[-1],
             }
             if epoch % cfg.eval_every == 0:
                 val_loss, val_traj = _eval(2, nval)
                 record["val_step_rel_l2"] = val_loss
                 record["val_traj_rel_l2"] = val_traj
                 record["saved"] = best.update(val_loss, model)
-            logger.log(record)
+                if record["saved"] and ckpt is not None:
+                    barrier(dp)
+            log(record)
             if ckpt is not None and cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0:
                 save_state(epoch)
-            if stop.requested:
+            if stop_on_any_rank(dp, stop.requested):
                 if ckpt is not None:
                     save_state(epoch)
-                logger.log({"task": "ns2d", "stopped_early_after_epoch": epoch})
+                log({"task": "ns2d", "stopped_early_after_epoch": epoch})
                 stopped = True
                 break
 
@@ -192,8 +216,7 @@ def train_ns2d(
         model.load_state_dict(best.best_state)
     if ntest and not stopped:
         test_step, test_traj = _eval(4, ntest)
-        logger.log({"task": "ns2d", "test_step_rel_l2": test_step,
-                    "test_traj_rel_l2": test_traj})
+        log({"task": "ns2d", "test_step_rel_l2": test_step, "test_traj_rel_l2": test_traj})
     else:
         test_step = test_traj = float("nan")
     return {
@@ -203,4 +226,5 @@ def train_ns2d(
         "test_traj_rel_l2": test_traj,
         "stopped_early": stopped,
         "step": step,
+        "step_ms": step_ms,
     }

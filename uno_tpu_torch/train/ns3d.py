@@ -14,6 +14,11 @@ same ``numpy`` batch order as ``uno_tpu`` from ``default_rng(cfg.seed)``
 (a resumed run redraws epoch 0's order, as ``uno_tpu``'s does), splits
 resident on the model's device, losses summed there and read once per
 epoch, ``step_ms`` from CUDA events.
+
+Data parallelism (``dp``) as in ``uno_tpu_torch.train.darcy``: rank 0's
+weights, each rank's rows of every global batch, the loss and gradients
+summed over the ranks, the remainder batch dropped for evaluation too, only
+rank 0 logging and writing checkpoints.
 """
 
 from __future__ import annotations
@@ -26,15 +31,20 @@ import torch
 
 from uno_tpu_torch.data.batching import num_batches
 from uno_tpu_torch.losses import relative_lp_loss
+from uno_tpu_torch.parallel import DataParallel, dp_value_and_grad, replicate
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import (
     BestTracker,
     GracefulStop,
     StepClock,
     TrainConfig,
+    barrier,
+    check_data_parallel,
     device_batches,
     lr_at,
     make_optimizer,
+    reduce_sums,
+    stop_on_any_rank,
 )
 from uno_tpu_torch.train.metrics import MetricLogger
 
@@ -63,41 +73,54 @@ def train_ns3d(
     cfg: TrainConfig,
     t_f: int = 10,
     logger: Optional[MetricLogger] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Dict[str, Any]:
     """Train ``model`` in place (its parameters are the initial weights, on
     its device) and leave the best-val weights loaded in it.  Inputs are
     (N, S, S, T_in), targets (N, S, S, T_f).  Returns the best state dict,
     the best val step rel-L2, the test full-field and per-step rel-L2 of the
-    best weights, whether a signal stopped the run, and the optimizer step
-    count."""
-    logger = logger or MetricLogger()
+    best weights, whether a signal stopped the run, the optimizer step count
+    and this rank's ``step_ms`` per epoch."""
+    main = dp is None or dp.main
+    logger = logger or MetricLogger(tensorboard_dir=cfg.log_tensorboard if main else None)
+    log = logger.log if main else (lambda record: None)
+    world = check_data_parallel(cfg, dp)
     rng = np.random.default_rng(cfg.seed)
     device = next(model.parameters()).device
 
     ntrain, nval, ntest = len(train_a), len(val_a), len(test_a)
+    # counted with cfg.drop_remainder under data parallelism too, as uno_tpu does
     steps_per_epoch = num_batches(ntrain, cfg.batch_size, cfg.drop_remainder)
     opt = make_optimizer(cfg, steps_per_epoch, model.parameters())
     splits = [
         torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
         for a in (train_a, train_u, val_a, val_u, test_a, test_u)
     ]
+    replicate(dp, model)
+
+    def loss_fn(x, yy):
+        out = forecast(model, x, t_f)
+        return relative_lp_loss(out, yy, reduction="sum"), out
+
+    value_and_grad = dp_value_and_grad(loss_fn, dp, model.parameters(), has_aux=True)
 
     def _eval(ix: int, n: int):
         full_total = torch.zeros((), device=device)
         step_total = torch.zeros((), device=device)
         count = 0
         with torch.no_grad():
-            for idx in device_batches(rng, n, cfg, device, shuffle=False):
+            for idx in device_batches(rng, n, cfg, device, shuffle=False, dp=dp):
                 yy = splits[ix + 1][idx]
                 out = forecast(model, splits[ix][idx], t_f)
                 full_total += relative_lp_loss(out, yy, reduction="sum")
                 step_total += step_rel_l2(out, yy)
-                count += len(idx)
+                count += len(idx) * world
         count = max(count, 1)
-        return float(full_total) / count, float(step_total) / (count * t_f)
+        full_sum, step_sum = reduce_sums(dp, full_total, step_total)
+        return full_sum / count, step_sum / (count * t_f)
 
     ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
-    best = BestTracker(ckpt)
+    best = BestTracker(ckpt if main else None)
     step = 0
     start_epoch = 0
     if cfg.resume and ckpt is not None and ckpt.exists("train_state"):
@@ -110,12 +133,15 @@ def train_ns3d(
         best.best_val = restored["best_val"]
 
     def save_state(epoch: int) -> None:
-        ckpt.save("train_state", {
-            "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
-            "step": step, "epoch": epoch, "best_val": best.best_val,
-        })
+        if main:
+            ckpt.save("train_state", {
+                "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
+                "step": step, "epoch": epoch, "best_val": best.best_val,
+            })
+        barrier(dp)
 
     stopped = False
+    step_ms = []
     with GracefulStop() as stop:
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
@@ -123,19 +149,20 @@ def train_ns3d(
             seen = 0
             clock = StepClock(device)
             clock.mark()
-            for idx in device_batches(rng, ntrain, cfg, device, shuffle=True):
+            for idx in device_batches(rng, ntrain, cfg, device, shuffle=True, dp=dp):
                 yy = splits[1][idx]
                 opt.zero_grad(set_to_none=True)
-                out = forecast(model, splits[0][idx], t_f)
-                relative_lp_loss(out, yy, reduction="sum").backward()
+                (_, out), _ = value_and_grad(splits[0][idx], yy)
                 opt.step()
                 with torch.no_grad():
-                    total += step_rel_l2(out, yy)
-                seen += len(idx)
+                    total += step_rel_l2(out, yy)  # this rank's rows
+                seen += len(idx) * world
                 step += 1
                 clock.mark()
-            train_loss = float(total) / (max(seen, 1) * t_f)  # the epoch's one sync
+            # the epoch's one sync
+            train_loss = reduce_sums(dp, total)[0] / (max(seen, 1) * t_f)
             dt = time.perf_counter() - t0
+            step_ms.append(clock.ms())
 
             record = {
                 "task": "ns3d",
@@ -145,20 +172,22 @@ def train_ns3d(
                 "train_step_rel_l2": train_loss,
                 "epoch_sec": dt,
                 "samples_per_sec": seen / dt,
-                "step_ms": clock.ms(),
+                "step_ms": step_ms[-1],
             }
             if epoch % cfg.eval_every == 0:
                 val_full, val_step = _eval(2, nval)
                 record["val_step_rel_l2"] = val_step
                 record["val_full_rel_l2"] = val_full
                 record["saved"] = best.update(val_step, model)
-            logger.log(record)
+                if record["saved"] and ckpt is not None:
+                    barrier(dp)
+            log(record)
             if ckpt is not None and cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0:
                 save_state(epoch)
-            if stop.requested:
+            if stop_on_any_rank(dp, stop.requested):
                 if ckpt is not None:
                     save_state(epoch)
-                logger.log({"task": "ns3d", "stopped_early_after_epoch": epoch})
+                log({"task": "ns3d", "stopped_early_after_epoch": epoch})
                 stopped = True
                 break
 
@@ -166,8 +195,7 @@ def train_ns3d(
         model.load_state_dict(best.best_state)
     if ntest and not stopped:
         test_full, test_step = _eval(4, ntest)
-        logger.log({"task": "ns3d", "test_full_rel_l2": test_full,
-                    "test_step_rel_l2": test_step})
+        log({"task": "ns3d", "test_full_rel_l2": test_full, "test_step_rel_l2": test_step})
     else:
         test_full = test_step = float("nan")
     return {
@@ -177,4 +205,5 @@ def train_ns3d(
         "test_step_rel_l2": test_step,
         "stopped_early": stopped,
         "step": step,
+        "step_ms": step_ms,
     }
