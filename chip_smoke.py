@@ -136,16 +136,34 @@ evaluation; then a 1-D operator block.
    the port's kernels (``[profile]``);
 18. ``[predict]`` and ``[ns-train]`` again with every eager forward launch
    routed through the kernels' ``torch.library`` custom ops, then directly
-   again, and the host time of one call each way (``[custom-ops]``).
+   again, and the host time of one call each way (``[custom-ops]``);
+19. ``remat_blocks``: darcy_s211 uno9 bf16 trained one epoch of 4 steps
+   with and without it, the same losses and weights (within rel 1e-6),
+   each run's launches and peak device memory (``[remat]``); ``cli
+   predict`` with ``UNO_TPU_TORCH_NO_FUSED_HEAD=1``: no head launch, the
+   predictions within rel-L2 1e-5 of the kernel's (both heads are the f32
+   composition of the same bf16 input; they differ in the order of their
+   f32 sums only) (``[head-switch]``);
+20. the mesh's ``spatial`` axis, in the same two gloo processes as ``[dp]``
+   as one 1 x 2 mesh: darcy_s211 uno9 f32 under channel tensor parallelism
+   (``[tp]``: every contraction at its Co/2 shard) and split over the
+   grid's rows (``[spatial]``: 247 padded rows as 123 + 124, 61 as 30 +
+   31), 2 epochs each, against ``[dp]``'s one-process run (train loss per
+   epoch within rel 1e-4, final weights within rel-L2 1e-3, the ranks'
+   weights bit for bit, each rank's ms per warm step and peak device
+   memory); ns3d_t40 bf16 split over X, one epoch of 2 steps, against
+   ``[dp-ns3d]``'s one process (``[spatial-ns3d]``); the contractions at
+   the TP shard shapes and at the split runs' shapes (``[kernels tp]``,
+   ``[kernels spatial]``).
 
 Any failed phase raises, and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, and
 the same keys under ``ns2d``, ``ns3d``, ``s421``, ``superres``, ``1d``,
-``dp_nccl``, ``dp``, ``dp_ns3d`` and ``export``); the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
-prints no result.
+``dp_nccl``, ``dp``, ``dp_ns3d``, ``export``, ``remat``, ``tp``,
+``spatial`` and ``spatial_ns3d``); the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device it exits 1 and prints no result.
 
-    python3 chip_smoke.py --dp-rank DIR   # one rank of [dp]/[dp-ns3d] (started by the script)
+    python3 chip_smoke.py --dp-rank DIR   # one rank of [dp]/[dp-ns3d]/[tp]/[spatial] (started by the script)
 """
 
 from __future__ import annotations
@@ -188,6 +206,7 @@ from uno_tpu_torch.ops.spectral import (
 )
 from uno_tpu_torch.export import export_forward, load_forward
 from uno_tpu_torch.parallel import initialize_from_env, make_mesh
+from uno_tpu_torch.parallel.tp import full_state
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.darcy import train_darcy
 from uno_tpu_torch.train.evaluate import evaluate_superres
@@ -247,6 +266,9 @@ DP_CMUL_SHAPES = [(BATCH // DP_WORLD, ci, co, m) for _, ci, co, m in CMUL_SHAPES
 DP_NS3D_CMUL_SHAPES = [(BATCH // DP_WORLD, ci, co, m) for _, ci, co, m in NS3D_CMUL_SHAPES]
 DP_TRAIN_REL, DP_WEIGHT_REL, DP_NS3D_REL = 1e-4, 1e-3, 5e-2  # [dp], [dp-ns3d] bounds
 DP_NCCL_REL, EXPORT_REL = 1e-6, 1e-6  # [dp-nccl] against no dp; the served artifact
+# [tp]: uno9's five contractions with their out channels halved over 2 ranks
+TP_CMUL_SHAPES = [(b, ci, co // DP_WORLD, m) for b, ci, co, m in CMUL_SHAPES]
+REMAT_EPOCHS, REMAT_REL = 1, 1e-6  # [remat]: one epoch with and without remat_blocks
 EXPORT_NS_REL = 1e-5  # tests/test_export.py's round-trip bound
 DFT3D_REL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_torch_cuda.py's DFT bounds
 CMUL_ATOL, HEAD_REL = 1e-4, 1e-5          # the CPU tests' bounds
@@ -1360,52 +1382,135 @@ def phase_dp_nccl(tmp: str) -> dict:
     return launches
 
 
+def _record_shapes() -> Counter:
+    """Count each contraction launch by (use, B, Ci, Co, M) from now on, for
+    this process (the autograd function and the forward call these
+    module globals)."""
+    shapes = Counter()
+    fwd, bwd_x, bwd_w = cmul_k._cmul_fwd, cmul_k.cmul_bwd_x, cmul_k.cmul_bwd_w
+
+    def rec_fwd(x, w):
+        shapes["cmul_fwd", x.shape[0], w.shape[0], w.shape[1], x.shape[2]] += 1
+        return fwd(x, w)
+
+    def rec_bwd_x(g, w):
+        shapes["cmul_bwd_x", g.shape[0], w.shape[0], w.shape[1], g.shape[2]] += 1
+        return bwd_x(g, w)
+
+    def rec_bwd_w(x, g):
+        shapes["cmul_bwd_w", x.shape[0], x.shape[1], g.shape[1], x.shape[2]] += 1
+        return bwd_w(x, g)
+
+    cmul_k._cmul_fwd, cmul_k.cmul_bwd_x, cmul_k.cmul_bwd_w = rec_fwd, rec_bwd_x, rec_bwd_w
+    return shapes
+
+
+# the mesh runs of dp_rank_main: (key, split file, preset, epochs, dtype, mesh, TP)
+MESH_RUNS = (("darcy", "darcy", PRESET, DP_EPOCHS, "float32", "data", False),
+             ("ns3d", "ns3d", NS3D_PRESET, 1, "bfloat16", "data", False),
+             ("tp", "darcy", PRESET, DP_EPOCHS, "float32", "spatial", True),
+             ("spatial", "darcy", PRESET, DP_EPOCHS, "float32", "spatial", False),
+             ("spatial_ns3d", "ns3d", NS3D_PRESET, 1, "bfloat16", "spatial", False))
+
+
 def dp_rank_main(out_dir: str, darcy_path: str, ns3d_path: str) -> int:
-    """One rank of ``[dp]`` and ``[dp-ns3d]``, started by ``phase_dp``: darcy_s211
-    uno9 f32 for DP_EPOCHS epochs, then ns3d_t40 bf16 for one epoch, each at
-    global batch 16 on cuda:0, over gloo (NCCL refuses two ranks on one
-    device; gloo stages the card's tensors through the host).  Saves its
-    records, launches, dw batch sizes, step_ms and final weights."""
+    """One rank of ``[dp]``, ``[dp-ns3d]``, ``[tp]``, ``[spatial]`` and
+    ``[spatial-ns3d]``, started by ``phase_dp``: ``MESH_RUNS`` in order, the
+    first two on a 2 x 1 (data) mesh, the others on a 1 x 2 (spatial) mesh,
+    each at global batch 16 on cuda:0, over gloo (NCCL refuses two ranks on
+    one device; gloo stages the card's tensors through the host).  Saves
+    each run's records, launches, contraction shapes, step_ms, peak device
+    memory and final weights (whole)."""
     cli._no_tf32()
     _build.library()
     if not initialize_from_env("gloo"):
         raise SystemExit("--dp-rank needs MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK")
-    dp = make_mesh(device="cuda:0")
-    dw_rows = Counter()
-    plain_bwd_w = cmul_k.cmul_bwd_w
-
-    def bwd_w(x, g):  # the autograd backward calls the module's cmul_bwd_w
-        dw_rows[x.shape[0]] += 1
-        return plain_bwd_w(x, g)
-
-    cmul_k.cmul_bwd_w = bwd_w
+    meshes = {"data": make_mesh(device="cuda:0"),
+              "spatial": make_mesh(n_data=1, n_spatial=DP_WORLD, device="cuda:0")}
+    shapes = _record_shapes()
+    paths = {"darcy": darcy_path, "ns3d": ns3d_path}
     res = {}
-    for task, path, name, epochs, dtype in (("darcy", darcy_path, PRESET, DP_EPOCHS, "float32"),
-                                             ("ns3d", ns3d_path, NS3D_PRESET, 1, "bfloat16")):
+    for key, split, name, epochs, dtype, mesh, tp in MESH_RUNS:
+        dp = meshes[mesh]
         preset = get_preset(name)
         model = build_model(preset.model, dtype=dtype, device=dp.device,
                             generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
-        cfg = dataclasses.replace(preset.train, epochs=epochs)
+        cfg = dataclasses.replace(preset.train, epochs=epochs, tensor_parallel=tp)
         rec = _Records()
-        dw_rows.clear()
-        _zero_launches()
-        if task == "darcy":
-            out = train_darcy(model, *_load_split(path), cfg, logger=rec, dp=dp)
-        else:
-            out = train_ns3d(model, *_load_split(path), cfg, t_f=preset.t_f, logger=rec, dp=dp)
+        shapes.clear()
         torch.cuda.synchronize()
-        res[task] = dict(records=rec.records, launches=_launches(), dw_rows=dict(dw_rows),
-                         step_ms=out["step_ms"],
-                         state={k: v.cpu() for k, v in model.state_dict().items()})
-    torch.save(res, os.path.join(out_dir, f"rank{dp.rank}.pt"))
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        if split == "darcy":
+            out = train_darcy(model, *_load_split(paths[split]), cfg, logger=rec, dp=dp)
+        else:
+            out = train_ns3d(model, *_load_split(paths[split]), cfg, t_f=preset.t_f,
+                             logger=rec, dp=dp)
+        torch.cuda.synchronize()
+        res[key] = dict(records=rec.records, launches=_launches(), shapes=dict(shapes),
+                        step_ms=out["step_ms"], peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        state={k: v.cpu() for k, v in
+                               full_state(model, dp, model.state_dict()).items()})
+    torch.save(res, os.path.join(out_dir, f"rank{torch.distributed.get_rank()}.pt"))
     torch.distributed.destroy_process_group()
     return 0
 
 
+def _check_mesh_run(tag, task, ranks, ref, want_launches, want_shapes, bounds):
+    """A mesh run's rank 0 against one process: the per-epoch losses
+    (``bounds[0]``), the final weights (``bounds[1]``, None: not held), the
+    ranks' weights bit for bit, launches and contraction shapes; prints it
+    and each rank's ms and peak memory."""
+    r0, r1 = ranks[0][task], ranks[1][task]
+    if r1["records"] or not all(torch.equal(r0["state"][k], r1["state"][k])
+                                for k in r0["state"]):
+        raise AssertionError(f"[{tag}]: rank 1 logged {len(r1['records'])} records, or the "
+                             "ranks' weights differ")
+    key = "train_rel_l2" if task in ("darcy", "tp", "spatial") else "train_step_rel_l2"
+    got = [r[key] for r in r0["records"] if key in r]
+    want = [r[key] for r in ref["records"] if key in r]
+    finite = all(np.isfinite(v) for r in r0["records"] for v in r.values()
+                 if isinstance(v, float))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    rels = _param_rels(r0["state"], ref["state"])
+    weight_rel = max(rels.values())
+    if (len(got) != len(want) or not got or not finite or loss_rel > bounds[0]
+            or (bounds[1] is not None and weight_rel > bounds[1])
+            or r0["launches"] != want_launches or r0["shapes"] != want_shapes):
+        raise AssertionError(f"[{tag}]: {key} {got} against {want} (rel {loss_rel}, bound "
+                             f"{bounds[0]}), finite {finite}, weights max rel-L2 {weight_rel} "
+                             f"(bound {bounds[1]}), launches {r0['launches']} (expected "
+                             f"{want_launches}), shapes {r0['shapes']} (expected {want_shapes})")
+    print(f"[{tag}] {key} {[round(v, 6) for v in got]} against one process's "
+          f"{[round(v, 6) for v in want]} (max rel {loss_rel:.3g}, bound {bounds[0]}); final "
+          f"weights max rel-L2 {weight_rel:.3g} (bound {bounds[1]}); the ranks' weights equal "
+          f"bit for bit; rank 0 launches {r0['launches']}; contraction shapes "
+          f"{sorted(set(k[1:] for k in r0['shapes']))}")
+    for r, rk in enumerate(ranks):
+        warm = [ms for ep in rk[task]["step_ms"][1:] for ms in ep] or rk[task]["step_ms"][0]
+        print(f"[{tag}] rank {r} ms per warm step (two processes sharing one card): "
+              f"{_spread(warm)}; peak device memory {rk[task]['peak_gb']:.3f} GB")
+    warm = [ms for ep in ref["step_ms"][1:] for ms in ep] or ref["step_ms"][0]
+    print(f"[{tag}] one process: ms per warm step {_spread(warm)}; peak device memory "
+          f"{ref['peak_gb']:.3f} GB")
+    return r0["launches"]
+
+
+def _shapes(cmul_shapes, forwards: int, backwards: int) -> dict:
+    """Contraction launches by (use, B, Ci, Co, M): each shape once a
+    forward, and once per backward for dx and dw."""
+    out = {}
+    for b, ci, co, m in cmul_shapes:
+        out["cmul_fwd", b, ci, co, m] = forwards
+        if backwards:
+            out["cmul_bwd_x", b, ci, co, m] = out["cmul_bwd_w", b, ci, co, m] = backwards
+    return out
+
+
 def phase_dp(tmp: str, dev) -> tuple:
     """Two ranks on the one card (``dp_rank_main``, two processes), then the
-    same two trainings in this process at batch 16; returns rank 0's launches
-    of the Darcy and the NS-3D runs."""
+    same trainings in this process at batch 16; returns rank 0's launches
+    of each mesh run."""
     out_dir = os.path.join(tmp, "dp")
     os.makedirs(out_dir)
     darcy = os.path.join(tmp, "dp_split.npz")
@@ -1418,7 +1523,7 @@ def phase_dp(tmp: str, dev) -> tuple:
                                darcy, ns3d], env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
     try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
+        logs = [p.communicate(timeout=900)[0] for p in procs]
     finally:
         for p in procs:
             p.kill()
@@ -1438,79 +1543,124 @@ def phase_dp(tmp: str, dev) -> tuple:
                             generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
         cfg = dataclasses.replace(preset.train, epochs=epochs)
         rec = _Records()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         if task == "darcy":
             out = train_darcy(model, *_load_split(path), cfg, logger=rec)
         else:
             out = train_ns3d(model, *_load_split(path), cfg, t_f=preset.t_f, logger=rec)
+        torch.cuda.synchronize()
         ref[task] = dict(records=rec.records, step_ms=out["step_ms"],
+                         peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                          state={k: v.cpu() for k, v in model.state_dict().items()})
 
-    for task in ("darcy", "ns3d"):
-        r0, r1 = ranks[0][task], ranks[1][task]
-        if r1["records"] or not all(torch.equal(r0["state"][k], r1["state"][k])
-                                    for k in r0["state"]):
-            raise AssertionError(f"[dp] {task}: rank 1 logged {len(r1['records'])} records, or "
-                                 "the ranks' weights differ")
-    # darcy_s211 f32
-    key = "train_rel_l2"
-    got = [r[key] for r in ranks[0]["darcy"]["records"] if key in r]
-    want = [r[key] for r in ref["darcy"]["records"] if key in r]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-    rels = _param_rels(ranks[0]["darcy"]["state"], ref["darcy"]["state"])
+    print(f"[dp] {PRESET} uno9 f32, 2 ranks on one card over gloo, global batch {BATCH} "
+          f"({BATCH // DP_WORLD} a rank), {DP_EPOCHS} epochs of {NTRAIN // BATCH} steps, then "
+          f"ns3d_t40, TP and the split runs in the same processes: wall {wall:.1f} s for both "
+          f"ranks (start-up included)")
     steps = DP_EPOCHS * (NTRAIN // BATCH)
     evals = DP_EPOCHS * (NVAL // BATCH) + NTEST // BATCH
-    want_launches = _darcy_want(steps, evals, heads=False)
-    launches = ranks[0]["darcy"]["launches"]
-    dw_rows = [rk["darcy"]["dw_rows"] for rk in ranks]
-    if (len(got) != DP_EPOCHS or len(want) != DP_EPOCHS or loss_rel > DP_TRAIN_REL
-            or max(rels.values()) > DP_WEIGHT_REL or launches != want_launches
-            or any(d != {BATCH // DP_WORLD: 5 * steps} for d in dw_rows)):
-        raise AssertionError(f"[dp] darcy: train losses {got} against {want} (rel {loss_rel}, "
-                             f"bound {DP_TRAIN_REL}), weights max rel-L2 {max(rels.values())} "
-                             f"(bound {DP_WEIGHT_REL}), launches {launches} (expected "
-                             f"{want_launches}), dw rows per launch {dw_rows}")
+    darcy_want = _darcy_want(steps, evals, heads=False)
+    launches = {"dp": _check_mesh_run(
+        "dp", "darcy", ranks, ref["darcy"], darcy_want,
+        _shapes(DP_CMUL_SHAPES, steps + evals, steps), (DP_TRAIN_REL, DP_WEIGHT_REL))}
     val = [[r["val_rel_l2"] for r in recs if "val_rel_l2" in r]
            for recs in (ranks[0]["darcy"]["records"], ref["darcy"]["records"])]
-    print(f"[dp] {PRESET} uno9 f32, 2 ranks on one card over gloo, global batch {BATCH} "
-          f"({BATCH // DP_WORLD} a rank), {DP_EPOCHS} epochs of {NTRAIN // BATCH} steps: "
-          f"train_rel_l2 {[round(v, 6) for v in got]} against one process's "
-          f"{[round(v, 6) for v in want]} (max rel {loss_rel:.3g}, bound {DP_TRAIN_REL}); val "
-          f"{[round(v, 6) for v in val[0]]} against {[round(v, 6) for v in val[1]]}; final "
-          f"weights max rel-L2 {max(rels.values()):.3g} (bound {DP_WEIGHT_REL}); the ranks' "
-          f"weights equal bit for bit; rank 0 launches {launches}, dw rows per launch "
-          f"{dw_rows}; wall {wall:.1f} s for both ranks (start-up included)")
-    for r, rk in enumerate(ranks):
-        warm = [ms for ep in rk["darcy"]["step_ms"][1:] for ms in ep]
-        print(f"[dp] rank {r} ms per warm step (two processes sharing one card): "
-              f"{_spread(warm)}")
-    ref_warm = [ms for ep in ref["darcy"]["step_ms"][1:] for ms in ep]
-    print(f"[dp] one process at batch {BATCH}, ms per warm step: {_spread(ref_warm)}")
+    print(f"[dp] val {[round(v, 6) for v in val[0]]} against {[round(v, 6) for v in val[1]]}")
+    ns_steps = NS3D_SPLIT[0] // BATCH
+    ns_want = {"cmul_fwd": 7 * ns_steps, "cmul_bwd_x": 7 * ns_steps,
+               "cmul_bwd_w": 7 * ns_steps, "mlp_head_fwd": 0, "mlp_head_bwd": 0}
+    # val and test splits of 4 under the batch of 16 evaluate nothing (0.0, as
+    # under uno_tpu's mesh); the bf16 step loss within rel 5e-2 of one process
+    launches["dp_ns3d"] = _check_mesh_run(
+        "dp-ns3d", "ns3d", ranks, ref["ns3d"], ns_want,
+        _shapes(DP_NS3D_CMUL_SHAPES, ns_steps, ns_steps), (DP_NS3D_REL, None))
+    launches["tp"] = _check_mesh_run(
+        "tp", "tp", ranks, ref["darcy"], darcy_want,
+        _shapes(TP_CMUL_SHAPES, steps + evals, steps), (DP_TRAIN_REL, DP_WEIGHT_REL))
+    # split: every rank contracts the whole reduced modes, at batch 16
+    launches["spatial"] = _check_mesh_run(
+        "spatial", "spatial", ranks, ref["darcy"], darcy_want,
+        _shapes(CMUL_SHAPES, steps + evals, steps), (DP_TRAIN_REL, DP_WEIGHT_REL))
+    launches["spatial_ns3d"] = _check_mesh_run(
+        "spatial-ns3d", "spatial_ns3d", ranks, ref["ns3d"], ns_want,
+        _shapes(NS3D_CMUL_SHAPES, ns_steps, ns_steps), (DP_NS3D_REL, None))
+    return launches
 
-    # ns3d_t40 bf16, one epoch
-    key = "train_step_rel_l2"
-    got = [r[key] for r in ranks[0]["ns3d"]["records"] if key in r]
-    want = [r[key] for r in ref["ns3d"]["records"] if key in r]
-    rel = abs(got[0] - want[0]) / abs(want[0])
-    finite = all(np.isfinite(v) for r in ranks[0]["ns3d"]["records"] for v in r.values()
-                 if isinstance(v, float))
-    steps = NS3D_SPLIT[0] // BATCH
-    ns_launches = ranks[0]["ns3d"]["launches"]
-    want_ns = {"cmul_fwd": 7 * steps, "cmul_bwd_x": 7 * steps, "cmul_bwd_w": 7 * steps,
-               "mlp_head_fwd": 0, "mlp_head_bwd": 0}  # val and test below the batch: none
-    if len(got) != 1 or not finite or rel > DP_NS3D_REL or ns_launches != want_ns:
-        raise AssertionError(f"[dp-ns3d]: train step loss {got} against {want} (rel {rel}, "
-                             f"bound {DP_NS3D_REL}), finite {finite}, launches {ns_launches} "
-                             f"(expected {want_ns})")
-    print(f"[dp-ns3d] {NS3D_PRESET} uno3d_t40 bf16, 2 ranks on one card over gloo, global "
-          f"batch {BATCH}, 1 epoch of {steps} steps: train_step_rel_l2 {got[0]:.6f} against one "
-          f"process's {want[0]:.6f} (rel {rel:.3g}, bound {DP_NS3D_REL}); val and test splits "
-          f"of {NS3D_SPLIT[1]} under the batch evaluate nothing (0.0, as under uno_tpu's mesh); "
-          f"the ranks' weights equal bit for bit; rank 0 launches {ns_launches}")
-    for r, rk in enumerate(ranks):
-        print(f"[dp-ns3d] rank {r} step_ms (two processes sharing one card): "
-              f"{[round(v, 3) for v in rk['ns3d']['step_ms'][0]]}; one process: "
-              f"{[round(v, 3) for v in ref['ns3d']['step_ms'][0]]}")
-    return launches, ns_launches
+
+def phase_remat(tmp: str, dev) -> dict:
+    """darcy_s211 uno9 bf16, one epoch of phase_train's split with and
+    without ``remat_blocks``: the same losses and weights, each run's
+    launches and peak memory; returns the remat run's launches."""
+    preset = get_preset(PRESET)
+    split = _load_split(os.path.join(tmp, "darcy_s211_train.npz"))
+    runs = {}
+    for remat in (False, True):
+        model = build_model(preset.model, dtype="bfloat16", remat_blocks=remat, device=dev,
+                            generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
+        rec = _Records()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launches()
+        out = train_darcy(model, *split, dataclasses.replace(preset.train, epochs=REMAT_EPOCHS),
+                          logger=rec)
+        torch.cuda.synchronize()
+        runs[remat] = dict(records=rec.records, launches=_launches(), step_ms=out["step_ms"],
+                           peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                           state={k: v.cpu() for k, v in model.state_dict().items()})
+    keys = ("train_rel_l2", "val_rel_l2", "test_rel_l2")
+    losses = [[r[k] for r in runs[m]["records"] for k in keys if k in r] for m in (False, True)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    rels = _param_rels(runs[True]["state"], runs[False]["state"])
+    bitwise = losses[0] == losses[1] and all(
+        torch.equal(runs[True]["state"][k], runs[False]["state"][k]) for k in rels)
+    steps = REMAT_EPOCHS * (NTRAIN // BATCH)
+    evals = REMAT_EPOCHS * (NVAL // BATCH) + NTEST // BATCH
+    want = _darcy_want(steps, evals, heads=True)
+    # the recompute runs each block's forward once more in the backward
+    want_remat = dict(want, cmul_fwd=want["cmul_fwd"] + 5 * steps)
+    if (len(losses[0]) != len(losses[1]) or not losses[0] or loss_rel > REMAT_REL
+            or max(rels.values()) > REMAT_REL or runs[False]["launches"] != want
+            or runs[True]["launches"] != want_remat):
+        raise AssertionError(f"[remat]: losses {losses} (rel {loss_rel}), weights rel "
+                             f"{max(rels.values())} (bound {REMAT_REL}), launches "
+                             f"{runs[False]['launches']} / {runs[True]['launches']}, expected "
+                             f"{want} / {want_remat}")
+    print(f"[remat] {PRESET} uno9 bf16 b{BATCH}, {steps} steps with and without remat_blocks: "
+          f"losses max rel {loss_rel:.3g}, weights max rel-L2 {max(rels.values()):.3g} (bound "
+          f"{REMAT_REL}; {'bit for bit' if bitwise else 'not bit for bit'}); launches without "
+          f"{runs[False]['launches']}, with {runs[True]['launches']}")
+    for m in (False, True):
+        ms = [v for ep in runs[m]["step_ms"] for v in ep][1:]
+        print(f"[remat] remat_blocks={m}: peak device memory {runs[m]['peak_gb']:.3f} GB; ms "
+              f"per step after the first {_spread(ms)}")
+    return runs[True]["launches"]
+
+
+def phase_head_switch(tmp: str) -> None:
+    """``cli predict`` with ``UNO_TPU_TORCH_NO_FUSED_HEAD=1`` on phase_predict's
+    split: no head launch, and the predictions against the kernel's."""
+    data = os.path.join(tmp, "darcy_s211.npz")
+    outs = [os.path.join(tmp, n) for n in ("preds.npz", "preds_no_head.npz")]
+    argv = ["predict", "--preset", PRESET, "--dtype", "bfloat16", "--init-seed", "0",
+            "--data-cache", data, "--ntrain", "0", "--nval", "0", "--ntest", str(NPREDICT),
+            "--split", "test", "--device", "cuda"]
+    with _env(UNO_TPU_TORCH_NO_FUSED_HEAD=1):
+        _zero_launches()
+        report = _run_cli(argv + ["--out", outs[1]])[-1]
+        launches = _launches()
+    kernel, unfused = (np.load(o)["pred"] for o in outs)
+    batches = len(report["batch_ms"])
+    rel = float(np.linalg.norm(unfused - kernel) / np.linalg.norm(kernel))
+    want = {"cmul_fwd": 5 * batches, "cmul_bwd_x": 0, "cmul_bwd_w": 0, "mlp_head_fwd": 0,
+            "mlp_head_bwd": 0}
+    if report["fused_head"] or launches != want or not rel <= HEAD_REL:
+        raise AssertionError(f"[head-switch]: fused_head {report['fused_head']}, launches "
+                             f"{launches} (expected {want}), rel-L2 {rel} (bound {HEAD_REL})")
+    print(f"[head-switch] cli predict {PRESET} uno9 bf16 with UNO_TPU_TORCH_NO_FUSED_HEAD=1: "
+          f"launches {launches}; predictions rel-L2 {rel:.3g} of the kernel's (bound {HEAD_REL}: "
+          f"both heads are f32 sums of the same bf16 input, in another order); ms per batch "
+          f"{_spread(report['batch_ms'])}")
 
 
 _SERVE_CODE = r"""
@@ -1703,9 +1853,13 @@ def main() -> int:
     oned_times = phase_kernels(dev, ONE_D_CMUL_SHAPES, None, "kernels 1d")
     dp_times = phase_kernels(dev, DP_CMUL_SHAPES, None, "kernels dp")
     dp_ns3d_times = phase_kernels(dev, DP_NS3D_CMUL_SHAPES, None, "kernels dp ns3d")
+    tp_times = phase_kernels(dev, TP_CMUL_SHAPES, None, "kernels tp")
+    spatial_times = phase_kernels(dev, CMUL_SHAPES, None, "kernels spatial")
     with tempfile.TemporaryDirectory() as tmp:
         fft_predict_ms = phase_predict(tmp)
+        phase_head_switch(tmp)
         launches, fft_train_ms = phase_train(tmp, dev)
+        remat_launches = phase_remat(tmp, dev)
         phase_dft(tmp, dev, fft_predict_ms, fft_train_ms)
         phase_generate(dev)
         phase_checkpoint(tmp, dev)
@@ -1720,7 +1874,7 @@ def main() -> int:
         phase_s421_predict(tmp, mat)
         sr_launches = phase_superres(tmp, dev, mat)
         dp_nccl_launches = phase_dp_nccl(tmp)
-        dp_launches, dp_ns3d_launches = phase_dp(tmp, dev)
+        mesh_launches = phase_dp(tmp, dev)
         export_launches = phase_export(tmp, dev)
         phase_profile(tmp)
         phase_custom_ops(tmp, dev, fft_predict_ms, ns_train_ms)
@@ -1742,14 +1896,21 @@ def main() -> int:
     # 1-D block's card check): the same keys at those paths' shapes; a
     # kernel a path does not run has launches 0 and on_path false; "dp_nccl"
     # (the Darcy train run as one NCCL rank: the Darcy shapes), "dp" and
-    # "dp_ns3d" (rank 0 of the two-rank runs, at B = 8) and "export" (the
-    # served artifact: the Darcy forward shapes)
+    # "dp_ns3d" (rank 0 of the two-rank runs, at B = 8), "export" (the
+    # served artifact: the Darcy forward shapes), "remat" (the remat_blocks
+    # run: the Darcy shapes), "tp" (rank 0 of the TP run, at the Co/2
+    # shards), "spatial" and "spatial_ns3d" (rank 0 of the split runs: the
+    # whole reduced modes, the Darcy and NS-3D shapes)
     export_times = {k: times[k] for k in ("cmul_fwd", "mlp_head_fwd")}
     paths = {"ns2d": (ns_times, ns_launches), "ns3d": (ns3d_times, ns3d_launches),
              "s421": (s421_times, s421_launches), "superres": (sr_times, sr_launches),
              "1d": (oned_times, oned_launches), "dp_nccl": (times, dp_nccl_launches),
-             "dp": (dp_times, dp_launches), "dp_ns3d": (dp_ns3d_times, dp_ns3d_launches),
-             "export": (export_times, export_launches)}
+             "dp": (dp_times, mesh_launches["dp"]),
+             "dp_ns3d": (dp_ns3d_times, mesh_launches["dp_ns3d"]),
+             "export": (export_times, export_launches), "remat": (times, remat_launches),
+             "tp": (tp_times, mesh_launches["tp"]),
+             "spatial": (spatial_times, mesh_launches["spatial"]),
+             "spatial_ns3d": (ns3d_times, mesh_launches["spatial_ns3d"])}
     kernels = []
     for name, (_, _, src, rep) in KERNELS.items():
         entry = dict(name=name, route="cuda", source=src, replaces=rep,

@@ -6,6 +6,9 @@ NS-2D rollout, the NS-3D model, the partial-DFT spectral path (2-D and
 CPU; the kernels' custom ops (``torch.library``) and an exported program
 served on the card.  Every case needs a CUDA device and skips without one.
 
+Since PR 11 also: the contractions at the TP shard shapes, the split
+spectral convs over a world of one, and ``remat_blocks`` on the card.
+
 This file imports no JAX, so it runs where the port runs; tests/conftest.py
 imports JAX, so on a machine without it run
 
@@ -37,6 +40,9 @@ UNO11_S421 = [(4, 32, 64, 648), (4, 64, 128, 128), (4, 128, 256, 18), (4, 256, 2
 # uno9's five forward contractions in the super-resolution evaluation, batch 8
 SUPERRES = [(8, 32, 64, 648), (8, 64, 128, 128), (8, 128, 128, 128), (8, 128, 64, 128),
             (8, 128, 32, 648)]
+# uno9's five contractions at darcy_s211 under 2-way channel TP: each rank's
+# Co/2 shard of every weight
+DARCY_S211_TP2 = [(b, ci, co // 2, m) for b, ci, co, m in DARCY_S211]
 
 
 @pytest.fixture
@@ -81,7 +87,8 @@ def _misaligned(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D + UNO11_S421 + SUPERRES)
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D + UNO11_S421 + SUPERRES
+                         + DARCY_S211_TP2)
 def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
     g = torch.Generator().manual_seed(1)
     x = _rand_c(g, b, ci, m).to(cuda)
@@ -98,7 +105,8 @@ def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D + UNO11_S421)
+@pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D + UNO11_S421
+                         + DARCY_S211_TP2)
 def test_cmul_backward_kernels_match_plain(cuda, b, ci, co, m):
     g_ = torch.Generator().manual_seed(3)
     x = _rand_c(g_, b, ci, m).to(cuda)
@@ -635,3 +643,65 @@ def test_all_reduce_sum_of_cuda_tensors_over_a_world_of_one(cuda):
         assert all(torch.equal(a, b) for a, b in zip(ts, want))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fft", "dft"])
+def test_split_spectral_convs_over_a_world_of_one(cuda, path):
+    """The split 2-D and 3-D convs and the truncation on the card, one rank
+    holding every row (NCCL): a partial DFT of all rows and an all-reduce
+    over one rank, against the unsplit op on the card; the FFT path's
+    contraction is the kernel."""
+    import torch.distributed as dist
+
+    from uno_tpu_torch.ops import spectral
+    from uno_tpu_torch.parallel import Split, initialize_from_env
+
+    assert initialize_from_env("nccl", world_size=1, rank=0)
+    spectral.set_dft_mode(path == "dft")
+    try:
+        g = torch.Generator().manual_seed(4)
+        sp = Split(dist.group.WORLD, 0, 1, 247)
+        x = torch.randn(4, 32, 247, 247, generator=g).to(cuda)
+        w = (_rand_c(g, 2, 32, 64, 18, 18) / 8.0).to(cuda)
+        before = C.LAUNCHES["fwd"]
+        got = spectral.spectral_conv_2d(x, w, (123, 123), (18, 18), sp)
+        want = spectral.spectral_conv_2d(x, w, (123, 123), (18, 18))
+        x3 = torch.randn(2, 8, 64, 64, 13, generator=g).to(cuda)
+        w3 = (_rand_c(g, 4, 8, 16, 8, 8, 7) / 4.0).to(cuda)
+        got3 = spectral.spectral_conv_3d(x3, w3, (32, 32, 13), (8, 8, 7), sp.at(64))
+        want3 = spectral.spectral_conv_3d(x3, w3, (32, 32, 13), (8, 8, 7))
+        got_t = spectral.fourier_truncate_3d(x3, (32, 32, 13), sp.at(64))
+        want_t = spectral.fourier_truncate_3d(x3, (32, 32, 13))
+        torch.cuda.synchronize()
+        assert C.LAUNCHES["fwd"] == before + (4 if path == "fft" else 0)
+        assert _rel(got, want) <= 1e-5 and _rel(got3, want3) <= 1e-5
+        assert _rel(got_t, want_t) <= 1e-5
+    finally:
+        spectral.set_dft_mode(None)
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_blocks_on_the_card(cuda, dtype):
+    """uno9 with and without ``remat_blocks`` on the card: the same output
+    and gradients, bit for bit (the recompute runs the same kernels on the
+    same inputs), and the recompute's extra forward contractions."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 85, 85, 1, generator=g).to(cuda)
+    runs = []
+    for remat in (False, True):
+        model = build_model("uno9", dtype=dtype, remat_blocks=remat, device=cuda,
+                            generator=torch.Generator().manual_seed(0), in_width=3, width=32,
+                            pad=5)
+        before = C.LAUNCHES["fwd"]
+        out = model(x)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        runs.append((out.detach(), {n: p.grad for n, p in model.named_parameters()},
+                     C.LAUNCHES["fwd"] - before))
+    (o0, g0, n0), (o1, g1, n1) = runs
+    assert torch.equal(o0, o1)
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert (n0, n1) == (5, 10)

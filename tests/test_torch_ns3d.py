@@ -286,15 +286,15 @@ def test_best_params_follow_the_per_step_val_loss(monkeypatch):
 
     # validation's (B, S, S, T) output does not require grad; training's
     # does (the logged step loss flattens it to (B * T, S * S) first)
-    def fake_relative_lp_loss(out, y, reduction="sum"):
+    def fake_relative_lp_loss(out, y, reduction="sum", group=None):
         if out.ndim == 4 and not out.requires_grad:
             return torch.tensor(next(full) * len(out))
-        return relative_lp_loss(out, y, reduction=reduction)
+        return relative_lp_loss(out, y, reduction=reduction, group=group)
 
-    def fake_step(out, y):
+    def fake_step(out, y, group=None):
         if not out.requires_grad:
             return torch.tensor(next(step) * len(out) * T_F)
-        return real(out, y)
+        return real(out, y, group)
 
     monkeypatch.setattr(ns3d, "relative_lp_loss", fake_relative_lp_loss)
     monkeypatch.setattr(ns3d, "step_rel_l2", fake_step)

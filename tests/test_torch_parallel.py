@@ -349,8 +349,8 @@ def test_initialize_from_env_is_a_no_op_without_env(monkeypatch):
     assert not torch.distributed.is_initialized()
     dp = make_mesh(device="cpu")
     assert (dp.group, dp.rank, dp.world, dp.device) == (None, 0, 1, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(n_spatial=2, device="cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        make_mesh(n_spatial=2, device="cpu")  # a 1 x 2 mesh in a single process
     with pytest.raises(ValueError, match="ranks"):
         make_mesh(n_data=2, device="cpu")
 

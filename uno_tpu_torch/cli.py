@@ -4,7 +4,8 @@
         (--data f.mat [g.mat ...] | --data-cache D.npz | --generate [--data-cache D.npz]) \\
         [--dtype bfloat16] [--device cuda] [--epochs N] [--log run.jsonl] \\
         [--checkpoint-dir CK [--checkpoint-every K] [--resume]] \\
-        [--data-parallel] [--profile-dir DIR] [--tensorboard DIR]
+        [--data-parallel] [--spatial N | --tensor-parallel N] \\
+        [--profile-dir DIR] [--tensorboard DIR]
     python -m uno_tpu_torch.cli train --preset ns2d|ns3d_t40 \\
         (--data ns.mat | --data-cache D.npz | --generate [--gen-dt DT] [--gen-T T]) ...
     python -m uno_tpu_torch.cli predict --preset darcy_s211|ns2d|ns3d_t40 \\
@@ -41,7 +42,12 @@ launcher variables (``torchrun``, or ``MASTER_ADDR``, ``MASTER_PORT``,
 NCCL for ``--device cuda`` (each rank on ``cuda:LOCAL_RANK``) and gloo for
 ``--device cpu``; the global batch is ``--batch-size``, split evenly over
 the ranks; rank 0 writes any data cache first, and alone logs and writes
-checkpoints.  ``--profile-dir`` writes a ``torch.profiler`` trace of the
+checkpoints.  ``--spatial N`` splits the grid's leading axis over N ranks
+(domain decomposition) and ``--tensor-parallel N`` shards every weight's
+out-channel axis over N ranks (``uno_tpu_torch.parallel``); they are
+mutually exclusive, both turn the fused head off, as ``uno_tpu``'s do, and
+with ``--data-parallel`` the ranks form a (data x N) mesh, else N ranks in
+all.  ``--profile-dir`` writes a ``torch.profiler`` trace of the
 run there, ``--tensorboard`` a TensorBoard scalar per logged number.
 
 ``--generate`` makes the preset's split with the port's generators on
@@ -301,10 +307,12 @@ def _no_tf32() -> None:
 
 
 def _precision_report() -> dict:
+    from uno_tpu_torch.ops.kernels.mlp_head import fused_head_enabled
     from uno_tpu_torch.ops.spectral import _dft_enabled
 
     return {
         "spectral": "dft" if _dft_enabled() else "fft",
+        "fused_head": fused_head_enabled(),
         "allow_tf32": {"cuda.matmul": torch.backends.cuda.matmul.allow_tf32,
                        "cudnn": torch.backends.cudnn.allow_tf32},
         "allow_bf16_reduced_precision_reduction":
@@ -342,6 +350,7 @@ def cmd_train(args) -> int:
     """Train a Darcy, NS-2D or NS-3D preset's model; JSONL metrics."""
     import torch.distributed as dist
 
+    from uno_tpu_torch.ops.kernels import mlp_head
     from uno_tpu_torch.train.darcy import train_darcy
     from uno_tpu_torch.train.metrics import MetricLogger
     from uno_tpu_torch.train.ns2d import train_ns2d
@@ -361,18 +370,31 @@ def cmd_train(args) -> int:
     if args.tensorboard:
         preset = dataclasses.replace(preset, train=dataclasses.replace(
             preset.train, log_tensorboard=args.tensorboard))
+    if args.tensor_parallel > 1 and args.spatial > 1:
+        raise SystemExit("--tensor-parallel and --spatial are mutually exclusive: both place "
+                         "work on the 'spatial' mesh axis (weights vs grid)")
+    n_model = max(args.spatial, args.tensor_parallel)
+    if args.tensor_parallel > 1:
+        preset = dataclasses.replace(preset, train=dataclasses.replace(
+            preset.train, tensor_parallel=True))
     dp, owns_group = None, False
-    if args.data_parallel:
+    if args.data_parallel or n_model > 1:
         from uno_tpu_torch.parallel import initialize_from_env, make_mesh
 
         owns_group = not dist.is_initialized()
         initialize_from_env("nccl" if device.type == "cuda" else "gloo")
-        dp = make_mesh(device=device)
+        dp = make_mesh(n_data=None if args.data_parallel else 1, n_spatial=n_model,
+                       device=device)
         device = dp.device
     main = dp is None or dp.main
     tee = _Tee(args.log) if args.log and main else None
     logger = None
+    head_mode = mlp_head._FUSED_HEAD_MODE
     try:
+        if n_model > 1:
+            # as uno_tpu/cli.py:357-363; under TP the model takes the unfused
+            # head whatever the switch says (fc1's hidden axis is sharded)
+            mlp_head.set_fused_head_mode(False)
         if not main:
             barrier(dp)  # rank 0 writes a missing data cache first
         data = _load_data(args, preset, device)
@@ -389,6 +411,7 @@ def cmd_train(args) -> int:
                 trainer = train_ns2d if preset.task == "ns2d" else train_ns3d
                 trainer(model, *data, preset.train, t_f=preset.t_f, logger=logger, dp=dp)
     finally:
+        mlp_head.set_fused_head_mode(head_mode)
         if logger is not None:
             logger.close()
         if tee is not None:
@@ -613,17 +636,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="uno_tpu_torch", formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="Not ported yet, with the ROADMAP.md item that brings it:\n"
-               "  bench                      Queue 1 item 2 (the H100 benchmark)")
+               "  bench                      the benchmark queue's item 2 (the H100 benchmark)")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser(
-        "train", help="train a Darcy, NS-2D or NS-3D preset's model",
-        formatter_class=argparse.RawDescriptionHelpFormatter,
-        epilog="Not ported yet, with the ROADMAP.md item that brings each:\n"
-               "  --spatial, --tensor-parallel\n"
-               "                             Queue 1 item 8 (spatial decomposition and\n"
-               "                             channel tensor parallelism on DTensor)",
-    )
+    p = sub.add_parser("train", help="train a Darcy, NS-2D or NS-3D preset's model")
     _add_data_args(p)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--learning-rate", type=float, default=None)
@@ -642,6 +658,13 @@ def main(argv=None) -> int:
                         "started with torchrun's variables (MASTER_ADDR, MASTER_PORT, "
                         "WORLD_SIZE, RANK, LOCAL_RANK) or uno_tpu's (COORDINATOR_ADDRESS, "
                         "NUM_PROCESSES, PROCESS_ID); NCCL on cuda, gloo on cpu")
+    p.add_argument("--spatial", type=int, default=1, metavar="N",
+                   help="split the grid's leading axis over N ranks (domain decomposition; "
+                        "with --data-parallel the mesh is data x spatial)")
+    p.add_argument("--tensor-parallel", type=int, default=1, metavar="N",
+                   help="channel tensor parallelism: shard every weight's out-channel axis "
+                        "over N ranks (mutually exclusive with --spatial: both use the "
+                        "'spatial' mesh axis)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of the run here")
     p.add_argument("--tensorboard", default=None,

@@ -32,16 +32,17 @@ MODEL_REGISTRY = {
 }
 
 
-def build_model(name: str, dtype=None, pad_to=None, device=None,
+def build_model(name: str, dtype=None, remat_blocks=None, pad_to=None, device=None,
                 generator=None, **kwargs) -> UNOModel:
     """A UNOModel for a registered spec name.
 
-    ``dtype`` ('float32' | 'bfloat16') and ``pad_to`` override the spec's
-    precision and padding policies; parameters are drawn from ``generator``
-    and placed on ``device``.
+    ``dtype`` ('float32' | 'bfloat16'), ``remat_blocks`` and ``pad_to``
+    override the spec's precision, rematerialisation and padding policies;
+    parameters are drawn from ``generator`` and placed on ``device``.
     """
     spec = MODEL_REGISTRY[name](**kwargs)
-    over = {k: v for k, v in (("dtype", dtype), ("pad_to", pad_to)) if v is not None}
+    over = {k: v for k, v in (("dtype", dtype), ("remat_blocks", remat_blocks),
+                              ("pad_to", pad_to)) if v is not None}
     if over:
         spec = dataclasses.replace(spec, **over)
     return UNOModel(spec, device=device, generator=generator)

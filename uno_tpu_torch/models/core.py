@@ -11,6 +11,19 @@ equal); grid arithmetic uses ``fractions.Fraction`` floors, exactly.
 encoder while the time axis expands through the decoder) are interpreted,
 as in ``uno_tpu``, whose model has no 1-D padding mode and so no 1-D spec;
 the 1-D operator layers are in ``nn/layers.py``.
+
+``remat_blocks`` runs each OperatorBlock under non-reentrant
+``torch.utils.checkpoint`` when grad is on (``uno_tpu``'s ``nn.checkpoint``):
+the forward keeps each block's input, the backward recomputes the block.
+The recompute runs the same kernels on the same inputs, so the numbers are
+the same bits.
+
+Under the mesh's ``spatial`` axis (``uno_tpu_torch/parallel``) the model
+runs split (``forward(x, split=)``: each rank holds its rows of the first
+grid axis; ``input_rows`` says which) or, after ``parallel/tp.py``
+``shard_state_tp``, channel tensor parallel (the layers gather what they
+shard; the head then always takes the unfused Dense pair, since fc1's
+hidden axis is sharded).
 """
 
 from __future__ import annotations
@@ -22,11 +35,13 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from uno_tpu_torch.models.embeddings import EMBEDDINGS
 from uno_tpu_torch.nn.layers import Dense, OperatorBlock, gelu
-from uno_tpu_torch.ops.kernels.mlp_head import mlp_head
+from uno_tpu_torch.ops.kernels.mlp_head import fused_head_enabled, mlp_head
 from uno_tpu_torch.ops.resample import resize
+from uno_tpu_torch.parallel.spatial import Axis, Split
 
 LIFT = -1  # skip source: the padded lift output x_fc0
 
@@ -62,7 +77,7 @@ class UNOSpec:
     # inter-block activations in bf16 with f32 accumulation; FFTs, spectral
     # weights, norm statistics and the projection head stay f32.
     dtype: str = "float32"
-    remat_blocks: bool = False         # uno_tpu: jax.checkpoint each block
+    remat_blocks: bool = False         # checkpoint each operator block
     # round padded grid sizes up to a multiple (extra zeros on the trailing
     # edge, cropped exactly)
     pad_to: Optional[int] = None
@@ -146,13 +161,29 @@ class UNOModel(nn.Module):
             ]
         return pads
 
-    def _crop(self, pieces, orig, pads):
+    def input_rows(self, size: Tuple[int, ...], axis: Axis) -> Tuple[int, int]:
+        """The rows [lo, hi) of the first grid axis of an input of global
+        spatial ``size`` that rank ``axis.rank`` holds when the model runs
+        split: the input's rows that fall in the rank's rows of the padded
+        grid (``parallel/spatial.py``), so that padding and cropping move
+        nothing between ranks and the bottom pad rows belong to the last
+        ranks."""
+        (lo_pad, hi_pad), n = self._pads(tuple(size))[0], size[0]
+        a, b = axis.split(lo_pad + n + hi_pad).rows()
+        return min(max(a - lo_pad, 0), n), min(max(b - lo_pad, 0), n)
+
+    def _crop(self, pieces, orig, pads, rows=None):
         """The padding cropped from each channel piece: the padded cells in
-        2-D; ``floor(crop_mult * pad)`` of each padded side of the time
-        axis in 3-D (the time axis grows through the blocks)."""
+        2-D (``rows``: the rank's output rows of the first axis, split);
+        ``floor(crop_mult * pad)`` of each padded side of the time axis in
+        3-D (the time axis grows through the blocks)."""
         if self.spec.ndim == 2:
             (lo1, _), (lo2, _) = pads
             s1, s2 = orig
+            if rows is not None:  # a, b: the rank's padded rows; keep the data ones
+                (a, b), lo, hi = rows
+                r0, r1 = lo + lo1 - a, hi + lo1 - a
+                return [p[..., r0:r1, lo2 : lo2 + s2] for p in pieces]
             if any(p.shape[-2:] != (s1, s2) for p in pieces):
                 pieces = [p[..., lo1 : lo1 + s1, lo2 : lo2 + s2] for p in pieces]
             return pieces
@@ -162,12 +193,21 @@ class UNOModel(nn.Module):
             pieces = [p[..., c_lo : p.shape[-1] - c_hi] for p in pieces]
         return pieces
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, split: Optional[Split] = None) -> torch.Tensor:
+        """``split``: the ranks of the mesh's spatial axis when x holds this
+        rank's rows ``input_rows(size, split)`` of the first grid axis, its
+        global length given by ``split.n`` (a ``Split``); the output holds
+        the same rows."""
         spec = self.spec
         if x.ndim != spec.ndim + 2:
             raise ValueError(f"{spec.name}: expected a {spec.ndim + 2}-D channels-last input, "
                              f"got {tuple(x.shape)}")
-        grid = EMBEDDINGS[spec.embed](x.shape, x.device)
+        size = tuple(x.shape[1:-1]) if split is None else (split.n, *x.shape[2:-1])
+        rows = None if split is None else self.input_rows(size, split)
+        if rows is not None and x.shape[1] != rows[1] - rows[0]:
+            raise ValueError(f"{spec.name}: rank {split.rank} of {split.world} holds rows "
+                             f"{rows} of {size[0]}, got {x.shape[1]}")
+        grid = EMBEDDINGS[spec.embed]((x.shape[0], *size), x.device, rows)
         x = torch.cat([x.float(), grid], dim=-1)
         if x.shape[-1] != spec.in_width:
             raise ValueError(
@@ -179,36 +219,59 @@ class UNOModel(nn.Module):
         h = gelu(self.fc(x))
         v = gelu(self.fc0(h)).movedim(-1, 1)  # channels-first
 
-        orig = tuple(v.shape[2:])
-        pads = self._pads(orig)
-        if any(lo or hi for lo, hi in pads):
-            v = torch.nn.functional.pad(v, [n for lo_hi in reversed(pads) for n in lo_hi])
-        base = v.shape[2:]
+        pads = self._pads(size)
+        base = tuple(lo + n + hi for n, (lo, hi) in zip(size, pads))
+        local_pads, padded_rows = pads, None
+        if split is not None:
+            # this rank's padded rows [a, b): its data rows plus the pad rows
+            # that fall in them (zeros), the other axes padded as usual
+            padded_rows = split.split(base[0]).rows()
+            top = max(0, min(padded_rows[1], pads[0][0]) - padded_rows[0])
+            local_pads = [(top, padded_rows[1] - padded_rows[0] - top - v.shape[2])] + pads[1:]
+        if any(lo or hi for lo, hi in local_pads):
+            v = torch.nn.functional.pad(v, [n for lo_hi in reversed(local_pads) for n in lo_hi])
 
         # U-stack.  Skips are materialized with torch.cat, except after the
         # last block, whose pieces are cropped first and concatenated at the
         # cropped grid (one copy instead of concat + crop).  3-D skip
         # sources are resized trilinearly to the current grid first.
         outs = []
-        cur = v
+        cur, n_cur = v, base[0]  # n_cur: the global rows of cur's first grid axis
         last = len(spec.blocks) - 1
+        grad = torch.is_grad_enabled()
         for i, blk in enumerate(spec.blocks):
             out_size = tuple(_scale(d, g) for d, g in zip(base, blk.grid))
-            cur = getattr(self, f"block{i}")(cur, out_size)
+            block = getattr(self, f"block{i}")
+            sp = None if split is None else split.split(n_cur)
+            if spec.remat_blocks and grad:
+                # no random ops in a block: no RNG state to keep for the recompute
+                cur = checkpoint(block, cur, out_size, sp, use_reentrant=False,
+                                 preserve_rng_state=False)
+            else:
+                cur = block(cur, out_size, sp)
+            n_cur = out_size[0]
             if blk.skip is not None:
                 src = v if blk.skip == LIFT else outs[blk.skip]
                 if spec.ndim == 3:
-                    src = resize(src, cur.shape[2:], (2, 3, 4), "linear", True, False)
+                    src_grid = Fraction(1) if blk.skip == LIFT else spec.blocks[blk.skip].grid[0]
+                    src = resize(src, (n_cur, *cur.shape[3:]), (2, 3, 4), "linear", True, False,
+                                 None if split is None else split.split(_scale(base[0], src_grid)))
                 cur = [cur, src] if i == last else torch.cat([cur, src], dim=1)
             outs.append(cur)
 
-        pieces = self._crop(cur if isinstance(cur, list) else [cur], orig, pads)
+        if split is not None and n_cur != base[0]:
+            raise NotImplementedError(f"{spec.name}: a split run needs the last block at the "
+                                      f"padded grid's {base[0]} rows, not {n_cur}")
+        crop_rows = None if split is None else (padded_rows, *rows)
+        pieces = self._crop(cur if isinstance(cur, list) else [cur], size, pads, crop_rows)
         cur = torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0]
 
         # projection head: f32 weights, dots, GELU and output; only the input
-        # may be bf16.  Under bf16 a 2-D model runs the fused kernel; a 3-D
-        # model always takes the unfused f32 Dense pair, as in uno_tpu.
-        if self.dtype == torch.bfloat16 and spec.ndim == 2 and not spec.proj_concat_lift:
+        # may be bf16.  Under bf16 a 2-D model runs the fused kernel unless
+        # the head switch is off (or fc1 is sharded under TP); a 3-D model
+        # always takes the unfused f32 Dense pair, as in uno_tpu.
+        if (self.dtype == torch.bfloat16 and spec.ndim == 2 and not spec.proj_concat_lift
+                and self.fc1.tp is None and fused_head_enabled()):
             out = mlp_head(
                 cur.to(torch.bfloat16).contiguous(),
                 self.fc1.weight.t().contiguous(), self.fc1.bias,

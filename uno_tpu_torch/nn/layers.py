@@ -19,6 +19,20 @@ transposes).  Layers take channels-first ``(B, C, *spatial)`` input and an
 bf16 with f32 accumulation; spectral weights and norm statistics stay f32,
 and so do the spectral transforms on the FFT path (on the partial-DFT path
 they take bf16 operands, ``ops/spectral.py``).
+
+Two forms for a model shared by the ranks of the mesh's ``spatial`` axis
+(``uno_tpu_torch/parallel``):
+
+* split: ``forward(..., split=)`` takes this rank's rows of the first grid
+  axis (a ``Split``) and returns its rows of ``out_size``; the spectral
+  conv, the resample along that axis and the norm's statistics reach the
+  other ranks (``parallel/spatial.py``), the channel products do not.
+* channel tensor parallel: after ``parallel/tp.py`` ``shard_state_tp`` a
+  layer's ``tp`` is set and its parameters hold this rank's shard of their
+  out-channel axis.  ``Dense`` computes its out-channel shard and gathers
+  the channels; ``SpectralConv`` and ``PointwiseOp`` return their shard;
+  ``OperatorBlock`` normalises its shard (instance norm is per channel) and
+  gathers the channels after the GELU.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from uno_tpu_torch.ops.norm import instance_norm
+from uno_tpu_torch.parallel.spatial import gather_channels
 from uno_tpu_torch.ops.resample import resize
 from uno_tpu_torch.ops.spectral import (
     fourier_truncate_3d,
@@ -65,10 +80,12 @@ class Dense(nn.Module):
         k = 1.0 / math.sqrt(in_features)
         self.weight = _uniform((features, in_features), k, generator, device)
         self.bias = _uniform((features,), k, generator, device)
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        y = F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return y if self.tp is None else gather_channels(y, -1, self.tp)
 
 
 _SPECTRAL_FNS = {1: spectral_conv_1d, 2: spectral_conv_2d, 3: spectral_conv_3d}
@@ -86,12 +103,16 @@ class SpectralConv(nn.Module):
         self.modes = tuple(modes)
         self.weights = nn.Parameter(spectral_weight_init(
             in_codim, out_codim, self.modes, _N_BLOCKS[len(self.modes)], generator, device))
+        self.tp = None
 
-    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...], split=None) -> torch.Tensor:
         fn = _SPECTRAL_FNS[len(self.modes)]
         if len(self.modes) == 1:
+            if split is not None:
+                raise NotImplementedError(
+                    "a split 1-D spectral conv: uno_tpu has no 1-D model or trainer to split")
             return fn(x, self.weights, out_size[0], self.modes[0])
-        return fn(x, self.weights, tuple(out_size), self.modes)
+        return fn(x, self.weights, tuple(out_size), self.modes, split)
 
 
 class PointwiseOp(nn.Module):
@@ -109,24 +130,29 @@ class PointwiseOp(nn.Module):
         k = 1.0 / math.sqrt(in_codim)
         self.weight = _uniform((out_codim, in_codim), k, generator, device)
         self.bias = _uniform((out_codim,), k, generator, device)
+        self.tp = None
 
     def _conv(self, z: torch.Tensor) -> torch.Tensor:
         b, _, *spatial = z.shape
-        k = self.weight.to(self.dtype)
+        k = self.weight.to(self.dtype)  # (out, in), or this rank's out-channel shard
         y = torch.matmul(k, z.to(self.dtype).reshape(b, self.in_codim, -1))
-        return y.reshape(b, self.out_codim, *spatial)
+        return y.reshape(b, k.shape[0], *spatial)
 
-    def _resize(self, z: torch.Tensor, out_size) -> torch.Tensor:
+    def _resize(self, z: torch.Tensor, out_size, split=None) -> torch.Tensor:
         if len(out_size) == 1:
             return resize(z, out_size, (2,), "linear", True, True)
         if len(out_size) == 2:
-            return resize(z, out_size, (2, 3), "cubic", True, True)
+            return resize(z, out_size, (2, 3), "cubic", True, True, split)
         # kept as uno_tpu keeps it; resize skips the axes already at size
-        z = fourier_truncate_3d(z, tuple(out_size))
-        return resize(z, out_size, (2, 3, 4), "linear", True, False)
+        z = fourier_truncate_3d(z, tuple(out_size), split)
+        return resize(z, out_size, (2, 3, 4), "linear", True, False,
+                      None if split is None else split.at(out_size[0]))
 
-    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...]) -> torch.Tensor:
-        in_grid = x.shape[2:]
+    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...], split=None) -> torch.Tensor:
+        """``split``: x holds its rows of axis 2 (``parallel/spatial.py``);
+        the FLOP rule below reads the global grid, so every rank takes the
+        branch an unsplit call takes."""
+        in_grid = x.shape[2:] if split is None else (split.n, *x.shape[3:])
 
         def resize_flops(ch: int) -> float:
             dims = list(in_grid)
@@ -159,11 +185,11 @@ class PointwiseOp(nn.Module):
         resize_first = resize_flops(self.in_codim) + n_out * self.in_codim * self.out_codim
         shape = (1, -1) + (1,) * len(out_size)
         if resize_first < conv_first:
-            y = self._conv(self._resize(x, out_size))
+            y = self._conv(self._resize(x, out_size, split))
             bias = self.bias * (n_in / n_out) if len(out_size) == 3 else self.bias
             return y + bias.to(y.dtype).reshape(shape)
         y = self._conv(x)
-        return self._resize(y + self.bias.to(y.dtype).reshape(shape), out_size)
+        return self._resize(y + self.bias.to(y.dtype).reshape(shape), out_size, split)
 
 
 class OperatorBlock(nn.Module):
@@ -182,18 +208,22 @@ class OperatorBlock(nn.Module):
             self.norm_scale = nn.Parameter(torch.ones(out_codim, device=device))
             self.norm_bias = nn.Parameter(torch.zeros(out_codim, device=device))
 
-    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...], split=None) -> torch.Tensor:
         # uno_tpu's dtype flow: W is in the compute dtype; the spectral conv
         # is f32 on the FFT path, so under bf16 the sum, norm and GELU run in
         # f32 before the final cast, and bf16 on the DFT path, where they
         # run in bf16 (the norm's statistics in f32)
-        out = self.conv(x, out_size) + self.w(x, out_size)
+        out = self.conv(x, out_size, split) + self.w(x, out_size, split)
         if self.normalize:
-            out = instance_norm(out, self.norm_scale, self.norm_bias)
+            out = instance_norm(out, self.norm_scale, self.norm_bias,
+                                split=None if split is None else split.at(out_size[0]))
+        tp = self.conv.tp  # under TP, out holds this rank's channel shard
         if self.residual:
-            if x.shape != out.shape:
+            res = x if tp is None else x.narrow(1, out.shape[1] * tp.rank, out.shape[1])
+            if res.shape != out.shape:
                 raise ValueError(
                     f"residual block needs matching shapes, {tuple(x.shape)} vs {tuple(out.shape)}"
                 )
-            out = out + x
-        return gelu(out).to(self.dtype)
+            out = out + res
+        out = gelu(out).to(self.dtype)
+        return out if tp is None else gather_channels(out, 1, tp)

@@ -124,6 +124,18 @@ def _device_table(table_fn, args: tuple, dtype: torch.dtype, device: torch.devic
     return build(table_fn, args, dtype, device)
 
 
+@lru_cache(maxsize=256)
+def _rows_T(table_fn, args: tuple, axis: int, lo: int, hi: int) -> np.ndarray:
+    """Rows ``[lo, hi)`` of ``table_fn(*args)``'s spatial axis ``axis``: the
+    table of a transform of the rows one rank holds (``parallel/spatial.py``)."""
+    return np.ascontiguousarray(np.take(table_fn(*args), np.arange(lo, hi), axis=axis))
+
+
+def _table(table_fn, args: tuple, axis: int, rows) -> tuple:
+    """(table function, args) of a whole table, or of its ``rows``."""
+    return (table_fn, args) if rows is None else (_rows_T, (table_fn, args, axis, *rows))
+
+
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     """The dtype rule above: bf16 and float64 stay, anything else is f32."""
     return dtype if dtype in (torch.bfloat16, torch.float64) else torch.float32
@@ -159,20 +171,25 @@ def _cplx_ein(ndim: int, ax: int) -> str:
 
 
 def fwd_cplx(x: torch.Tensor, axis: int, n: int, idx: Sequence[int],
-             scaled: bool = True) -> torch.Tensor:
+             scaled: bool = True, rows=None) -> torch.Tensor:
     """Forward partial DFT along ``axis`` of a packed-complex tensor (plane
-    axis at position 2), contracting (plane, axis) in one einsum."""
+    axis at position 2), contracting (plane, axis) in one einsum.  With
+    ``rows`` (lo, hi), x holds only those rows of the ``n``-long axis and
+    the result is their part of the sum."""
     ax = axis % x.ndim
-    return _dot(x, _fwd_cplx_T, (n, tuple(idx), scaled), _cplx_ein(x.ndim, ax))
+    return _dot(x, *_table(_fwd_cplx_T, (n, tuple(idx), scaled), 1, rows),
+                _cplx_ein(x.ndim, ax))
 
 
 def inv_cplx(x: torch.Tensor, axis: int, n: int, idx: Sequence[int],
-             scaled: bool = False) -> torch.Tensor:
+             scaled: bool = False, rows=None) -> torch.Tensor:
     """Full inverse DFT along ``axis`` from bins ``idx`` (all others zero) of
-    a packed-complex tensor; the output axis has length ``n``.  ``scaled``
-    divides by n (the default/backward norm)."""
+    a packed-complex tensor; the output axis has length ``n``, or holds only
+    its ``rows`` (lo, hi).  ``scaled`` divides by n (the default/backward
+    norm)."""
     ax = axis % x.ndim
-    return _dot(x, _inv_cplx_T, (n, tuple(idx), scaled), _cplx_ein(x.ndim, ax))
+    return _dot(x, *_table(_inv_cplx_T, (n, tuple(idx), scaled), 3, rows),
+                _cplx_ein(x.ndim, ax))
 
 
 def inv_real(x: torch.Tensor, axis: int, n_out: int, scaled: bool = False) -> torch.Tensor:

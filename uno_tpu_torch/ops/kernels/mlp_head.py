@@ -29,11 +29,16 @@ calls launch directly.
 
 A tensor on the CPU goes to the plain versions; a CUDA tensor goes to the
 kernels.
+
+``set_fused_head_mode`` and ``UNO_TPU_TORCH_NO_FUSED_HEAD=1`` (port of
+``uno_tpu``'s ``set_fused_head_mode`` / ``UNO_TPU_NO_FUSED_HEAD``) turn the
+kernel off: ``UNOModel`` then takes the unfused f32 Dense pair.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import torch
@@ -364,3 +369,23 @@ def mlp_head(x, k1, b1, k2, b2):
     else:
         out = _forward(xf, k1, b1, k2, b2)
     return out.reshape((bsz, -1) + spatial)
+
+
+# The head switch: None = the environment decides (UNO_TPU_TORCH_NO_FUSED_HEAD=1
+# turns the kernel off, anything else leaves it on where it applies: a 2-D
+# bf16 model without ``proj_concat_lift``), True/False = forced.  Read by
+# ``UNOModel`` before it calls the head, never after an error.
+_FUSED_HEAD_MODE = None
+
+
+def set_fused_head_mode(enabled) -> None:
+    """Force (True/False) or leave to the environment (None) the fused
+    projection head."""
+    global _FUSED_HEAD_MODE
+    _FUSED_HEAD_MODE = enabled
+
+
+def fused_head_enabled() -> bool:
+    if _FUSED_HEAD_MODE is not None:
+        return _FUSED_HEAD_MODE
+    return os.environ.get("UNO_TPU_TORCH_NO_FUSED_HEAD") != "1"

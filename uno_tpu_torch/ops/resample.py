@@ -22,10 +22,12 @@ The weight formulas replicate ``F.interpolate``:
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from uno_tpu_torch.parallel.spatial import Split, gather_rows, partition
 
 _FILTER_SUPPORT = {"linear": 2, "cubic": 4, "nearest": 1}
 
@@ -119,6 +121,19 @@ def _build_table(n_in, n_out, kernel, align_corners, antialias, device, dtype):
 _table = lru_cache(maxsize=256)(_build_table)
 
 
+@lru_cache(maxsize=256)
+def _bands(n_in, n_out, kernel, align_corners, antialias, world) -> tuple:
+    """Per rank of a split axis, the input rows [lo, hi) that its output
+    rows read: the nonzero columns of its rows of the (out, in) table."""
+    wm = resize_matrix(n_in, n_out, kernel, align_corners, antialias)
+    bands = []
+    for q in range(world):
+        lo, hi = partition(n_out, world, q)
+        cols = np.flatnonzero(np.any(wm[lo:hi] != 0, axis=0))
+        bands.append((int(cols[0]), int(cols[-1]) + 1))
+    return tuple(bands)
+
+
 def resize(
     x: torch.Tensor,
     out_sizes: Sequence[int],
@@ -126,6 +141,7 @@ def resize(
     kernel: str = "linear",
     align_corners: bool = True,
     antialias: bool = True,
+    split: Optional[Split] = None,
 ) -> torch.Tensor:
     """Resize ``x`` along ``axes`` to ``out_sizes`` (torch interpolate parity).
 
@@ -133,18 +149,30 @@ def resize(
     size is unchanged are skipped (scale 1 makes every kernel's table the
     identity).  Under bf16 the table is cast to bf16 so the product stays
     bf16 with f32 accumulation, as ``uno_tpu``'s mixed-precision policy has
-    it; any other dtype resamples in f32.
+    it; float64 resamples in float64 and any other dtype in f32.
+
+    With ``split``, axis 2 is split over its ranks (``split.n`` rows): a
+    rank's output rows read a band of input rows a few rows wider than its
+    own (the tables are banded), which ``gather_rows`` brings from its
+    neighbours; the rank never holds the whole axis.
     """
     assert len(out_sizes) == len(axes)
     dtype = x.dtype
-    cdt = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    cdt = dtype if dtype in (torch.bfloat16, torch.float64) else torch.float32
     for ax, out_size in zip(axes, out_sizes):
         ax = ax % x.ndim
-        n_in = x.shape[ax]
+        split_ax = split is not None and ax == 2
+        n_in = split.n if split_ax else x.shape[ax]
         if n_in == out_size:
             continue
         table = _build_table if torch.compiler.is_exporting() else _table
         wm = table(n_in, out_size, kernel, align_corners, antialias, x.device, cdt)
+        if split_ax:
+            bands = _bands(n_in, out_size, kernel, align_corners, antialias, split.world)
+            (lo, hi), (blo, bhi) = split.at(out_size).rows(), bands[split.rank]
+            xb = gather_rows(x.to(cdt), split, bands)
+            x = torch.matmul(wm[lo:hi, blo:bhi], xb.movedim(2, -2)).movedim(-2, 2)
+            continue
         xc = x.to(cdt)
         if ax == x.ndim - 1:
             x = torch.matmul(xc, wm.t())

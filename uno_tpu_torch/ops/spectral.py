@@ -28,6 +28,16 @@ None, by the environment variable ``UNO_TPU_TORCH_DFT=1``:
   the truncation is written by hand as the mirrored chain of transposed
   stages (``_DFTConv1d``, ``_DFTConv2d``, ``_DFTConv3d``,
   ``_DFTTruncate3d``).
+
+Each 2-D and 3-D op also runs with its first grid axis split over the ranks
+of a ``parallel/spatial.py`` ``Split`` (``split=``): no rank holds the whole
+grid.  The other axes are transformed locally and the kept modes of the
+split axis come from a partial DFT of the rank's own rows at their global
+indices, summed over the ranks by one ``psum`` (the kept-mode
+block only); every rank contracts the same block (through the CUDA kernel
+on the FFT path) and inverts the split axis for its own output rows only,
+with no collective.  The backward is autograd's through those stages, the
+all-reduce's being an all-reduce.
 """
 
 from __future__ import annotations
@@ -35,12 +45,14 @@ from __future__ import annotations
 import math
 import os
 from functools import lru_cache
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from uno_tpu_torch.ops import dft
 from uno_tpu_torch.ops.kernels.cmul import cmul
+from uno_tpu_torch.parallel.spatial import Split, psum
 
 # Transform policy: None = the environment decides (UNO_TPU_TORCH_DFT=1 turns
 # the partial-DFT path on, anything else leaves the FFT path), True/False =
@@ -60,6 +72,21 @@ def _dft_enabled() -> bool:
     if _DFT_MODE is not None:
         return _DFT_MODE
     return os.environ.get("UNO_TPU_TORCH_DFT") == "1"
+
+
+def default_modes_1d(dim1: int) -> int:
+    """Reference default: ``modes1 = dim1 // 2`` (integral_operators.py:34)."""
+    return dim1 // 2
+
+
+def default_modes_2d(dim1: int, dim2: int) -> Tuple[int, int]:
+    """Reference defaults (integral_operators.py:157-158)."""
+    return dim1 // 2 - 1, dim2 // 2
+
+
+def default_modes_3d(dim1: int, dim2: int, dim3: int) -> Tuple[int, int, int]:
+    """Reference defaults (integral_operators.py:331-333)."""
+    return dim1, dim2, dim3 // 2 + 1
 
 
 def spectral_weight_init(
@@ -101,9 +128,12 @@ def spectral_conv_2d(
     weights: torch.Tensor,
     out_size: Tuple[int, int],
     modes: Tuple[int, int],
+    split: Optional[Split] = None,
 ) -> torch.Tensor:
     """2D spectral conv.  x: (B, Ci, H, W) real -> (B, Co, d1, d2): f32 on
-    the FFT path; on the DFT path bf16 for a bf16 x, else f32.
+    the FFT path (float64 for a float64 x); on the DFT path bf16 for a bf16
+    x, else f32.  With ``split``, x holds its rows of an H = ``split.n``
+    grid and the result its rows of d1 (the module docstring).
 
     weights: (2, Ci, Co, m1, m2) complex64 — block 0 multiplies the
     ``[:m1, :m2]`` (non-negative kx) corner, block 1 the ``[-m1:, :m2]``
@@ -112,13 +142,17 @@ def spectral_conv_2d(
     d1, d2 = out_size
     m1, m2 = modes
     h, w_in = x.shape[-2:]
+    if split is not None:
+        h = split.n
     if m1 > d1 or m1 > h or m2 > d2 // 2 + 1 or m2 > w_in // 2 + 1:
         raise ValueError(f"modes {modes} incompatible with in {tuple(x.shape)} out {out_size}")
 
     w = torch.cat([weights[0], weights[1]], dim=2)  # (Ci, Co, 2*m1, m2)
+    if split is not None:
+        return _split_conv_2d(x, w, (d1, d2), (m1, m2), split)
     if _dft_enabled():
         return _DFTConv2d.apply(x, w, (d1, d2), (m1, m2))
-    x_ft = torch.fft.rfft2(x.float(), norm="forward")
+    x_ft = torch.fft.rfft2(_f32(x), norm="forward")
     corners = torch.cat([x_ft[:, :, :m1, :m2], x_ft[:, :, h - m1 :, :m2]], dim=2)
     out = complex_mode_matmul(corners, w)  # (B, Co, 2*m1, m2)
 
@@ -164,10 +198,12 @@ def spectral_conv_3d(
     weights: torch.Tensor,
     out_size: Tuple[int, int, int],
     modes: Tuple[int, int, int],
+    split: Optional[Split] = None,
 ) -> torch.Tensor:
     """3D spectral conv.  x: (B, Ci, X, Y, T) real -> (B, Co, d1, d2, d3):
     f32 on the FFT path (float64 for a float64 x); on the DFT path bf16 for
-    a bf16 x, else f32.
+    a bf16 x, else f32.  With ``split``, x holds its rows of an X =
+    ``split.n`` grid and the result its rows of d1.
 
     weights: (4, Ci, Co, m1, m2, m3) complex64, the four (kx, ky) sign
     quadrants in the reference's order: (+,+), (-,+), (+,-), (-,-).
@@ -175,12 +211,16 @@ def spectral_conv_3d(
     d1, d2, d3 = out_size
     m1, m2, m3 = modes
     sx, sy, st = x.shape[-3:]
+    if split is not None:
+        sx = split.n
     if m1 > d1 or m1 > sx or m2 > d2 or m2 > sy or m3 > d3 // 2 + 1 or m3 > st // 2 + 1:
         raise ValueError(f"modes {modes} incompatible with in {tuple(x.shape)} out {out_size}")
 
     w_lo = torch.cat([weights[0], weights[2]], dim=3)
     w_hi = torch.cat([weights[1], weights[3]], dim=3)
     w = torch.cat([w_lo, w_hi], dim=2)  # (Ci, Co, 2*m1, 2*m2, m3)
+    if split is not None:
+        return _split_conv_3d(x, w, (d1, d2, d3), (m1, m2, m3), split)
     if _dft_enabled():
         return _DFTConv3d.apply(x, w, (d1, d2, d3), (m1, m2, m3))
     x_ft = torch.fft.rfftn(_f32(x), dim=(-3, -2, -1), norm="forward")
@@ -228,7 +268,8 @@ def _truncate_mask(*args):
     return build(*args)
 
 
-def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int]) -> torch.Tensor:
+def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int],
+                        split: Optional[Split] = None) -> torch.Tensor:
     """Low-pass the spectrum as the reference's 3-D pointwise op does.  x:
     (B, C, X, Y, T) -> (B, C, d1, d2, d3): on the FFT path f32 whatever the
     input dtype (but float64); on the DFT path bf16 for a bf16 x, else f32.
@@ -241,9 +282,12 @@ def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int]) -> torc
     quadrant slices, ``m = d // 2`` per axis, at the input's indices; the
     irfftn to ``out_size`` then trims or zero-pads the trailing entries of
     each axis.  The DFT path computes the same map from the kept bins
-    alone (``_DFTTruncate3d``).
+    alone (``_DFTTruncate3d``).  With ``split``, x holds its rows of an X =
+    ``split.n`` grid and the result its rows of d1.
     """
     d1, d2, d3 = out_size
+    if split is not None:
+        return _split_truncate_3d(x, (d1, d2, d3), split)
     if _dft_enabled():
         return _DFTTruncate3d.apply(x, (d1, d2, d3))
     ft = torch.fft.rfftn(_f32(x), dim=(-3, -2, -1))
@@ -497,3 +541,121 @@ class _DFTTruncate3d(torch.autograd.Function):
         gp = dft.t_fwd_cplx(gp, -2, sy, ky, scaled=False)
         gp = dft.t_fwd_cplx(gp, -3, sx, kx, scaled=False)
         return dft.t_fwd_real(gp, -1, t_full, kt, scaled=False).to(xdtype), None
+
+
+# --- the first grid axis split over ranks -------------------------------------
+
+
+def _build_row_dft(n: int, bins: tuple, lo: int, hi: int, inverse: bool, scale: float,
+                   dtype: torch.dtype, device) -> torch.Tensor:
+    """The DFT of rows ``[lo, hi)`` of an ``n``-point axis at ``bins``:
+    ``scale * e^{-2 pi i k j / n}`` as (len(bins), hi - lo), or with
+    ``inverse`` ``scale * e^{+2 pi i k j / n}`` as (hi - lo, len(bins));
+    complex ``dtype``.  Built outside inference mode (a later backward may
+    save it)."""
+    k = np.asarray(bins, np.int64)[:, None]
+    j = np.arange(lo, hi, dtype=np.int64)[None, :]
+    t = np.exp((1j if inverse else -1j) * 2.0 * np.pi * ((k * j) % n) / n) * scale
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(t.T if inverse else t)).to(
+            device=device, dtype=dtype)
+
+
+# built once per process; while torch.export traces, tensors are fake, and a
+# table built then is not cached (the trace records it as a constant)
+_cached_row_dft = lru_cache(maxsize=256)(_build_row_dft)
+
+
+def _row_dft(*args) -> torch.Tensor:
+    build = _build_row_dft if torch.compiler.is_exporting() else _cached_row_dft
+    return build(*args)
+
+
+def _fwd_rows(x: torch.Tensor, split: Split, bins, scale: float) -> torch.Tensor:
+    """This rank's part of the DFT of axis 2 at ``bins``: x (B, C, rows, ...)
+    complex -> (B, C, len(bins), ...)."""
+    lo, hi = split.rows()
+    t = _row_dft(split.n, tuple(bins), lo, hi, False, scale, x.dtype, x.device)
+    return torch.einsum("kj,bcj...->bck...", t, x)
+
+
+def _inv_rows(x: torch.Tensor, split: Split, bins, scale: float) -> torch.Tensor:
+    """The inverse DFT of axis 2 from ``bins`` (others zero) at this rank's
+    output rows: (B, C, len(bins), ...) -> (B, C, rows, ...)."""
+    lo, hi = split.rows()
+    t = _row_dft(split.n, tuple(bins), lo, hi, True, scale, x.dtype, x.device)
+    return torch.einsum("jk,bck...->bcj...", t, x)
+
+
+def _split_conv_2d(x, w, out_size, modes, split: Split) -> torch.Tensor:
+    """``spectral_conv_2d`` with H split: the W transform locally, the kept
+    kx rows of H from each rank's rows, summed, contracted, inverted at the
+    rank's d1 rows."""
+    (d1, d2), (m1, m2) = out_size, modes
+    h, w_in = split.n, x.shape[-1]
+    n_top, idx_out = _keep_idx(m1, d1)
+    out_rows = split.at(d1).rows()
+    if _dft_enabled():
+        xp = dft.fwd_real(_dft_in(x), -1, w_in, range(m2))
+        xp = dft.fwd_cplx(xp, -2, h, _rows(m1, h), rows=split.rows())  # (B, Ci, 2, 2*m1, m2)
+        out = _cmul_planes(psum(xp, split.group), w)
+        yp = dft.inv_cplx(_slice_pm(out, -2, m1, n_top), -2, d1, idx_out, rows=out_rows)
+        return dft.inv_real(yp, -1, d2)
+    xf = torch.fft.rfft(_f32(x), dim=-1, norm="forward")[..., :m2]
+    corners = psum(_fwd_rows(xf, split, _rows(m1, h), 1.0 / h), split.group)
+    out = complex_mode_matmul(corners, w)  # (B, Co, 2*m1, m2)
+    y = _inv_rows(_slice_pm(out, 2, m1, n_top), split.at(d1), idx_out, 1.0)
+    return torch.fft.irfft(y, n=d2, dim=-1, norm="forward")
+
+
+def _split_conv_3d(x, w, out_size, modes, split: Split) -> torch.Tensor:
+    """``spectral_conv_3d`` with X split: T and Y transformed locally (kept
+    bins only), the kept kx rows from each rank's rows, summed, contracted,
+    inverted at the rank's d1 rows, then Y and T."""
+    (d1, d2, d3), (m1, m2, m3) = out_size, modes
+    sx, (sy, st) = split.n, x.shape[-2:]
+    (n_x, idx_x), (n_y, idx_y) = _keep_idx(m1, d1), _keep_idx(m2, d2)
+    if _dft_enabled():
+        xp = dft.fwd_real(_dft_in(x), -1, st, range(m3))
+        xp = dft.fwd_cplx(xp, -2, sy, _rows(m2, sy))
+        xp = dft.fwd_cplx(xp, -3, sx, _rows(m1, sx), rows=split.rows())
+        out = _cmul_planes(psum(xp, split.group), w)
+        kept = _slice_pm(_slice_pm(out, -3, m1, n_x), -2, m2, n_y)
+        yp = dft.inv_cplx(kept, -3, d1, idx_x, rows=split.at(d1).rows())
+        return dft.inv_real(dft.inv_cplx(yp, -2, d2, idx_y), -1, d3)
+    xf = torch.fft.fft(torch.fft.rfft(_f32(x), dim=-1, norm="forward")[..., :m3],
+                       dim=-2, norm="forward")
+    xf = torch.cat([xf[..., :m2, :], xf[..., sy - m2 :, :]], dim=-2)
+    corners = psum(_fwd_rows(xf, split, _rows(m1, sx), 1.0 / sx), split.group)
+    out = complex_mode_matmul(corners, w)  # (B, Co, 2*m1, 2*m2, m3)
+    y = _inv_rows(_slice_pm(out, 2, m1, n_x), split.at(d1), idx_x, 1.0)
+    b, co, r = y.shape[:3]
+    out_ft = torch.zeros((b, co, r, d2, d3 // 2 + 1), dtype=y.dtype, device=y.device)
+    out_ft[..., :n_y, :m3] = y[..., :n_y, :]
+    out_ft[..., d2 - m2 :, :m3] = y[..., m2:, :]
+    return torch.fft.irfft(torch.fft.ifft(out_ft, dim=-2, norm="forward"), n=d3, dim=-1,
+                           norm="forward")
+
+
+def _split_truncate_3d(x, out_size, split: Split) -> torch.Tensor:
+    """``fourier_truncate_3d`` with X split: the kept bins of T and Y
+    locally, of X from each rank's rows, summed, inverted at the rank's d1
+    rows (backward norm, the kept bins at their input indices)."""
+    d1, d2, d3 = out_size
+    sx, (sy, st) = split.n, x.shape[-2:]
+    kx, ky, kt = _truncate_bins((sx, sy, st), out_size)
+    out_rows = split.at(d1).rows()
+    if _dft_enabled():
+        xp = dft.fwd_real(_dft_in(x), -1, st, kt, scaled=False)
+        xp = dft.fwd_cplx(xp, -2, sy, ky, scaled=False)
+        xp = dft.fwd_cplx(xp, -3, sx, kx, scaled=False, rows=split.rows())
+        yp = dft.inv_cplx(psum(xp, split.group), -3, d1, kx, scaled=True,
+                          rows=out_rows)
+        return dft.inv_real(dft.inv_cplx(yp, -2, d2, ky, scaled=True), -1, d3, scaled=True)
+    ft = torch.fft.fft(torch.fft.rfft(_f32(x), dim=-1)[..., : len(kt)], dim=-2)[..., list(ky), :]
+    y = _inv_rows(psum(_fwd_rows(ft, split, kx, 1.0), split.group), split.at(d1),
+                  kx, 1.0 / d1)
+    b, c, r = y.shape[:3]
+    spec = torch.zeros((b, c, r, d2, d3 // 2 + 1), dtype=y.dtype, device=y.device)
+    spec[..., list(ky), : len(kt)] = y
+    return torch.fft.irfft(torch.fft.ifft(spec, dim=-2), n=d3, dim=-1)

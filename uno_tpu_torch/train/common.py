@@ -11,12 +11,21 @@ losses in a device tensor that it reads once per epoch.  Its mesh branch is
 permutation and keeps its rows of each global batch; the epoch's sums are
 summed over the ranks when they are read (``reduce_sums``), and a stop
 requested on any rank stops them all after the epoch (``stop_on_any_rank``).
+
+On a mesh with a ``spatial`` axis (``uno_tpu``'s ``spatial`` mesh axis) the
+trainers either split the grid over it, as ``uno_tpu``'s ``DataPlacer``
+constrains the batch to ``P("data", "spatial")`` (``spatial_axis``: each
+rank keeps only its rows of every split on the device, ``resident``), or,
+with ``cfg.tensor_parallel``, shard the weights over it and keep the whole
+grid (``parallel/tp.py``).  Checkpoints hold whole tensors in a one-process
+run's layout: under TP every rank gathers and rank 0 writes
+(``train_state``), and a resumed run keeps its shards (``restore_train_state``).
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -26,12 +35,9 @@ import torch.distributed as dist
 from uno_tpu_torch.data.batching import epoch_batches
 from uno_tpu_torch.optim import ComplexAdam, step_lr
 from uno_tpu_torch.parallel.mesh import DataParallel, shard_batch
+from uno_tpu_torch.parallel.spatial import Axis
+from uno_tpu_torch.parallel.tp import full_state, local_state, sharded_axes
 from uno_tpu_torch.train.checkpoint import CheckpointManager
-
-# fields the port does not implement yet -> the ROADMAP item that brings them
-_NOT_PORTED = {
-    "tensor_parallel": "ROADMAP.md Queue 1 item 8 (channel tensor parallelism on DTensor)",
-}
 
 
 @dataclass
@@ -53,16 +59,8 @@ class TrainConfig:
     # bit-match the reference schedule.
     compat_even_epoch_scheduler: bool = False
     log_tensorboard: Optional[str] = None
-    # uno_tpu's channel tensor-parallelism (parallel/tp.py)
+    # channel tensor parallelism over the mesh's spatial axis (parallel/tp.py)
     tensor_parallel: bool = False
-
-    def __post_init__(self):
-        for f in fields(self):
-            if f.name in _NOT_PORTED and getattr(self, f.name) != f.default:
-                raise NotImplementedError(
-                    f"TrainConfig.{f.name}={getattr(self, f.name)!r} is not ported "
-                    f"yet: {_NOT_PORTED[f.name]}"
-                )
 
 
 def _sched_epochs(cfg: TrainConfig) -> int:
@@ -133,19 +131,24 @@ class GracefulStop:
 class BestTracker:
     """Reference best-val selection: keep a copy of the model's state dict,
     on its device, whenever val improves, and save it as ``best_params``
-    when there is a checkpoint manager."""
+    when there is a checkpoint manager.  With ``dp`` under channel TP the
+    copy holds this rank's shards, and every rank gathers the whole tensors
+    that rank 0 saves (call ``update`` on every rank)."""
 
-    def __init__(self, ckpt: Optional[CheckpointManager] = None):
+    def __init__(self, ckpt: Optional[CheckpointManager] = None,
+                 dp: Optional[DataParallel] = None):
         self.best_val = float("inf")
         self.best_state: Optional[Dict[str, torch.Tensor]] = None
         self.ckpt = ckpt
+        self.dp = dp
 
     def update(self, val: float, model: torch.nn.Module) -> bool:
         if val < self.best_val:
             self.best_val = val
             self.best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            whole = full_state(model, self.dp, self.best_state)
             if self.ckpt is not None:
-                self.ckpt.save("best_params", self.best_state)
+                self.ckpt.save("best_params", whole)
             return True
         return False
 
@@ -203,31 +206,86 @@ def check_data_parallel(cfg: TrainConfig, dp: Optional[DataParallel]) -> int:
     return dp.world
 
 
-def _has_group(dp: Optional[DataParallel]) -> bool:
-    return dp is not None and dp.group is not None
-
-
 def reduce_sums(dp: Optional[DataParallel], *sums: torch.Tensor) -> List[float]:
-    """Device scalars summed over the ranks in one collective, then read
-    (one synchronisation)."""
+    """Device scalars summed over the ``data`` ranks in one collective, then
+    read (one synchronisation).  The ranks of a ``spatial`` axis hold the
+    same sums (their losses are whole), so they are not summed over it."""
     t = torch.stack(sums)
-    if _has_group(dp):
+    if dp is not None and dp.group is not None:
         dist.all_reduce(t, group=dp.group)
     return t.tolist()
 
 
 def stop_on_any_rank(dp: Optional[DataParallel], requested: bool) -> bool:
-    """True on every rank when a stop was requested on any: the ranks stop
-    after the same epoch instead of one waiting for the others in the next
-    collective."""
-    if not _has_group(dp):
+    """True on every rank of the mesh when a stop was requested on any: the
+    ranks stop after the same epoch instead of one waiting for the others in
+    the next collective."""
+    if dp is None or dp.mesh_group is None:
         return requested
     flag = torch.tensor([int(requested)], device=dp.device)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=dp.group)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=dp.mesh_group)
     return bool(flag.item())
 
 
 def barrier(dp: Optional[DataParallel]) -> None:
-    """Wait until every rank gets here (after rank 0 writes a checkpoint)."""
-    if _has_group(dp):
-        reduce_sums(dp, torch.zeros((), device=dp.device))
+    """Wait until every rank of the mesh gets here (after rank 0 writes a
+    checkpoint)."""
+    if dp is not None and dp.mesh_group is not None:
+        flag = torch.zeros(1, device=dp.device)
+        dist.all_reduce(flag, group=dp.mesh_group)
+        flag.item()
+
+
+def spatial_axis(cfg: TrainConfig, dp: Optional[DataParallel]) -> Optional[Axis]:
+    """The axis the trainers split the grid over: the mesh's ``spatial``
+    axis, unless it carries channel TP (``cfg.tensor_parallel``)."""
+    if dp is None or dp.spatial is None or cfg.tensor_parallel:
+        return None
+    return dp.spatial
+
+
+def resident(arrays, device, rows=None) -> List[torch.Tensor]:
+    """Each split array on ``device`` as f32, once; with ``rows`` (lo, hi)
+    only those rows of its axis 1, the first grid axis (a split run keeps
+    only its rows on the device)."""
+    lo, hi = rows if rows is not None else (None, None)
+    return [torch.from_numpy(np.ascontiguousarray(a[:, lo:hi], np.float32)).to(device)
+            for a in arrays]
+
+
+def sharded_params(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """The parameters that hold a channel shard (none without TP)."""
+    axes = sharded_axes(model)
+    return [p for n, p in model.named_parameters() if n in axes]
+
+
+def _opt_by_name(model, opt_state: dict, fn) -> dict:
+    """``fn`` applied to the optimizer state's tensors, each keyed by its
+    parameter's name (the optimizer holds ``model.parameters()`` in order)."""
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for i, st in opt_state.items():
+        tensors = {k: v for k, v in st.items() if torch.is_tensor(v)}
+        done = {k: fn({names[i]: v})[names[i]] for k, v in tensors.items()}
+        out[i] = {**st, **done}
+    return out
+
+
+def train_state(model, opt, dp: Optional[DataParallel], **extra) -> Dict[str, Any]:
+    """The full training state in a one-process run's layout: params,
+    optimizer state and ``extra`` (step, epoch, best val).  Under TP every
+    rank gathers; the caller writes it on rank 0."""
+    whole = lambda state: full_state(model, dp, state)  # noqa: E731
+    return {"params": whole(model.state_dict()),
+            "optimizer": _opt_by_name(model, opt.state_dict()["state"], whole), **extra}
+
+
+def restore_train_state(ckpt: CheckpointManager, model, opt, dp: Optional[DataParallel]):
+    """Load ``train_state`` into ``model`` and ``opt`` (this rank's shards
+    under TP); returns the restored dict."""
+    restored = ckpt.restore("train_state")
+    mine = lambda state: local_state(model, dp, state)  # noqa: E731
+    model.load_state_dict(mine(restored["params"]))
+    opt.load_state_dict({"state": _opt_by_name(model, restored["optimizer"], mine),
+                         "param_groups": opt.state_dict()["param_groups"]})
+    return restored

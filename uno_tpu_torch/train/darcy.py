@@ -31,6 +31,13 @@ bit.  As under ``uno_tpu``'s mesh the remainder batch is dropped, for
 evaluation too, while the schedule's steps per epoch are still counted with
 ``cfg.drop_remainder``.  Only rank 0 logs and writes checkpoints; every rank
 restores on resume.
+
+A mesh with a ``spatial`` axis (``make_mesh(n_data, n_spatial)``), as in
+``uno_tpu/train/darcy.py:62-76``: each rank of the axis keeps its rows of
+the grid (``UNOModel.input_rows``) and runs the model split, or with
+``cfg.tensor_parallel`` keeps the whole grid and its shard of every weight
+(``train/common.py``).  The loss and every weight after a step equal the
+one-process step's.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import torch
 
 from uno_tpu_torch.data.batching import num_batches
 from uno_tpu_torch.losses import relative_lp_loss
-from uno_tpu_torch.parallel import DataParallel, dp_value_and_grad, replicate
+from uno_tpu_torch.parallel import DataParallel, dp_value_and_grad, place_state
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import (
     BestTracker,
@@ -56,7 +63,12 @@ from uno_tpu_torch.train.common import (
     lr_at,
     make_optimizer,
     reduce_sums,
+    resident,
+    restore_train_state,
+    sharded_params,
+    spatial_axis,
     stop_on_any_rank,
+    train_state,
 )
 from uno_tpu_torch.train.metrics import MetricLogger
 
@@ -89,18 +101,19 @@ def train_darcy(
     ntrain, nval, ntest = len(x_train), len(x_val), len(x_test)
     # counted with cfg.drop_remainder under data parallelism too, as uno_tpu does
     steps_per_epoch = num_batches(ntrain, cfg.batch_size, cfg.drop_remainder)
+    place_state(dp, model, cfg.tensor_parallel)
     opt = make_optimizer(cfg, steps_per_epoch, model.parameters())
-    splits = [
-        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-        for a in (x_train, y_train, x_val, y_val, x_test, y_test)
-    ]
-    replicate(dp, model)
+    axis = spatial_axis(cfg, dp)
+    split = None if axis is None else axis.split(s)
+    rows = None if axis is None else model.input_rows((s, s), axis)
+    splits = resident((x_train, y_train, x_val, y_val, x_test, y_test), device, rows)
 
     def loss_fn(x, y):
-        out = model(x).reshape(y.shape[0], s, s)
-        return relative_lp_loss(out, y, reduction="sum")
+        out = model(x, split=split).reshape(y.shape)
+        return relative_lp_loss(out, y, reduction="sum", group=None if axis is None else axis.group)
 
-    value_and_grad = dp_value_and_grad(loss_fn, dp, model.parameters())
+    value_and_grad = dp_value_and_grad(loss_fn, dp, model.parameters(),
+                                       sharded=sharded_params(model))
 
     def _eval(ix: int, n: int) -> float:
         total = torch.zeros((), device=device)
@@ -112,24 +125,19 @@ def train_darcy(
         return reduce_sums(dp, total)[0] / max(count, 1)
 
     ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
-    best = BestTracker(ckpt if main else None)
+    best = BestTracker(ckpt if main else None, dp)
     step = 0
     start_epoch = 0
     if cfg.resume and ckpt is not None and ckpt.exists("train_state"):
-        restored = ckpt.restore("train_state")
-        model.load_state_dict(restored["params"])
-        opt.load_state_dict({"state": restored["optimizer"],
-                             "param_groups": opt.state_dict()["param_groups"]})
+        restored = restore_train_state(ckpt, model, opt, dp)
         step = restored["step"]
         start_epoch = restored["epoch"] + 1
         best.best_val = restored["best_val"]
 
     def save_state(epoch: int) -> None:
+        state = train_state(model, opt, dp, step=step, epoch=epoch, best_val=best.best_val)
         if main:
-            ckpt.save("train_state", {
-                "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
-                "step": step, "epoch": epoch, "best_val": best.best_val,
-            })
+            ckpt.save("train_state", state)
         barrier(dp)
 
     stopped = False

@@ -29,7 +29,11 @@ epoch, ``step_ms`` from CUDA events.  The reference's scheduler bug
 Data parallelism (``dp``) as in ``uno_tpu_torch.train.darcy``: rank 0's
 weights, each rank's rows of every global batch, the loss and gradients
 summed over the ranks after the whole rollout's backward, the remainder batch dropped for
-evaluation too, only rank 0 logging and writing checkpoints.
+evaluation too, only rank 0 logging and writing checkpoints.  A mesh with a
+``spatial`` axis splits the grid over it, or with ``cfg.tensor_parallel``
+shards the weights (``uno_tpu/train/ns2d.py:93-105``; as in
+``uno_tpu_torch.train.darcy``): every step of the rollout runs split, its
+loss made whole over the axis.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from uno_tpu_torch.data.batching import num_batches
 from uno_tpu_torch.losses import relative_lp_loss
-from uno_tpu_torch.parallel import DataParallel, dp_value_and_grad, replicate
+from uno_tpu_torch.parallel import DataParallel, dp_value_and_grad, place_state
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import (
     BestTracker,
@@ -56,19 +60,27 @@ from uno_tpu_torch.train.common import (
     lr_at,
     make_optimizer,
     reduce_sums,
+    resident,
+    restore_train_state,
+    sharded_params,
+    spatial_axis,
     stop_on_any_rank,
+    train_state,
 )
 from uno_tpu_torch.train.metrics import MetricLogger
 
 
-def make_rollout(model: torch.nn.Module, t_f: int, remat: bool = True):
+def make_rollout(model: torch.nn.Module, t_f: int, remat: bool = True, split=None):
     """Returns ``rollout(xx, yy) -> (step_loss_sum, pred)``: xx (B, S, S,
     T_in) the input window, yy (B, S, S, T_f) the targets, pred (B, S, S,
-    T_f) f32."""
+    T_f) f32.  With ``split`` (a ``parallel/spatial.py`` ``Split`` of S),
+    xx and yy hold this rank's rows (``UNOModel.input_rows``) and so does
+    pred; the losses are whole."""
+    group = None if split is None else split.group
 
     def one_step(xx, y_t):
-        im = model(xx)  # (B, S, S, 1), f32
-        loss_t = relative_lp_loss(im, y_t, reduction="sum")
+        im = model(xx, split=split)  # (B, S, S, 1), f32
+        loss_t = relative_lp_loss(im, y_t, reduction="sum", group=group)
         xx_next = torch.cat([xx[..., 1:], im], dim=-1)
         return xx_next, loss_t, im[..., 0]
 
@@ -118,15 +130,16 @@ def train_ns2d(
     ntrain, nval, ntest = len(train_a), len(val_a), len(test_a)
     # counted with cfg.drop_remainder under data parallelism too, as uno_tpu does
     steps_per_epoch = num_batches(ntrain, cfg.batch_size, cfg.drop_remainder)
+    place_state(dp, model, cfg.tensor_parallel)
     opt = make_optimizer(cfg, steps_per_epoch, model.parameters())
-    splits = [
-        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-        for a in (train_a, train_u, val_a, val_u, test_a, test_u)
-    ]
-    replicate(dp, model)
-    rollout = make_rollout(model, t_f)
+    axis = spatial_axis(cfg, dp)
+    size = train_a.shape[1:3]
+    split = None if axis is None else axis.split(size[0])
+    rows = None if axis is None else model.input_rows(size, axis)
+    splits = resident((train_a, train_u, val_a, val_u, test_a, test_u), device, rows)
+    rollout = make_rollout(model, t_f, split=split)
     value_and_grad = dp_value_and_grad(lambda xx, yy: rollout(xx, yy)[0], dp,
-                                       model.parameters())
+                                       model.parameters(), sharded=sharded_params(model))
 
     def _eval(ix: int, n: int):
         step_total = torch.zeros((), device=device)
@@ -137,31 +150,27 @@ def train_ns2d(
                 yy = splits[ix + 1][idx]
                 loss, pred = rollout(splits[ix][idx], yy)
                 step_total += loss
-                traj_total += relative_lp_loss(pred, yy, reduction="sum")
+                traj_total += relative_lp_loss(pred, yy, reduction="sum",
+                                               group=None if axis is None else axis.group)
                 count += len(idx) * world
         count = max(count, 1)
         step_sum, traj_sum = reduce_sums(dp, step_total, traj_total)
         return step_sum / count / t_f, traj_sum / count
 
     ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
-    best = BestTracker(ckpt if main else None)
+    best = BestTracker(ckpt if main else None, dp)
     step = 0
     start_epoch = 0
     if cfg.resume and ckpt is not None and ckpt.exists("train_state"):
-        restored = ckpt.restore("train_state")
-        model.load_state_dict(restored["params"])
-        opt.load_state_dict({"state": restored["optimizer"],
-                             "param_groups": opt.state_dict()["param_groups"]})
+        restored = restore_train_state(ckpt, model, opt, dp)
         step = restored["step"]
         start_epoch = restored["epoch"] + 1
         best.best_val = restored["best_val"]
 
     def save_state(epoch: int) -> None:
+        state = train_state(model, opt, dp, step=step, epoch=epoch, best_val=best.best_val)
         if main:
-            ckpt.save("train_state", {
-                "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
-                "step": step, "epoch": epoch, "best_val": best.best_val,
-            })
+            ckpt.save("train_state", state)
         barrier(dp)
 
     stopped = False

@@ -6,8 +6,7 @@ backward on the full-field relative-L2; the per-timestep losses are computed
 without gradients and only logged; validation every ``cfg.eval_every``
 epochs (those with ``epoch % eval_every == 0``); the best params are those
 with the lowest **per-step** validation loss; the test pass, on the best
-params, reports both.  No rematerialisation: ``uno_tpu``'s ``remat_blocks``
-is off in every NS-3D preset.
+params, reports both.
 
 Batches, checkpoints and resume follow ``uno_tpu_torch.train.darcy``: the
 same ``numpy`` batch order as ``uno_tpu`` from ``default_rng(cfg.seed)``
@@ -18,7 +17,10 @@ epoch, ``step_ms`` from CUDA events.
 Data parallelism (``dp``) as in ``uno_tpu_torch.train.darcy``: rank 0's
 weights, each rank's rows of every global batch, the loss and gradients
 summed over the ranks, the remainder batch dropped for evaluation too, only
-rank 0 logging and writing checkpoints.
+rank 0 logging and writing checkpoints.  A mesh with a ``spatial`` axis
+splits the grid's X axis over it, or with ``cfg.tensor_parallel`` shards
+the weights (``uno_tpu/train/ns3d.py:62-76``; as in
+``uno_tpu_torch.train.darcy``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from uno_tpu_torch.data.batching import num_batches
 from uno_tpu_torch.losses import relative_lp_loss
-from uno_tpu_torch.parallel import DataParallel, dp_value_and_grad, replicate
+from uno_tpu_torch.parallel import DataParallel, dp_value_and_grad, place_state
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import (
     BestTracker,
@@ -44,22 +46,29 @@ from uno_tpu_torch.train.common import (
     lr_at,
     make_optimizer,
     reduce_sums,
+    resident,
+    restore_train_state,
+    sharded_params,
+    spatial_axis,
     stop_on_any_rank,
+    train_state,
 )
 from uno_tpu_torch.train.metrics import MetricLogger
 
 
-def forecast(model: torch.nn.Module, x: torch.Tensor, t_f: int) -> torch.Tensor:
-    """x (B, S, S, T_in) -> the model's (B, S, S, T_f) forecast, f32."""
-    b, s = x.shape[0], x.shape[1]
-    return model(x.float()[..., None]).reshape(b, s, s, t_f)
+def forecast(model: torch.nn.Module, x: torch.Tensor, t_f: int, split=None) -> torch.Tensor:
+    """x (B, S, S, T_in) -> the model's (B, S, S, T_f) forecast, f32 (with
+    ``split``, this rank's rows of the first S)."""
+    return model(x.float()[..., None], split=split).reshape(*x.shape[:3], t_f)
 
 
-def step_rel_l2(out: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def step_rel_l2(out: torch.Tensor, y: torch.Tensor, group=None) -> torch.Tensor:
     """Sum over samples and time steps of each step's relative L2 (the
-    reference's logged step loss); out, y (B, S, S, T)."""
+    reference's logged step loss); out, y (B, S, S, T), or a rank's rows of
+    the first S with its ``group``."""
     n = out.shape[0] * out.shape[-1]
-    return relative_lp_loss(out.movedim(-1, 1).reshape(n, -1), y.movedim(-1, 1).reshape(n, -1))
+    return relative_lp_loss(out.movedim(-1, 1).reshape(n, -1), y.movedim(-1, 1).reshape(n, -1),
+                            group=group)
 
 
 def train_ns3d(
@@ -91,18 +100,20 @@ def train_ns3d(
     ntrain, nval, ntest = len(train_a), len(val_a), len(test_a)
     # counted with cfg.drop_remainder under data parallelism too, as uno_tpu does
     steps_per_epoch = num_batches(ntrain, cfg.batch_size, cfg.drop_remainder)
+    place_state(dp, model, cfg.tensor_parallel)
     opt = make_optimizer(cfg, steps_per_epoch, model.parameters())
-    splits = [
-        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-        for a in (train_a, train_u, val_a, val_u, test_a, test_u)
-    ]
-    replicate(dp, model)
+    axis = spatial_axis(cfg, dp)
+    group = None if axis is None else axis.group
+    split = None if axis is None else axis.split(train_a.shape[1])
+    rows = None if axis is None else model.input_rows(train_a.shape[1:], axis)
+    splits = resident((train_a, train_u, val_a, val_u, test_a, test_u), device, rows)
 
     def loss_fn(x, yy):
-        out = forecast(model, x, t_f)
-        return relative_lp_loss(out, yy, reduction="sum"), out
+        out = forecast(model, x, t_f, split)
+        return relative_lp_loss(out, yy, reduction="sum", group=group), out
 
-    value_and_grad = dp_value_and_grad(loss_fn, dp, model.parameters(), has_aux=True)
+    value_and_grad = dp_value_and_grad(loss_fn, dp, model.parameters(), has_aux=True,
+                                       sharded=sharded_params(model))
 
     def _eval(ix: int, n: int):
         full_total = torch.zeros((), device=device)
@@ -111,33 +122,28 @@ def train_ns3d(
         with torch.no_grad():
             for idx in device_batches(rng, n, cfg, device, shuffle=False, dp=dp):
                 yy = splits[ix + 1][idx]
-                out = forecast(model, splits[ix][idx], t_f)
-                full_total += relative_lp_loss(out, yy, reduction="sum")
-                step_total += step_rel_l2(out, yy)
+                out = forecast(model, splits[ix][idx], t_f, split)
+                full_total += relative_lp_loss(out, yy, reduction="sum", group=group)
+                step_total += step_rel_l2(out, yy, group)
                 count += len(idx) * world
         count = max(count, 1)
         full_sum, step_sum = reduce_sums(dp, full_total, step_total)
         return full_sum / count, step_sum / (count * t_f)
 
     ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
-    best = BestTracker(ckpt if main else None)
+    best = BestTracker(ckpt if main else None, dp)
     step = 0
     start_epoch = 0
     if cfg.resume and ckpt is not None and ckpt.exists("train_state"):
-        restored = ckpt.restore("train_state")
-        model.load_state_dict(restored["params"])
-        opt.load_state_dict({"state": restored["optimizer"],
-                             "param_groups": opt.state_dict()["param_groups"]})
+        restored = restore_train_state(ckpt, model, opt, dp)
         step = restored["step"]
         start_epoch = restored["epoch"] + 1
         best.best_val = restored["best_val"]
 
     def save_state(epoch: int) -> None:
+        state = train_state(model, opt, dp, step=step, epoch=epoch, best_val=best.best_val)
         if main:
-            ckpt.save("train_state", {
-                "params": model.state_dict(), "optimizer": opt.state_dict()["state"],
-                "step": step, "epoch": epoch, "best_val": best.best_val,
-            })
+            ckpt.save("train_state", state)
         barrier(dp)
 
     stopped = False
@@ -155,7 +161,7 @@ def train_ns3d(
                 (_, out), _ = value_and_grad(splits[0][idx], yy)
                 opt.step()
                 with torch.no_grad():
-                    total += step_rel_l2(out, yy)  # this rank's rows
+                    total += step_rel_l2(out, yy, group)  # this rank's rows of the batch
                 seen += len(idx) * world
                 step += 1
                 clock.mark()
