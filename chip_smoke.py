@@ -16,7 +16,11 @@ out of one 3-D forward, batch 16, on both spectral paths; then the
 full-resolution Darcy preset ``darcy_s421``, model uno11 at full width (32)
 on the 421x421 grid, batch 4, from a ``.mat`` file that the port's
 generator writes on the card, with a zero-shot super-resolution
-evaluation; then a 1-D operator block.
+evaluation; then a 1-D operator block; then every other U-NO variant of
+``uno_tpu`` at its published widths (``darcy_s85``, ``ns3d_t20/t10/t9`` and
+``ns2d_s256`` through the CLI; ``uno_p``, ``uno_demo`` and the four
+``uno3d_*_256`` models, which have no preset, through ``build_model`` and
+the trainers).
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, both TF32 flags and cuBLAS's reduced-precision bf16 reduction
@@ -154,13 +158,34 @@ evaluation; then a 1-D operator block.
    memory); ns3d_t40 bf16 split over X, one epoch of 2 steps, against
    ``[dp-ns3d]``'s one process (``[spatial-ns3d]``); the contractions at
    the TP shard shapes and at the split runs' shapes (``[kernels tp]``,
-   ``[kernels spatial]``).
+   ``[kernels spatial]``);
+21. the other variants, each at its published widths, bf16, batch 16 (4 at
+   256x256), random weights from a seed; for each: the kernels at the
+   shapes its factory's spec gives (``[kernels s85]``, ``[kernels
+   ns3d-t20]``, ..., ``[kernels ns3d-t9-256]``); a training run of 3 epochs
+   (``[...-train]``: a falling loss, ``step_ms``, peak device memory, each
+   kernel's launches from the steps and evaluation batches, the head's 0
+   but on darcy_s85 and uno_demo, and the contraction shapes the run
+   recorded equal to those timed); a few warm batches served host to host
+   (``[...-predict]``); darcy_s85 through ``cli train --generate`` and
+   ``cli predict``; ns3d_t20, t10 and t9 through ``cli train --data`` of one
+   ``cli generate --task ns`` file and ``cli predict``; ns2d_s256 through
+   ``cli train`` and ``cli predict`` of a synthetic learnable 256x256
+   split; uno_p (``train_ns2d`` and the rollout, on the ns2d phases'
+   splits), uno_demo (``train_darcy`` and the forward, on darcy_s211's) and
+   the uno3d_*_256 family (``train_ns3d`` and ``forecast`` on synthetic
+   256x256 splits); at the end each one's model at full width on 1-2
+   samples, card against CPU, f32 and bf16: the forward alone, the loss
+   and every gradient (rollouts at T_f = 2; ``[...-cuda-vs-cpu]``); and
+   the run's total seconds (``[total]``).
 
 Any failed phase raises, and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, and
 the same keys under ``ns2d``, ``ns3d``, ``s421``, ``superres``, ``1d``,
 ``dp_nccl``, ``dp``, ``dp_ns3d``, ``export``, ``remat``, ``tp``,
-``spatial`` and ``spatial_ns3d``); the last line is ``{"ok": true,
+``spatial``, ``spatial_ns3d``, ``s85``, ``ns3d_t20``, ``ns3d_t10``,
+``ns3d_t9``, ``s256``, ``uno_p``, ``uno_demo``, ``ns3d_t40_256``,
+``ns3d_t20_256``, ``ns3d_t10_256`` and ``ns3d_t9_256``); the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits 1 and prints no result.
 
     python3 chip_smoke.py --dp-rank DIR   # one rank of [dp]/[dp-ns3d]/[tp]/[spatial] (started by the script)
@@ -193,7 +218,7 @@ from uno_tpu_torch.data.grf import GaussianRF
 from uno_tpu_torch.data.loaders import load_darcy
 from uno_tpu_torch.data.ns_solver import default_forcing, navier_stokes_2d
 from uno_tpu_torch.losses import relative_lp_loss
-from uno_tpu_torch.models import build_model
+from uno_tpu_torch.models import LIFT, MODEL_REGISTRY, build_model
 from uno_tpu_torch.nn.layers import OperatorBlock
 from uno_tpu_torch.ops.kernels import _build
 from uno_tpu_torch.ops.kernels import cmul as cmul_k
@@ -211,7 +236,7 @@ from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.darcy import train_darcy
 from uno_tpu_torch.train.evaluate import evaluate_superres
 from uno_tpu_torch.train.metrics import MetricLogger
-from uno_tpu_torch.train.ns2d import make_rollout
+from uno_tpu_torch.train.ns2d import make_rollout, train_ns2d
 from uno_tpu_torch.train.ns3d import forecast, train_ns3d
 
 PRESET = "darcy_s211"
@@ -859,36 +884,21 @@ def phase_ns_train(tmp: str, dev, tag: str = "ns-train") -> tuple:
 
 
 def phase_ns_cuda_vs_cpu(dev) -> None:
-    """The 2-step rollout's loss and all gradients of uno at full width, 2
-    samples at 64x64, with the same weights on the card and the CPU."""
+    """The 2-step rollout of uno at full width, 2 samples at 64x64, with the
+    same weights on the card and the CPU: the trajectory, the loss and all
+    gradients (``_card_vs_cpu``)."""
     rng = np.random.default_rng(4)
     xx = torch.from_numpy(rng.standard_normal((2, NS_S, NS_S, 10)).astype(np.float32))
     yy = xx[..., -1:] + 0.1 * torch.from_numpy(
         rng.standard_normal((2, NS_S, NS_S, 2)).astype(np.float32))
-    kw = get_preset(NS_PRESET).model_kwargs
-    for dtype, bound in GRAD_REL.items():
-        cpu = build_model("uno", dtype=dtype, generator=torch.Generator().manual_seed(0), **kw)
-        gpu = build_model("uno", dtype=dtype, device=dev, **kw)
-        params_from_flax(gpu, params_to_flax(cpu))
-        out = []
-        for model, d in ((cpu, "cpu"), (gpu, dev)):
-            loss, pred = make_rollout(model, 2)(xx.to(d), yy.to(d))
-            loss.backward()
-            out.append((loss.detach(), pred.detach(), torch.cat([
-                torch.view_as_real(p.grad).flatten() if p.is_complex() else p.grad.flatten()
-                for p in model.parameters()])))
-        rl, rp, rg = (_rel(g, w) for g, w in zip(out[1], out[0]))
-        if not (torch.isfinite(out[1][2]).all() and max(rl, rp, rg) <= bound):
-            raise AssertionError(f"ns-cuda-vs-cpu, {dtype}: loss rel {rl}, pred {rp}, "
-                                 f"grads rel-L2 {rg} > {bound}")
-        print(f"[ns-cuda-vs-cpu] uno {NS_S}x{NS_S} b2 T_f=2 {dtype}: loss rel {rl:.3g}, "
-              f"trajectory rel-L2 {rp:.3g}, all gradients rel-L2 {rg:.3g} (bound {bound})")
+    _card_vs_cpu("ns-cuda-vs-cpu", dev, "uno", get_preset(NS_PRESET).model_kwargs, xx, yy,
+                 *_rollout_fns(2), True, t_f=2)
 
 
-def _write_ns3d_split(path: str, rng, ntest: int) -> None:
-    """An ns3d_t40 test split with the signature uno_tpu's cli writes: input
-    windows and targets of unit scale, the vorticity's."""
-    preset = dataclasses.replace(get_preset(NS3D_PRESET), ntrain=0, nval=0, ntest=ntest)
+def _write_ns3d_split(path: str, rng, ntest: int, name: str = NS3D_PRESET) -> None:
+    """An NS-3D preset's test split with the signature uno_tpu's cli writes:
+    input windows and targets of unit scale, the vorticity's."""
+    preset = get_preset(name, ntrain=0, nval=0, ntest=ntest)
     a = rng.standard_normal((ntest, NS_S, NS_S, preset.t_in)).astype(np.float32)
     u = rng.standard_normal((ntest, NS_S, NS_S, preset.t_f)).astype(np.float32)
     empty_a, empty_u = a[:0], u[:0]
@@ -986,41 +996,12 @@ def phase_ns3d_train(tmp: str, dev, tag: str = "ns3d-train", dft: bool = False) 
 
 def phase_ns3d_cuda_vs_cpu(dev) -> None:
     """uno3d_t40 at width 4, 2 samples at 64x64: the forward, then the loss
-    and all gradients, with the same weights on the card and the CPU."""
-    rng = np.random.default_rng(6)
-    preset = get_preset(NS3D_PRESET)
-    xx = torch.from_numpy(rng.standard_normal((2, NS_S, NS_S, preset.t_in)).astype(np.float32))
-    yy = torch.from_numpy(rng.standard_normal((2, NS_S, NS_S, preset.t_f)).astype(np.float32))
-    kw = dict(preset.model_kwargs, width=NS3D_CHECK_WIDTH)
-    for dtype in ("float32", "bfloat16"):
-        cpu = build_model("uno3d_t40", dtype=dtype, generator=torch.Generator().manual_seed(0),
-                          **kw)
-        gpu = build_model("uno3d_t40", dtype=dtype, device=dev, **kw)
-        params_from_flax(gpu, params_to_flax(cpu))
-        c0 = _launches()
-        with torch.inference_mode():
-            want, got = forecast(cpu, xx, preset.t_f), forecast(gpu, xx.to(dev), preset.t_f)
-        if _launches()["cmul_fwd"] - c0["cmul_fwd"] != 7:
-            raise AssertionError(f"ns3d-cuda-vs-cpu: the card's forward launched "
-                                 f"{_launches()['cmul_fwd'] - c0['cmul_fwd']} contractions")
-        ro = _rel(got, want)
-        out = []
-        for model, d in ((cpu, "cpu"), (gpu, dev)):
-            loss = relative_lp_loss(forecast(model, xx.to(d), preset.t_f), yy.to(d))
-            loss.backward()
-            out.append((loss.detach(), torch.cat([
-                torch.view_as_real(p.grad).flatten() if p.is_complex() else p.grad.flatten()
-                for p in model.parameters()])))
-        rl, rg = (_rel(g, w) for g, w in zip(out[1], out[0]))
-        if not (torch.isfinite(got).all() and torch.isfinite(out[1][1]).all()
-                and ro <= E2E_REL[dtype] and max(rl, rg) <= GRAD_REL[dtype]):
-            raise AssertionError(f"ns3d-cuda-vs-cpu, {dtype}: output rel-L2 {ro} (bound "
-                                 f"{E2E_REL[dtype]}), loss rel {rl}, grads rel-L2 {rg} "
-                                 f"(bound {GRAD_REL[dtype]})")
-        print(f"[ns3d-cuda-vs-cpu] uno3d_t40 width {NS3D_CHECK_WIDTH} {NS_S}x{NS_S} b2 "
-              f"T_in={preset.t_in} -> T_f={preset.t_f} {dtype}: output rel-L2 {ro:.3g} "
-              f"(bound {E2E_REL[dtype]}), loss rel {rl:.3g}, all gradients rel-L2 {rg:.3g} "
-              f"(bound {GRAD_REL[dtype]})")
+    and all gradients, with the same weights on the card and the CPU
+    (``_card_vs_cpu``)."""
+    p = get_preset(NS3D_PRESET)
+    xx, yy = _pair(np.random.default_rng(6), (2, NS_S, NS_S, p.t_in), (2, NS_S, NS_S, p.t_f))
+    _card_vs_cpu("ns3d-cuda-vs-cpu", dev, "uno3d_t40", dict(p.model_kwargs, width=NS3D_CHECK_WIDTH),
+                 xx, yy, *_forecast_fns(p.t_f), False)
 
 
 def phase_s421_generate(tmp: str) -> str:
@@ -1153,36 +1134,13 @@ def phase_superres(tmp: str, dev, mat: str) -> dict:
 def phase_s421_cuda_vs_cpu(dev) -> None:
     """uno11 (darcy_s421's model, the residual block included) at width 4,
     2 samples at 85x85: the output, the loss and every gradient with the
-    same weights on the card and the CPU."""
+    same weights on the card and the CPU (``_card_vs_cpu``)."""
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal((2, 85, 85, 1)).astype(np.float32))
     y = (x[..., 0] + x[..., 0].roll(1, 1) + x[..., 0].roll(1, 2)) / 3.0
-    kw = dict(get_preset(S421_PRESET).model_kwargs, width=S421_CHECK_WIDTH)
-    for dtype in ("float32", "bfloat16"):
-        cpu = build_model("uno11", dtype=dtype, generator=torch.Generator().manual_seed(0), **kw)
-        gpu = build_model("uno11", dtype=dtype, device=dev, **kw)
-        params_from_flax(gpu, params_to_flax(cpu))
-        c0 = _launches()
-        res = []
-        for model, d in ((cpu, "cpu"), (gpu, dev)):
-            with torch.no_grad():
-                out = model(x.to(d))
-            res.append((out, *_grads(model, x.to(d), y.to(d))))
-        want, got = res
-        moved = {k: v - c0[k] for k, v in _launches().items()}
-        fused = int(dtype == "bfloat16")
-        if moved != {"cmul_fwd": 14, "cmul_bwd_x": 7, "cmul_bwd_w": 7,
-                     "mlp_head_fwd": 2 * fused, "mlp_head_bwd": fused}:
-            raise AssertionError(f"s421-cuda-vs-cpu, {dtype}: the card launched {moved}")
-        ro, rl, rg = (_rel(g, w) for g, w in zip(got, want))
-        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[2]).all()
-                and ro <= E2E_REL[dtype] and max(rl, rg) <= GRAD_REL[dtype]):
-            raise AssertionError(f"s421-cuda-vs-cpu, {dtype}: output rel-L2 {ro} (bound "
-                                 f"{E2E_REL[dtype]}), loss rel {rl}, grads rel-L2 {rg} "
-                                 f"(bound {GRAD_REL[dtype]})")
-        print(f"[s421-cuda-vs-cpu] uno11 width {S421_CHECK_WIDTH} 85x85 b2 {dtype}: output "
-              f"rel-L2 {ro:.3g} (bound {E2E_REL[dtype]}), loss rel {rl:.3g}, all gradients "
-              f"rel-L2 {rg:.3g} (bound {GRAD_REL[dtype]}); card launches {moved}")
+    _card_vs_cpu("s421-cuda-vs-cpu", dev, "uno11",
+                 dict(get_preset(S421_PRESET).model_kwargs, width=S421_CHECK_WIDTH), x, y,
+                 lambda m, x_: m(x_), _darcy_loss, True)
 
 
 def _spectral_cases(dev, fn, x, params, cot):
@@ -1382,10 +1340,11 @@ def phase_dp_nccl(tmp: str) -> dict:
     return launches
 
 
-def _record_shapes() -> Counter:
-    """Count each contraction launch by (use, B, Ci, Co, M) from now on, for
-    this process (the autograd function and the forward call these
-    module globals)."""
+@contextlib.contextmanager
+def _record_shapes():
+    """Count each contraction call by (use, B, Ci, Co, M) inside the block
+    (the autograd function and the forward call these module globals,
+    restored after it)."""
     shapes = Counter()
     fwd, bwd_x, bwd_w = cmul_k._cmul_fwd, cmul_k.cmul_bwd_x, cmul_k.cmul_bwd_w
 
@@ -1402,7 +1361,10 @@ def _record_shapes() -> Counter:
         return bwd_w(x, g)
 
     cmul_k._cmul_fwd, cmul_k.cmul_bwd_x, cmul_k.cmul_bwd_w = rec_fwd, rec_bwd_x, rec_bwd_w
-    return shapes
+    try:
+        yield shapes
+    finally:
+        cmul_k._cmul_fwd, cmul_k.cmul_bwd_x, cmul_k.cmul_bwd_w = fwd, bwd_x, bwd_w
 
 
 # the mesh runs of dp_rank_main: (key, split file, preset, epochs, dtype, mesh, TP)
@@ -1427,7 +1389,6 @@ def dp_rank_main(out_dir: str, darcy_path: str, ns3d_path: str) -> int:
         raise SystemExit("--dp-rank needs MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK")
     meshes = {"data": make_mesh(device="cuda:0"),
               "spatial": make_mesh(n_data=1, n_spatial=DP_WORLD, device="cuda:0")}
-    shapes = _record_shapes()
     paths = {"darcy": darcy_path, "ns3d": ns3d_path}
     res = {}
     for key, split, name, epochs, dtype, mesh, tp in MESH_RUNS:
@@ -1437,15 +1398,15 @@ def dp_rank_main(out_dir: str, darcy_path: str, ns3d_path: str) -> int:
                             generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
         cfg = dataclasses.replace(preset.train, epochs=epochs, tensor_parallel=tp)
         rec = _Records()
-        shapes.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_launches()
-        if split == "darcy":
-            out = train_darcy(model, *_load_split(paths[split]), cfg, logger=rec, dp=dp)
-        else:
-            out = train_ns3d(model, *_load_split(paths[split]), cfg, t_f=preset.t_f,
-                             logger=rec, dp=dp)
+        with _record_shapes() as shapes:
+            if split == "darcy":
+                out = train_darcy(model, *_load_split(paths[split]), cfg, logger=rec, dp=dp)
+            else:
+                out = train_ns3d(model, *_load_split(paths[split]), cfg, t_f=preset.t_f,
+                                 logger=rec, dp=dp)
         torch.cuda.synchronize()
         res[key] = dict(records=rec.records, launches=_launches(), shapes=dict(shapes),
                         step_ms=out["step_ms"], peak_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -1840,7 +1801,473 @@ def phase_custom_ops(tmp: str, dev, predict_ms: list, ns_train_ms: list) -> None
         print(f"[custom-ops] {what}: " + "; ".join(parts))
 
 
+# The U-NO variants of uno_tpu that the phases above do not run, at their
+# published widths: darcy_s85, ns3d_t20/t10/t9 and ns2d_s256 through the CLI;
+# uno_p, uno_demo and the uno3d_*_256 family, which have no preset in either
+# package, through build_model and the trainers.
+S85_PRESET = "darcy_s85"  # uno9, width 32, pad 5, S = 85, batch 16
+S85_SPLIT = (48, 16, 64)  # cli train --generate: 3 steps an epoch; 4 test batches to serve
+NS3D_SIBLINGS = ("ns3d_t20", "ns3d_t10", "ns3d_t9")  # T_in 10, 10, 6 -> T_f 20, 10, 9
+# one `cli generate --task ns` file for the three: 60 trajectories of 30 frames
+# half a time unit apart (the fast profile's), read as 32/8 train/val and 20 test
+NS3D_MAT_N, NS3D_MAT_FRAMES, NS3D_MAT_SPLIT = 60, 30, (32, 8, 20)
+NS3D_SIB_PREDICT = 3 * BATCH  # each sibling's synthetic predict split: 3 batches of 16
+S256_PRESET = "ns2d_s256"  # uno_s256, width 32, 256x256, T_in 10 -> T_f 40, batch 4
+S256_SPLIT = (8, 4, 16)  # synthetic and learnable: 2 steps an epoch; 4 test batches to serve
+S256_CHECK = (1, 2)  # s256-cuda-vs-cpu: 1 sample, a 2-step rollout
+UNO_P_KW = dict(in_width=14, width=32, pad=0)  # uno_p's factory: the ns2d task's channels
+DEMO_KW = dict(in_width=3, width=32, pad=8)  # uno_demo's factory, on darcy_s211's grid
+# the uno3d_*_256 factories and their (T_in, T_f): ns3d_t40/t20/t10/t9's windows
+NS3D_256 = {"uno3d_t40_256": (10, 40), "uno3d_t20_256": (10, 20), "uno3d_t10_256": (10, 10),
+            "uno3d_t9_256": (6, 9)}
+NS3D_256_KW = dict(in_width=6, width=8)  # the factories' pads: 1, 2, 2, 2
+NS3D_256_S, NS3D_256_BATCH = 256, 4  # ns2d_s256's batch, the one 256x256 preset
+NS3D_256_SPLIT = (8, 4, 4)  # synthetic and learnable: 2 steps an epoch
+SERVE_BATCHES = 4  # warm batches a build_model path serves
+
+
+def _variant_shapes(name: str, batch: int, **kw) -> tuple:
+    """(B, Ci, Co, M) of each spectral contraction of a factory's forward, in
+    block order (M = 2*m1*m2 in 2-D, 4*m1*m2*m3 in 3-D: the kept corners),
+    and its fused head's (B, C, N, H, O) under bf16 with N = 1 for the
+    caller to set (None where the model projects through the unfused f32
+    Dense pair: 3-D, or the lift concatenated into the head)."""
+    spec = MODEL_REGISTRY[name](**kw)
+    shapes, chans, cur = [], [], spec.width
+    for blk in spec.blocks:
+        shapes.append((batch, cur, blk.channels, 2 ** (spec.ndim - 1) * math.prod(blk.modes)))
+        cur = blk.channels + (0 if blk.skip is None else
+                              spec.width if blk.skip == LIFT else chans[blk.skip])
+        chans.append(cur)
+    head = (None if spec.ndim == 3 or spec.proj_concat_lift
+            else (batch, cur, 1, spec.proj_hidden, spec.out_dim))
+    return shapes, head
+
+
+def _want(nb: int, steps: int, evals: int, head: bool, fwd_step: int = 1, fwd_eval: int = 1,
+          bwd_step: int = 1) -> dict:
+    """Launches of ``nb`` contractions a forward over ``steps`` training steps
+    (``fwd_step`` forwards and ``bwd_step`` backwards each) and ``evals``
+    forward-only batches (``fwd_eval`` forwards each), the fused head's too
+    where ``head``."""
+    f, b, h = fwd_step * steps + fwd_eval * evals, bwd_step * steps, int(head)
+    return {"cmul_fwd": nb * f, "cmul_bwd_x": nb * b, "cmul_bwd_w": nb * b,
+            "mlp_head_fwd": h * f, "mlp_head_bwd": h * b}
+
+
+def _rollout_counts(t_f: int) -> dict:
+    """A rollout of ``t_f`` steps: every step's forward runs twice in a
+    training step (the checkpoint's recompute) and its backward once."""
+    return dict(fwd_step=2 * t_f, fwd_eval=t_f, bwd_step=t_f)
+
+
+def _smooth_fields(rng, n: int, s: int, t: int) -> np.ndarray:
+    """(n, s, s, t) f32 fields of unit scale: white noise kept to the
+    wavenumbers below 5, like a vorticity field's large scales."""
+    z = np.fft.rfft2(rng.standard_normal((n, t, s, s)), axes=(2, 3))
+    k = np.fft.fftfreq(s, 1.0 / s)
+    z[..., (np.abs(k)[:, None] > 4) | (np.arange(s // 2 + 1)[None, :] > 4)] = 0
+    f = np.fft.irfft2(z, s=(s, s), axes=(2, 3))
+    return (f / f.std()).transpose(0, 2, 3, 1).astype(np.float32)
+
+
+def _learnable_ns(rng, n: int, s: int, t_in: int, t_f: int) -> tuple:
+    """(inputs, targets) that a model can learn in a few steps: smooth input
+    windows, and targets that are the window's last frame decaying by 0.9 a
+    step."""
+    a = _smooth_fields(rng, n, s, t_in)
+    return a, a[..., -1:] * (0.9 ** np.arange(1, t_f + 1, dtype=np.float32))
+
+
+def _splits(a, u, split) -> tuple:
+    """The six split arrays of (a, u) cut as (ntrain, nval, ntest)."""
+    i1, i2 = split[0], split[0] + split[1]
+    return a[:i1], u[:i1], a[i1:i2], u[i1:i2], a[i2:], u[i2:]
+
+
+def _train_run(dev, run) -> tuple:
+    """``run()`` (a ``cli train`` or a trainer, returning its records) with
+    the counts set to 0 just before and the contraction shapes recorded:
+    (records, launches, shapes, peak device GB, wall s)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _record_shapes() as shapes:
+        records = run()
+    torch.cuda.synchronize()
+    return (records, _launches(), dict(shapes), torch.cuda.max_memory_allocated(dev) / 1e9,
+            time.perf_counter() - t0)
+
+
+def _trainer(model, trainer, data, cfg, **kw):
+    """A ``run`` for ``_train_run``: the trainer's records."""
+    def run():
+        rec = _Records()
+        trainer(model, *data, cfg, logger=rec, **kw)
+        return rec.records
+    return run
+
+
+def _check_train(tag: str, what: str, run: tuple, shapes: list, head: bool, batch: int,
+                 nval: int, ntest: int, t_f: int = None) -> list:
+    """A training run of ``_train_run``: EPOCHS epochs, every logged rel-L2
+    finite, the train loss falling, each kernel's launches from the steps and
+    evaluation batches (``t_f``: a rollout), the contraction shapes at the
+    full batch those of ``shapes``; prints it and returns the warm ms per
+    step."""
+    records, launches, got_shapes, peak_gb, wall = run
+    key = "train_rel_l2" if "train_rel_l2" in records[0] else "train_step_rel_l2"
+    epochs = [r for r in records if key in r]
+    validated = [r for r in epochs if key.replace("train", "val") in r]
+    losses = [v for r in records for k, v in r.items() if k.endswith("rel_l2")]
+    if (len(epochs) != EPOCHS or not any(k.startswith("test_") for k in records[-1])
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"[{tag}]: {len(epochs)} epochs, records {records}")
+    if not epochs[-1][key] < epochs[0][key]:
+        raise AssertionError(f"[{tag}]: loss did not fall: {[r[key] for r in epochs]}")
+    steps = epochs[-1]["step"]
+    evals = len(validated) * -(-nval // batch) + -(-ntest // batch)  # forward-only batches
+    want = _want(len(shapes), steps, evals, head, **(_rollout_counts(t_f) if t_f else {}))
+    want_shapes = {(use, *sh) for sh in shapes for use in ("cmul_fwd", "cmul_bwd_x",
+                                                            "cmul_bwd_w")}
+    full = {k for k in got_shapes if k[1] == batch}
+    if launches != want or full != want_shapes:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want} ({steps} steps, "
+                             f"{evals} eval batches); contraction shapes {sorted(full)}, "
+                             f"expected {sorted(want_shapes)}")
+    warm = [ms for r in epochs[1:] for ms in r["step_ms"]]
+    print(f"[{tag}] {what}: {steps} steps in {EPOCHS} epochs, {key} "
+          f"{[round(r[key], 5) for r in epochs]}, validated epochs "
+          f"{[r['epoch'] for r in validated]}, test "
+          f"{ {k: round(v, 5) for k, v in records[-1].items() if k.startswith('test_')} }; "
+          f"launches {launches}; contraction shapes at batch {batch} as the kernels were timed")
+    print(f"[{tag}] step_ms warm {_spread(warm)} (epochs 2-{EPOCHS}: "
+          f"{[round(v, 3) for v in warm]}), first step {epochs[0]['step_ms'][0]:.1f}; peak "
+          f"device memory {peak_gb:.3f} GB; wall {wall:.1f} s")
+    return warm
+
+
+def _cli_predict(tag: str, argv: list, out: str, pred_shape: tuple, nb: int, head: bool,
+                 per_batch: int = 1) -> list:
+    """``cli predict`` once to warm up and once measured, the counts set to 0
+    between: the output, the launches (``per_batch`` forwards a batch), the
+    ms per batch host to host."""
+    warm = _run_cli(argv)[-1]
+    _zero_launches()
+    report = _run_cli(argv)[-1]
+    launches = _launches()
+    ms = report["batch_ms"]
+    pred = np.load(out)["pred"]
+    want = _want(nb, 0, len(ms), head, fwd_eval=per_batch)
+    if (pred.shape != pred_shape or not np.isfinite(pred).all() or launches != want
+            or report["spectral"] != "fft" or report["dtype"] != "bfloat16"):
+        raise AssertionError(f"[{tag}]: pred {pred.shape} (expected {pred_shape}), finite "
+                             f"{np.isfinite(pred).all()}, launches {launches} (expected {want}), "
+                             f"{report}")
+    print(f"[{tag}] {report['predict']} {report['model']} bf16 b{report['batch_size']}: "
+          f"{len(ms)} warm batches host to host, ms per batch {_spread(ms)} "
+          f"({[round(v, 3) for v in ms]}; first run {[round(v, 3) for v in warm['batch_ms']]}); "
+          f"launches {launches}")
+    return ms
+
+
+def _serve(tag: str, what: str, dev, fwd, xs: np.ndarray, batch: int, out_shape: tuple,
+           nb: int, head: bool, per_batch: int = 1) -> list:
+    """The serving forward under ``inference_mode``: one batch to warm up,
+    then ``len(xs) // batch`` batches host to host, the counts set to 0
+    between; checks each output and the launches."""
+    n = len(xs) // batch
+    with torch.inference_mode():
+        fwd(torch.from_numpy(xs[:batch]).to(dev)).cpu()
+        _zero_launches()
+        ms, finite = [], True
+        for i in range(n):
+            t0 = time.perf_counter()
+            y = fwd(torch.from_numpy(xs[i * batch : (i + 1) * batch]).to(dev)).cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            finite &= bool(torch.isfinite(y).all()) and tuple(y.shape) == (batch, *out_shape)
+    launches, want = _launches(), _want(nb, 0, n, head, fwd_eval=per_batch)
+    if not finite or launches != want:
+        raise AssertionError(f"[{tag}]: outputs finite and {(batch, *out_shape)}: {finite}; "
+                             f"launches {launches}, expected {want}")
+    print(f"[{tag}] {what}: {n} warm batches of {batch} host to host, ms per batch "
+          f"{_spread(ms)} ({[round(v, 3) for v in ms]}); launches {launches}")
+    return ms
+
+
+def _card_vs_cpu(tag: str, dev, name: str, kw: dict, x, y, fwd, loss, head: bool,
+                 t_f: int = None) -> None:
+    """``name`` with the same weights on the card and the CPU, f32 and bf16:
+    the forward alone (``fwd(model, x)`` under ``inference_mode``), then the
+    loss ``loss(model, x, y)`` and every gradient, within E2E_REL and
+    GRAD_REL; the card's launches (``t_f``: a rollout)."""
+    spec = MODEL_REGISTRY[name](**kw)
+    nb, reps = len(spec.blocks), t_f or 1
+    what = f"{name} width {spec.width} {x.shape[1]}x{x.shape[2]} b{x.shape[0]}" + (
+        f" T_f={t_f}" if t_f else f" T_in={x.shape[3]} -> T_f={y.shape[3]}" if spec.ndim == 3
+        else "")
+    for dtype in ("float32", "bfloat16"):
+        cpu = build_model(name, dtype=dtype, generator=torch.Generator().manual_seed(0), **kw)
+        gpu = build_model(name, dtype=dtype, device=dev, **kw)
+        gpu.load_state_dict(cpu.state_dict())
+        res = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            c0 = _launches()
+            with torch.inference_mode():
+                out = fwd(model, x.to(d))
+            value = loss(model, x.to(d), y.to(d))
+            value.backward()
+            res.append((out, value.detach(), torch.cat([
+                torch.view_as_real(p.grad).flatten() if p.is_complex() else p.grad.flatten()
+                for p in model.parameters()])))
+        moved = {k: v - c0[k] for k, v in _launches().items()}
+        want = _want(nb, 1, 1, head and dtype == "bfloat16", fwd_step=2 * reps if t_f else 1,
+                     fwd_eval=reps, bwd_step=reps)
+        ro, rl, rg = (_rel(g, w) for g, w in zip(res[1], res[0]))
+        if not (torch.isfinite(res[1][0]).all() and torch.isfinite(res[1][2]).all()
+                and ro <= E2E_REL[dtype] and max(rl, rg) <= GRAD_REL[dtype] and moved == want):
+            raise AssertionError(f"[{tag}] {dtype}: output rel-L2 {ro} (bound {E2E_REL[dtype]}), "
+                                 f"loss rel {rl}, grads rel-L2 {rg} (bound {GRAD_REL[dtype]}), "
+                                 f"card launches {moved}, expected {want}")
+        print(f"[{tag}] {what} {dtype}: output rel-L2 {ro:.3g} (bound {E2E_REL[dtype]}), loss "
+              f"rel {rl:.3g}, all gradients rel-L2 {rg:.3g} (bound {GRAD_REL[dtype]}); card "
+              f"launches {moved}")
+        del cpu, gpu, res
+
+
+def _darcy_loss(model, x, y):
+    return relative_lp_loss(model(x).reshape(y.shape), y)
+
+
+def _forecast_fns(t_f: int) -> tuple:
+    """(fwd, loss) of a 3-D model for ``_card_vs_cpu``."""
+    return (lambda m, x: forecast(m, x, t_f),
+            lambda m, x, y: relative_lp_loss(forecast(m, x, t_f), y))
+
+
+def _rollout_fns(t_f: int) -> tuple:
+    """(fwd, loss) of a rollout of ``t_f`` steps for ``_card_vs_cpu``: the
+    forward alone is the trajectory fed zero targets, as ``cli predict``."""
+    def fwd(m, x):
+        return make_rollout(m, t_f)(x, torch.zeros(x.shape[:3] + (t_f,), device=x.device))[1]
+    return fwd, lambda m, x, y: make_rollout(m, t_f)(x, y)[0]
+
+
+def _pair(rng, shape_x, shape_y) -> tuple:
+    return (torch.from_numpy(rng.standard_normal(shape_x).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(shape_y).astype(np.float32)))
+
+
+def phase_s85(tmp: str, dev) -> dict:
+    """darcy_s85: ``cli train --generate`` (the generator at s = 85), then
+    ``cli predict`` of the same split's 64 test samples; returns the train
+    run's launches."""
+    data = os.path.join(tmp, "darcy_s85.npz")
+    ntrain, nval, ntest = S85_SPLIT
+    split = ["--preset", S85_PRESET, "--data-cache", data, "--ntrain", str(ntrain), "--nval",
+             str(nval), "--ntest", str(ntest), "--dtype", "bfloat16", "--device", "cuda"]
+    shapes, head = _variant_shapes("uno9", BATCH, **get_preset(S85_PRESET).model_kwargs)
+    run = _train_run(dev, lambda: _run_cli(["train", *split, "--generate",
+                                            "--epochs", str(EPOCHS)]))
+    _check_train("s85-train", f"{S85_PRESET} uno9 bf16 b{BATCH}, generated {sum(S85_SPLIT)} "
+                 f"samples at 85x85", run, shapes, True, BATCH, nval, ntest)
+    out = os.path.join(tmp, "s85_preds.npz")
+    _cli_predict("s85-predict", ["predict", *split, "--init-seed", "0", "--split", "test",
+                                 "--out", out], out, (ntest, 85, 85), len(shapes), True)
+    return run[1]
+
+
+def phase_ns3d_siblings(tmp: str, dev) -> dict:
+    """ns3d_t20, t10 and t9: one ``cli generate --task ns`` file of 30-frame
+    trajectories for the three, ``cli train --data`` of it for each, and
+    ``cli predict`` of a synthetic split of 3 batches of 16; returns each
+    preset's train launches."""
+    mat = os.path.join(tmp, "ns3d_siblings.mat")
+    _run_cli(["generate", "--task", "ns", "--out", mat, "--n", str(NS3D_MAT_N), "--size",
+              str(NS_S), "--T", str(NS3D_MAT_FRAMES * 0.5), "--delta-t", "1e-3",
+              "--record-steps", str(NS3D_MAT_FRAMES), "--device", "cuda"])
+    ntrain, nval, ntest = NS3D_MAT_SPLIT
+    out = {}
+    for name in NS3D_SIBLINGS:
+        preset = get_preset(name)
+        tag = name.replace("_", "-")
+        shapes, _ = _variant_shapes(preset.model, BATCH, **preset.model_kwargs)
+        run = _train_run(dev, lambda: _run_cli([
+            "train", "--preset", name, "--data", mat, "--ntrain", str(ntrain), "--nval",
+            str(nval), "--ntest", str(ntest), "--epochs", str(EPOCHS), "--dtype", "bfloat16",
+            "--device", "cuda"]))
+        _check_train(f"{tag}-train", f"{name} {preset.model} bf16 b{BATCH} T_in={preset.t_in} "
+                     f"-> T_f={preset.t_f}, --data of {NS3D_MAT_N} generated trajectories",
+                     run, shapes, False, BATCH, nval, ntest)
+        data, pred = os.path.join(tmp, f"{name}.npz"), os.path.join(tmp, f"{name}_preds.npz")
+        _write_ns3d_split(data, np.random.default_rng(14), NS3D_SIB_PREDICT, name)
+        _cli_predict(f"{tag}-predict", [
+            "predict", "--preset", name, "--dtype", "bfloat16", "--init-seed", "0",
+            "--data-cache", data, "--ntrain", "0", "--nval", "0", "--ntest",
+            str(NS3D_SIB_PREDICT), "--split", "test", "--out", pred, "--device", "cuda"],
+            pred, (NS3D_SIB_PREDICT, NS_S, NS_S, preset.t_f), len(shapes), False)
+        out[name] = run[1]
+    return out
+
+
+def phase_s256(tmp: str, dev) -> dict:
+    """ns2d_s256: ``cli train`` (the 40-step rollout, full BPTT, each step
+    rematerialised) and ``cli predict`` of one synthetic learnable split at
+    256x256 (the NS generator is not run at 256x256 here); returns the train
+    run's launches."""
+    preset = get_preset(S256_PRESET)
+    ntrain, nval, ntest = S256_SPLIT
+    a, u = _learnable_ns(np.random.default_rng(15), sum(S256_SPLIT), preset.size,
+                         preset.t_in, preset.t_f)
+    sized = get_preset(S256_PRESET, ntrain=ntrain, nval=nval, ntest=ntest)
+    data = os.path.join(tmp, "ns2d_s256.npz")
+    np.savez(data, **dict(zip(cli._SPLIT_KEYS, _splits(a, u, S256_SPLIT))),
+             config_sig=np.asarray(cli._gen_sig(sized)))
+    split = ["--preset", S256_PRESET, "--data-cache", data, "--ntrain", str(ntrain), "--nval",
+             str(nval), "--ntest", str(ntest), "--dtype", "bfloat16", "--device", "cuda"]
+    bs = preset.train.batch_size
+    shapes, _ = _variant_shapes(preset.model, bs, **preset.model_kwargs)
+    run = _train_run(dev, lambda: _run_cli(["train", *split, "--epochs", str(EPOCHS)]))
+    _check_train("s256-train", f"{S256_PRESET} uno_s256 bf16 b{bs} T_f={preset.t_f} BPTT, a "
+                 f"synthetic {preset.size}x{preset.size} split", run, shapes, False, bs, nval,
+                 ntest, t_f=preset.t_f)
+    out = os.path.join(tmp, "s256_preds.npz")
+    _cli_predict("s256-predict", ["predict", *split, "--init-seed", "0", "--split", "test",
+                                  "--out", out],
+                 out, (ntest, preset.size, preset.size, preset.t_f), len(shapes), False,
+                 per_batch=preset.t_f)
+    return run[1]
+
+
+def phase_uno_p(tmp: str, dev) -> dict:
+    """uno_p on the ns2d task through ``build_model``: ``train_ns2d`` on
+    phase_ns_train's generated split, and the serving rollout over
+    phase_ns_predict's test split; returns the train run's launches."""
+    preset = get_preset(NS_PRESET)
+    shapes, _ = _variant_shapes("uno_p", BATCH, **UNO_P_KW)
+    model = build_model("uno_p", dtype="bfloat16", device=dev,
+                        generator=torch.Generator().manual_seed(0), **UNO_P_KW)
+    split = _load_split(os.path.join(tmp, "ns2d_train.npz"))
+    cfg = dataclasses.replace(preset.train, epochs=EPOCHS)
+    run = _train_run(dev, _trainer(model, train_ns2d, split, cfg, t_f=preset.t_f))
+    _check_train("uno-p-train", f"uno_p width {UNO_P_KW['width']} bf16 b{BATCH} "
+                 f"T_f={preset.t_f} BPTT, train_ns2d on the generated ns2d split", run, shapes,
+                 False, BATCH, len(split[2]), len(split[4]), t_f=preset.t_f)
+    xs = _load_split(os.path.join(tmp, "ns2d.npz"))[4][: SERVE_BATCHES * BATCH]
+    rollout = _rollout_fns(preset.t_f)[0]
+    model.eval()
+    _serve("uno-p-predict", f"uno_p bf16 rollout T_f={preset.t_f}", dev,
+           lambda x: rollout(model, x), xs, BATCH, (NS_S, NS_S, preset.t_f),
+           len(shapes), False, per_batch=preset.t_f)
+    return run[1]
+
+
+def phase_uno_demo(tmp: str, dev) -> dict:
+    """uno_demo (13 blocks) on darcy_s211's grid through ``build_model``:
+    ``train_darcy`` on phase_train's split, and the serving forward over
+    phase_predict's test split; returns the train run's launches."""
+    shapes, _ = _variant_shapes("uno_demo", BATCH, **DEMO_KW)
+    model = build_model("uno_demo", dtype="bfloat16", device=dev,
+                        generator=torch.Generator().manual_seed(0), **DEMO_KW)
+    split = _load_split(os.path.join(tmp, "darcy_s211_train.npz"))
+    cfg = dataclasses.replace(get_preset(PRESET).train, epochs=EPOCHS)
+    run = _train_run(dev, _trainer(model, train_darcy, split, cfg))
+    _check_train("uno-demo-train", f"uno_demo width {DEMO_KW['width']} pad 8 bf16 b{BATCH} at "
+                 f"{S}x{S}, train_darcy", run, shapes, True, BATCH, len(split[2]), len(split[4]))
+    xs = _load_split(os.path.join(tmp, "darcy_s211.npz"))[4][: SERVE_BATCHES * BATCH]
+    model.eval()
+    _serve("uno-demo-predict", "uno_demo bf16 forward", dev, model, xs, BATCH,
+           (S, S, 1), len(shapes), True)
+    return run[1]
+
+
+def phase_ns3d_256(dev) -> dict:
+    """The four uno3d_*_256 factories at 256x256, batch 4, through
+    ``build_model``: ``train_ns3d`` on a synthetic learnable split, then the
+    serving ``forecast``; returns each one's train launches."""
+    cfg = dataclasses.replace(get_preset(NS3D_PRESET).train, epochs=EPOCHS,
+                              batch_size=NS3D_256_BATCH)
+    s, bs = NS3D_256_S, NS3D_256_BATCH
+    out = {}
+    for name, (t_in, t_f) in NS3D_256.items():
+        tag = name.replace("uno3d_", "ns3d-").replace("_", "-")
+        shapes, _ = _variant_shapes(name, bs, **NS3D_256_KW)
+        n = sum(NS3D_256_SPLIT)
+        a, u = _learnable_ns(np.random.default_rng(16), n + SERVE_BATCHES * bs, s, t_in, t_f)
+        model = build_model(name, dtype="bfloat16", device=dev,
+                            generator=torch.Generator().manual_seed(0), **NS3D_256_KW)
+        split = _splits(a[:n], u[:n], NS3D_256_SPLIT)
+        run = _train_run(dev, _trainer(model, train_ns3d, split, cfg, t_f=t_f))
+        _check_train(f"{tag}-train", f"{name} width {NS3D_256_KW['width']} bf16 b{bs} {s}x{s} "
+                     f"T_in={t_in} -> T_f={t_f}, train_ns3d on a synthetic split", run, shapes,
+                     False, bs, NS3D_256_SPLIT[1], NS3D_256_SPLIT[2])
+        model.eval()
+        _serve(f"{tag}-predict", f"{name} bf16 forecast", dev,
+               lambda x: forecast(model, x, t_f), a[n:], bs, (s, s, t_f),
+               len(shapes), False)
+        out[name] = run[1]
+        del model, run, split, a, u
+    return out
+
+
+def phase_variants_cuda_vs_cpu(dev) -> None:
+    """Each new path's model at full width on 1-2 samples, card against CPU
+    with the same weights: the forward alone, the loss and every gradient,
+    f32 and bf16 (rollouts at T_f = 2)."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((2, 85, 85, 1)).astype(np.float32))
+    _card_vs_cpu("s85-cuda-vs-cpu", dev, "uno9", get_preset(S85_PRESET).model_kwargs, x,
+                 (x[..., 0] + x[..., 0].roll(1, 1)) / 2, lambda m, x_: m(x_), _darcy_loss, True)
+    for name in NS3D_SIBLINGS:
+        p = get_preset(name)
+        x, y = _pair(rng, (2, NS_S, NS_S, p.t_in), (2, NS_S, NS_S, p.t_f))
+        _card_vs_cpu(f"{name.replace('_', '-')}-cuda-vs-cpu", dev, p.model, p.model_kwargs, x, y,
+                     *_forecast_fns(p.t_f), False)
+    p = get_preset(S256_PRESET)
+    b, t_f = S256_CHECK
+    x, y = _pair(rng, (b, p.size, p.size, p.t_in), (b, p.size, p.size, t_f))
+    _card_vs_cpu("s256-cuda-vs-cpu", dev, p.model, p.model_kwargs, x, y, *_rollout_fns(t_f),
+                 False, t_f=t_f)
+    x, y = _pair(rng, (2, NS_S, NS_S, 10), (2, NS_S, NS_S, 2))
+    _card_vs_cpu("uno-p-cuda-vs-cpu", dev, "uno_p", UNO_P_KW, x, y, *_rollout_fns(2), False,
+                 t_f=2)
+    x = torch.from_numpy(rng.standard_normal((2, S, S, 1)).astype(np.float32))
+    _card_vs_cpu("uno-demo-cuda-vs-cpu", dev, "uno_demo", DEMO_KW, x,
+                 (x[..., 0] + x[..., 0].roll(1, 1)) / 2, lambda m, x_: m(x_), _darcy_loss, True)
+    for name, (t_in, t_f) in NS3D_256.items():
+        x, y = _pair(rng, (1, NS3D_256_S, NS3D_256_S, t_in), (1, NS3D_256_S, NS3D_256_S, t_f))
+        _card_vs_cpu(f"{name.replace('uno3d_', 'ns3d-').replace('_', '-')}-cuda-vs-cpu", dev,
+                     name, NS3D_256_KW, x, y, *_forecast_fns(t_f), False)
+
+
+# (key of the kernels line, tag, factory, factory kwargs, batch, head's N or None)
+VARIANT_KERNELS = (
+    ("s85", "kernels s85", "uno9", get_preset(S85_PRESET).model_kwargs, BATCH, 85 * 85),
+    *((n, f"kernels {n.replace('_', '-')}", get_preset(n).model, get_preset(n).model_kwargs,
+       BATCH, None) for n in NS3D_SIBLINGS),
+    ("s256", "kernels s256", "uno_s256", get_preset(S256_PRESET).model_kwargs,
+     get_preset(S256_PRESET).train.batch_size, None),
+    ("uno_p", "kernels uno-p", "uno_p", UNO_P_KW, BATCH, None),
+    ("uno_demo", "kernels uno-demo", "uno_demo", DEMO_KW, BATCH, S * S),
+    *((n.replace("uno3d", "ns3d"), f"kernels {n.replace('uno3d_', 'ns3d-').replace('_', '-')}",
+       n, NS3D_256_KW, NS3D_256_BATCH, None) for n in NS3D_256),
+)
+
+
+def phase_variant_kernels(dev) -> dict:
+    """The five kernels at each new path's shapes (``phase_kernels``)."""
+    out = {}
+    for key, tag, name, kw, batch, n in VARIANT_KERNELS:
+        shapes, head = _variant_shapes(name, batch, **kw)
+        out[key] = phase_kernels(dev, shapes, None if n is None else (*head[:2], n, *head[3:]),
+                                 tag)
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -1855,6 +2282,7 @@ def main() -> int:
     dp_ns3d_times = phase_kernels(dev, DP_NS3D_CMUL_SHAPES, None, "kernels dp ns3d")
     tp_times = phase_kernels(dev, TP_CMUL_SHAPES, None, "kernels tp")
     spatial_times = phase_kernels(dev, CMUL_SHAPES, None, "kernels spatial")
+    variant_times = phase_variant_kernels(dev)
     with tempfile.TemporaryDirectory() as tmp:
         fft_predict_ms = phase_predict(tmp)
         phase_head_switch(tmp)
@@ -1878,6 +2306,11 @@ def main() -> int:
         export_launches = phase_export(tmp, dev)
         phase_profile(tmp)
         phase_custom_ops(tmp, dev, fft_predict_ms, ns_train_ms)
+        variant_launches = {"s85": phase_s85(tmp, dev), **phase_ns3d_siblings(tmp, dev),
+                            "s256": phase_s256(tmp, dev), "uno_p": phase_uno_p(tmp, dev),
+                            "uno_demo": phase_uno_demo(tmp, dev)}
+        variant_launches.update({k.replace("uno3d", "ns3d"): v
+                                 for k, v in phase_ns3d_256(dev).items()})
     phase_grads_cpu_vs_cuda(dev)
     phase_cpu_vs_cuda(dev)
     set_dft_mode(True)
@@ -1890,6 +2323,7 @@ def main() -> int:
     phase_ns3d_cuda_vs_cpu(dev)
     phase_s421_cuda_vs_cpu(dev)
     oned_launches = phase_1d(dev)
+    phase_variants_cuda_vs_cpu(dev)
     # top level: the Darcy path (darcy_s211 shapes, launches of its train
     # run); "ns2d", "ns3d", "s421" (darcy_s421: its train run), "superres"
     # (the super-resolution evaluation at 421, forward only) and "1d" (the
@@ -1900,7 +2334,8 @@ def main() -> int:
     # served artifact: the Darcy forward shapes), "remat" (the remat_blocks
     # run: the Darcy shapes), "tp" (rank 0 of the TP run, at the Co/2
     # shards), "spatial" and "spatial_ns3d" (rank 0 of the split runs: the
-    # whole reduced modes, the Darcy and NS-3D shapes)
+    # whole reduced modes, the Darcy and NS-3D shapes); then the variants'
+    # paths (VARIANT_KERNELS: their shapes, the launches of their train runs)
     export_times = {k: times[k] for k in ("cmul_fwd", "mlp_head_fwd")}
     paths = {"ns2d": (ns_times, ns_launches), "ns3d": (ns3d_times, ns3d_launches),
              "s421": (s421_times, s421_launches), "superres": (sr_times, sr_launches),
@@ -1910,7 +2345,8 @@ def main() -> int:
              "export": (export_times, export_launches), "remat": (times, remat_launches),
              "tp": (tp_times, mesh_launches["tp"]),
              "spatial": (spatial_times, mesh_launches["spatial"]),
-             "spatial_ns3d": (ns3d_times, mesh_launches["spatial_ns3d"])}
+             "spatial_ns3d": (ns3d_times, mesh_launches["spatial_ns3d"]),
+             **{k: (variant_times[k], variant_launches[k]) for k in variant_times}}
     kernels = []
     for name, (_, _, src, rep) in KERNELS.items():
         entry = dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1919,6 +2355,8 @@ def main() -> int:
             entry[path] = (dict(launches=n[name], **t[name]) if name in t
                            else dict(launches=n[name], on_path=False))
         kernels.append(entry)
+    print(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the kernels' build "
+          f"included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,11 @@ CPU; the kernels' custom ops (``torch.library``) and an exported program
 served on the card.  Every case needs a CUDA device and skips without one.
 
 Since PR 11 also: the contractions at the TP shard shapes, the split
-spectral convs over a world of one, and ``remat_blocks`` on the card.
+spectral convs over a world of one, and ``remat_blocks`` on the card.  And
+the shape families of the other U-NO variants: the contraction at the
+largest M (uno3d_t40_256), at uno_demo's 512 x 512 bottleneck, at batch 4
+(uno_s256 and the uno3d_*_256 family), and the head at darcy_s85's and
+uno_demo's shapes.
 
 This file imports no JAX, so it runs where the port runs; tests/conftest.py
 imports JAX, so on a machine without it run
@@ -43,6 +47,14 @@ SUPERRES = [(8, 32, 64, 648), (8, 64, 128, 128), (8, 128, 128, 128), (8, 128, 64
 # uno9's five contractions at darcy_s211 under 2-way channel TP: each rank's
 # Co/2 shard of every weight
 DARCY_S211_TP2 = [(b, ci, co // 2, m) for b, ci, co, m in DARCY_S211]
+# (B, Ci, Co, M) of the variants' new shape families: uno3d_t40_256's last
+# block, the largest M (65,536 modes: 268 MB of weight, a grid of 16,384
+# blocks along x) and its 128 x 128 bottleneck at batch 4; uno_demo's 512 x
+# 512 bottleneck at 8 modes (a grid of 64 blocks) and the 256 -> 512 block
+# before it; uno_s256's first and last blocks at batch 4 (dw's channels: a
+# quarter of its 16-row tile)
+VARIANTS = [(4, 32, 16, 65536), (4, 128, 128, 512), (16, 512, 512, 8), (16, 256, 512, 8),
+            (4, 32, 64, 2112), (4, 128, 32, 2048)]
 
 
 @pytest.fixture
@@ -88,7 +100,7 @@ def _misaligned(t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D + UNO11_S421 + SUPERRES
-                         + DARCY_S211_TP2)
+                         + DARCY_S211_TP2 + VARIANTS)
 def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
     g = torch.Generator().manual_seed(1)
     x = _rand_c(g, b, ci, m).to(cuda)
@@ -106,7 +118,7 @@ def test_cmul_kernel_matches_plain(cuda, b, ci, co, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,ci,co,m", EDGES + DARCY_S211 + NS2D + NS3D + UNO11_S421
-                         + DARCY_S211_TP2)
+                         + DARCY_S211_TP2 + VARIANTS)
 def test_cmul_backward_kernels_match_plain(cuda, b, ci, co, m):
     g_ = torch.Generator().manual_seed(3)
     x = _rand_c(g_, b, ci, m).to(cuda)
@@ -152,7 +164,9 @@ def test_cmul_wrapper_raises_on_the_card(cuda):
                                        ((16, 64, 211, 211), 32, 1), ((3, 5, 7, 300), 40, 4),
                                        ((16, 64, 64, 64), 128, 1),  # the ns2d head
                                        # darcy_s421 (uno11) and its super-resolution batch
-                                       ((4, 64, 421, 421), 32, 1), ((8, 64, 421, 421), 32, 1)])
+                                       ((4, 64, 421, 421), 32, 1), ((8, 64, 421, 421), 32, 1),
+                                       # darcy_s85 (uno9) and uno_demo at 211 x 211
+                                       ((16, 64, 85, 85), 32, 1), ((16, 32, 211, 211), 64, 1)])
 def test_mlp_head_kernel_matches_plain(cuda, shape, h, o):
     g = torch.Generator().manual_seed(2)
     c = shape[1]
@@ -206,7 +220,9 @@ def test_mlp_head_kernel_at_the_plans_edges(cuda, b, c, n, h, o):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,h,o", [((2, 8, 37 * 45), 32, 1), ((1, 16, 4096), 64, 3),
                                        ((3, 5, 2100), 40, 4), ((16, 64, 211 * 211), 32, 1),
-                                       ((4, 64, 421 * 421), 32, 1)])  # darcy_s421
+                                       ((4, 64, 421 * 421), 32, 1),  # darcy_s421
+                                       # darcy_s85 (uno9) and uno_demo at 211 x 211
+                                       ((16, 64, 85 * 85), 32, 1), ((16, 32, 211 * 211), 64, 1)])
 def test_mlp_head_backward_kernel_matches_plain(cuda, shape, h, o):
     g_ = torch.Generator().manual_seed(4)
     b, c, n = shape
@@ -705,3 +721,64 @@ def test_remat_blocks_on_the_card(cuda, dtype):
     assert torch.equal(o0, o1)
     assert all(torch.equal(g0[k], g1[k]) for k in g0)
     assert (n0, n1) == (5, 10)
+
+
+# (dims, input grid, output grid, modes): convs and truncations whose inverse
+# FFT runs at 128 and 256 points, where cuFFT's c2r took the non-Hermitian
+# part of the DC and Nyquist slices that the CPU's drops (uno_s256's last
+# block: 64 -> 256, modes 32; the uno3d_*_256 family's last blocks)
+C2R_CASES = [(1, (256,), (128,), 65), (2, (64, 64), (256, 256), (32, 32)),
+             (2, (128, 128), (128, 128), (32, 33)), (3, (32, 32, 12), (128, 128, 8), (8, 8, 4)),
+             (3, (64, 64, 12), (256, 256, 16), (8, 8, 5))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,grid,out,modes", C2R_CASES)
+def test_spectral_conv_at_cuffts_sizes_matches_the_cpu(cuda, dims, grid, out, modes):
+    """The spectral conv (and, in 3-D, the Fourier truncation) forward and
+    gradients on the card against the CPU, f32, within 1e-5."""
+    from uno_tpu_torch.ops.spectral import (fourier_truncate_3d, spectral_conv_1d,
+                                            spectral_conv_2d, spectral_conv_3d)
+
+    g = torch.Generator().manual_seed(9)
+    fn = {1: spectral_conv_1d, 2: spectral_conv_2d, 3: spectral_conv_3d}[dims]
+    mshape = modes if dims > 1 else (modes,)
+    out_t = out if dims > 1 else out[0]
+    x = torch.randn((2, 3) + grid, generator=g)
+    w = _rand_c(g, 2 ** (dims - 1), 3, 4, *mshape) / 6**0.5
+    cot = torch.randn((2, 4) + out, generator=g)
+    cot_t = torch.randn((2, 3) + out, generator=g)
+    res = []
+    for d in ("cpu", cuda):
+        xt, wt = (t.to(d).detach().requires_grad_() for t in (x, w))
+        y = fn(xt, wt, out_t, modes)
+        loss = (y * cot.to(d)).sum()
+        trunc = fourier_truncate_3d(xt, out) if dims == 3 else None
+        if trunc is not None:
+            loss = loss + (trunc * cot_t.to(d)).sum()
+        loss.backward()
+        res.append([y.detach(), xt.grad, wt.grad] + ([trunc.detach()] if dims == 3 else []))
+    for got, want in zip(res[1], res[0]):
+        got, want = (torch.view_as_real(t) if t.is_complex() else t for t in (got, want))
+        assert _rel(got, want) <= 1e-5, _rel(got, want)
+
+
+@pytest.mark.cuda
+def test_uno_s256_on_the_card_matches_the_cpu(cuda):
+    """ns2d_s256's model at width 4: the forward, the loss and every gradient
+    with the same weights on the card and the CPU, f32."""
+    kw = dict(in_width=14, width=4, pad=0)
+    cpu = build_model("uno_s256", generator=torch.Generator().manual_seed(0), **kw)
+    gpu = build_model("uno_s256", device=cuda, **kw)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(10)
+    x, y = torch.randn(1, 256, 256, 10, generator=g), torch.randn(1, 256, 256, 1, generator=g)
+    res = []
+    for model, d in ((cpu, "cpu"), (gpu, cuda)):
+        out = model(x.to(d))
+        ((out - y.to(d)) ** 2).sum().backward()
+        res.append((out.detach(), *[p.grad for p in model.parameters()]))
+    for got, want in zip(res[1], res[0]):
+        got, want = (torch.view_as_real(t) if t.is_complex() else t for t in (got, want))
+        assert _rel(got, want) <= 1e-4, _rel(got, want)
+

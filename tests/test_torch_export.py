@@ -30,6 +30,8 @@ from uno_tpu_torch.export import export_forward, load_forward
 from uno_tpu_torch.models import build_model
 from uno_tpu_torch.ops.kernels import cmul as C
 from uno_tpu_torch.ops.kernels import mlp_head as H
+from uno_tpu_torch.train.ns2d import make_rollout
+from uno_tpu_torch.train.ns3d import forecast
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNO9 = dict(in_width=3, width=8, pad=1)
@@ -98,8 +100,14 @@ def test_ns2d_step_round_trip(tmp_path):
     x = np.random.default_rng(1).standard_normal((2, 64, 64, 10)).astype(np.float32)
     jm = jax_build_model("uno", **UNO)
     tree = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x)))
-    served = _round_trip(_port("uno", UNO, "float32", tree), jm, tree, x, 1e-5, tmp_path)
+    model = _port("uno", UNO, "float32", tree)
+    served = _round_trip(model, jm, tree, x, 1e-5, tmp_path)
     assert _custom_nodes(served) == Counter({CONTRACT: 7})
+    # the artifact of one step drives the rollout as the eager model does
+    xx, yy = torch.from_numpy(x), torch.zeros(2, 64, 64, 2)
+    with torch.no_grad():
+        got, want = make_rollout(served, 2)(xx, yy)[1], make_rollout(model, 2)(xx, yy)[1]
+    assert _rel(got, want) <= 1e-5
 
 
 def test_uno3d_t40_round_trip(tmp_path):
@@ -108,6 +116,9 @@ def test_uno3d_t40_round_trip(tmp_path):
     served = _round_trip(model, jax_build_model("uno3d_t40", **UNO3D),
                          bridge.params_to_flax(model), x, 1e-5, tmp_path)
     assert _custom_nodes(served) == Counter({CONTRACT: 7})  # a 3-D model has no fused head
+    with torch.no_grad():  # the artifact serves through forecast as the eager model does
+        got = forecast(served, torch.from_numpy(x[..., 0]), 40)
+        assert _rel(got, forecast(model, torch.from_numpy(x[..., 0]), 40)) <= 1e-5
 
 
 def test_custom_ops_on_the_cpu_are_the_plain_versions():

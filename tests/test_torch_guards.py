@@ -122,6 +122,28 @@ def test_darcy_presets_equal_uno_tpus():
             assert getattr(got.train, f.name) == getattr(want.train, f.name), (name, f.name)
 
 
+@pytest.mark.parametrize("name,overrides", [
+    ("darcy_s85", {}),
+    ("darcy_s211", dict(epochs=3, batch_size=8, learning_rate=5e-4)),
+    ("ns2d_s256", dict(ntrain=8, nval=4, ntest=4, eval_every=1)),
+    ("ns3d_t9", dict(t_f=4, size=32, seed=7, weight_decay=0.0, model_kwargs=dict(width=2))),
+])
+def test_get_preset_overrides_equal_uno_tpus(name, overrides):
+    """``get_preset(name, **overrides)``: TrainConfig fields go to ``train``,
+    the others to the preset, as in uno_tpu; the registered preset stays as
+    it was."""
+    got = tpresets.get_preset(name, **dict(overrides))
+    want = jpresets.get_preset(name, **dict(overrides))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for k, v in overrides.items():
+        assert getattr(got.train if k in tcommon.TrainConfig.__dataclass_fields__ else got,
+                       k) == v, k
+    if overrides:
+        assert got is not tpresets.PRESETS[name]
+        assert dataclasses.asdict(tpresets.PRESETS[name]) == dataclasses.asdict(
+            jpresets.PRESETS[name])
+
+
 @pytest.mark.parametrize("kernel", ["linear", "cubic", "nearest"])
 @pytest.mark.parametrize("align_corners", [True, False])
 @pytest.mark.parametrize("antialias", [True, False])

@@ -1,26 +1,31 @@
 """Command-line entry point of the PyTorch port.
 
-    python -m uno_tpu_torch.cli train --preset darcy_s211|darcy_s421 \\
+    python -m uno_tpu_torch.cli train --preset darcy_s211|darcy_s85|darcy_s421 \\
         (--data f.mat [g.mat ...] | --data-cache D.npz | --generate [--data-cache D.npz]) \\
         [--dtype bfloat16] [--device cuda] [--epochs N] [--log run.jsonl] \\
         [--checkpoint-dir CK [--checkpoint-every K] [--resume]] \\
         [--data-parallel] [--spatial N | --tensor-parallel N] \\
         [--profile-dir DIR] [--tensorboard DIR]
-    python -m uno_tpu_torch.cli train --preset ns2d|ns3d_t40 \\
+    python -m uno_tpu_torch.cli train --preset ns2d|ns2d_s256|ns3d_t40|ns3d_t20|ns3d_t10|ns3d_t9 \\
         (--data ns.mat | --data-cache D.npz | --generate [--gen-dt DT] [--gen-T T]) ...
-    python -m uno_tpu_torch.cli predict --preset darcy_s211|ns2d|ns3d_t40 \\
+    python -m uno_tpu_torch.cli predict --preset PRESET \\
         (--data ... | --data-cache D.npz | --generate ...) \\
         (--params P.npz | --init-seed N | --checkpoint-dir CK) \\
         --split test --out preds.npz [--dtype bfloat16] [--device cuda]
-    python -m uno_tpu_torch.cli export --preset darcy_s211|ns2d|ns3d_t40 \\
+    python -m uno_tpu_torch.cli export --preset PRESET \\
         (--params P.npz | --init-seed N | --checkpoint-dir CK) --out model.pt2 \\
         [--serve-batch 16] [--dtype bfloat16] [--device cuda]
-    python -m uno_tpu_torch.cli eval --preset darcy_s211|ns2d|ns3d_t40 \\
+    python -m uno_tpu_torch.cli eval --preset PRESET \\
         (--data ... | --data-cache D.npz | --generate ...) --checkpoint-dir CK
     python -m uno_tpu_torch.cli generate --task darcy --out darcy.mat \\
         [--n 100] [--size 421] [--seed 0] [--device cuda]
     python -m uno_tpu_torch.cli generate --task ns --out ns.mat [--n 100] \\
         [--size 64] [--visc 1e-3] [--T 50] [--delta-t 1e-4] [--record-steps 50]
+
+``PRESET`` is any of the nine presets of ``configs/presets.py``, ``uno_tpu``'s:
+``darcy_s211`` (uno9), ``darcy_s85`` (uno9 at 85x85), ``darcy_s421`` (uno11),
+``ns2d`` (uno), ``ns2d_s256`` (uno_s256 at 256x256), and ``ns3d_t40``,
+``ns3d_t20``, ``ns3d_t10``, ``ns3d_t9`` (uno3d_t40/t20/t10/t9).
 
 ``train`` is the counterpart of ``uno_tpu``'s ``cli train`` for the Darcy,
 NS-2D and NS-3D presets: it reads or writes the six-key split ``.npz``

@@ -16,7 +16,7 @@ tests/test_torch_guards.py holds every field here equal to ``uno_tpu``'s.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import Any, Dict
 
 from uno_tpu_torch.train.common import TrainConfig
@@ -109,5 +109,15 @@ PRESETS: Dict[str, Preset] = {
 }
 
 
-def get_preset(name: str) -> Preset:
-    return PRESETS[name]
+def get_preset(name: str, **overrides) -> Preset:
+    """The preset ``name``, with each override that names a ``TrainConfig``
+    field replaced in its ``train`` and the others in the preset itself,
+    as ``uno_tpu``'s ``get_preset`` does."""
+    p = PRESETS[name]
+    train_fields = {f.name for f in fields(TrainConfig)}
+    train_over = {k: overrides.pop(k) for k in list(overrides) if k in train_fields}
+    if train_over:
+        p = replace(p, train=replace(p.train, **train_over))
+    if overrides:
+        p = replace(p, **overrides)
+    return p

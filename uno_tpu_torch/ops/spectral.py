@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from uno_tpu_torch.ops import dft
 from uno_tpu_torch.ops.kernels.cmul import cmul
@@ -164,7 +165,114 @@ def spectral_conv_2d(
     out_ft = torch.zeros((b, co, d1, d2 // 2 + 1), dtype=out.dtype, device=out.device)
     out_ft[:, :, :n_top, :m2] = out[:, :, :n_top]
     out_ft[:, :, d1 - m1 :, :m2] = out[:, :, m1:]
-    return torch.fft.irfft2(out_ft, s=(d1, d2), norm="forward")
+    return _irfftn(out_ft, (d1, d2), (-2, -1), m2, "forward")
+
+
+def _project_c2r(spec: torch.Tensor, n: int, axes: Tuple[int, ...], kept: int) -> torch.Tensor:
+    """In place: the DC bin and, for an even ``n``, the Nyquist bin of the
+    last axis of ``spec`` (where they lie among its first ``kept`` bins,
+    the others being 0) replaced by their Hermitian part along ``axes``
+    (none: by their real part).  Returns ``spec``."""
+    for k in (0, n // 2) if n % 2 == 0 else (0,):
+        if k >= kept:
+            continue
+        sl = spec[..., k]
+        if not axes:
+            torch.view_as_real(sl)[..., 1].zero_()
+            continue
+        # the index -i mod size on each axis: flip, then roll by one
+        mirror = sl.flip(axes).roll([1] * len(axes), axes)
+        sl.add_(mirror.conj_physical_()).mul_(0.5)
+    return spec
+
+
+class _HermitianC2R(torch.autograd.Function):
+    """``_project_c2r`` as one autograd node: the projection is real-linear
+    and self-adjoint, so its backward is itself."""
+
+    @staticmethod
+    def forward(ctx, spec, n, axes, kept):
+        ctx.geometry = (n, axes, kept)
+        ctx.mark_dirty(spec)
+        return _project_c2r(spec, n, axes, kept)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _project_c2r(g.clone(), *ctx.geometry), None, None, None
+
+
+def _hermitian_c2r(spec: torch.Tensor, n: int, axes: Tuple[int, ...] = (),
+                   kept: Optional[int] = None) -> torch.Tensor:
+    """``spec``, a fresh half spectrum for an ``n``-point c2r inverse along
+    its last axis with nonzeros in its first ``kept`` bins (default: all),
+    with its DC bin and, for an even ``n``, its Nyquist bin replaced in
+    place by their Hermitian part along ``axes``, the slice axes still to be
+    inverted by c2c transforms (none: by their real part)."""
+    kept = spec.shape[-1] if kept is None else kept
+    if torch.is_grad_enabled() and spec.requires_grad:
+        return _HermitianC2R.apply(spec, n, tuple(axes), kept)
+    return _project_c2r(spec, n, tuple(axes), kept)
+
+
+# per plan (spectrum shape, s, dims, dtype, device): whether the device's c2r
+# keeps the Hermitian part of the DC and Nyquist slices by itself; asked in
+# eager mode only, never while torch.export traces (its tensors are fake)
+_C2R_KEEPS_HERMITIAN: dict = {}
+
+
+def _c2r_keeps_hermitian(spec: torch.Tensor, s: tuple, dims: tuple) -> Optional[bool]:
+    """Whether this device's c2r of ``spec``'s plan keeps only the Hermitian
+    part of its DC and Nyquist slices, as pocketfft does: one random
+    spectrum inverted raw and projected, once per plan (cuFFT's c2r does at
+    64 and 512 points and not at 128 and 256).  None while ``torch.export``
+    traces a plan not asked before."""
+    key = (tuple(spec.shape), s, dims, spec.dtype, spec.device)
+    if key not in _C2R_KEEPS_HERMITIAN and not torch.compiler.is_exporting():
+        g = torch.Generator(device=spec.device).manual_seed(0)
+        with torch.no_grad():
+            probe = torch.randn(spec.shape, dtype=spec.dtype, device=spec.device, generator=g)
+            raw = torch.fft.irfftn(probe, s=s, dim=dims)
+            axes = tuple(range(1 - len(dims), 0))
+            fixed = torch.fft.irfftn(_project_c2r(probe, s[-1], axes, spec.shape[-1]), s=s,
+                                     dim=dims)
+            _C2R_KEEPS_HERMITIAN[key] = bool((raw - fixed).norm() <= 1e-4 * fixed.norm())
+    return _C2R_KEEPS_HERMITIAN.get(key)
+
+
+def _irfftn(spec: torch.Tensor, s: Tuple[int, ...], dims: Tuple[int, ...], kept: int,
+            norm: str) -> torch.Tensor:
+    """``torch.fft.irfftn(spec, s, dims, norm)`` of a fresh half spectrum whose
+    last axis has nonzeros in its first ``kept`` bins, taken as pocketfft
+    takes it (the CPU, and so ``uno_tpu``).
+
+    A real output needs the DC and Nyquist slices of the last axis
+    Hermitian along the other axes; a U-NO's output spectrum does not have
+    them so (the kept corners have no mirror rows).  pocketfft keeps their
+    Hermitian part; cuFFT's c2r gives other answers for some plans
+    (uno_s256's last block, 64 -> 256 points, left the CPU by rel-L2 1.0).
+    On the card, a plan whose c2r does not keep that part by itself
+    (``_c2r_keeps_hermitian``), or is unknown while ``torch.export`` traces,
+    gets the slices made Hermitian first (``_hermitian_c2r``): a few
+    kernels, which the host-bound rollouts feel, so the plans that need
+    none skip them.  ``export_forward`` runs the model once before tracing,
+    so that an artifact takes the eager model's decisions for its device."""
+    s, dims = tuple(s), tuple(dims)
+    if spec.device.type == "cuda" and not _c2r_keeps_hermitian(spec, s, dims):
+        spec = _hermitian_c2r(spec, s[-1], tuple(range(1 - len(dims), 0)), kept)
+    return torch.fft.irfftn(spec, s=s, dim=dims, norm=norm)
+
+
+def _fit(spec: torch.Tensor, sizes: Tuple[int, ...]) -> torch.Tensor:
+    """``spec`` trimmed or zero-padded at the end of each of its last
+    ``len(sizes)`` axes to ``sizes``, as ``irfftn``'s ``s`` does."""
+    have = tuple(spec.shape[-len(sizes):])
+    if have == tuple(sizes):
+        return spec
+    keep = (..., *(slice(0, min(h, n)) for h, n in zip(have, sizes)))
+    out = spec.new_zeros(spec.shape[: -len(sizes)] + tuple(sizes))
+    out[keep] = spec[keep]
+    return out
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -190,7 +298,7 @@ def spectral_conv_1d(x: torch.Tensor, weights: torch.Tensor, out_size: int,
     x_ft = torch.fft.rfft(_f32(x), norm="forward")
     out = complex_mode_matmul(x_ft[:, :, :m1].contiguous(), weights[0])  # (B, Co, m1)
     tail = out.new_zeros(out.shape[:2] + (d1 // 2 + 1 - m1,))
-    return torch.fft.irfft(torch.cat([out, tail], dim=-1), n=d1, norm="forward")
+    return _irfftn(torch.cat([out, tail], dim=-1), (d1,), (-1,), m1, "forward")
 
 
 def spectral_conv_3d(
@@ -242,7 +350,7 @@ def spectral_conv_3d(
     out_ft[:, :, :n_x, d2 - m2 :, :m3] = out[:, :, :n_x, m2:]
     out_ft[:, :, d1 - m1 :, :n_y, :m3] = out[:, :, m1:, :n_y]
     out_ft[:, :, d1 - m1 :, d2 - m2 :, :m3] = out[:, :, m1:, m2:]
-    return torch.fft.irfftn(out_ft, s=(d1, d2, d3), dim=(-3, -2, -1), norm="forward")
+    return _irfftn(out_ft, (d1, d2, d3), (-3, -2, -1), m3, "forward")
 
 
 def _build_truncate_mask(sx: int, sy: int, st: int, m1: int, m2: int, m3: int, device):
@@ -292,7 +400,9 @@ def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int],
         return _DFTTruncate3d.apply(x, (d1, d2, d3))
     ft = torch.fft.rfftn(_f32(x), dim=(-3, -2, -1))
     mask = _truncate_mask(*ft.shape[-3:], d1 // 2, d2 // 2, d3 // 2, ft.device)
-    return torch.fft.irfftn(ft * mask, s=(d1, d2, d3), dim=(-3, -2, -1))
+    # the mask keeps the time bins below d3 // 2: the Nyquist bin is 0
+    return _irfftn(_fit(ft * mask, (d1, d2, d3 // 2 + 1)), (d1, d2, d3), (-3, -2, -1), d3 // 2,
+                   "backward")
 
 
 # --- the partial-DFT path -----------------------------------------------------
@@ -605,7 +715,7 @@ def _split_conv_2d(x, w, out_size, modes, split: Split) -> torch.Tensor:
     corners = psum(_fwd_rows(xf, split, _rows(m1, h), 1.0 / h), split.group)
     out = complex_mode_matmul(corners, w)  # (B, Co, 2*m1, m2)
     y = _inv_rows(_slice_pm(out, 2, m1, n_top), split.at(d1), idx_out, 1.0)
-    return torch.fft.irfft(y, n=d2, dim=-1, norm="forward")
+    return _irfftn(y, (d2,), (-1,), m2, "forward")
 
 
 def _split_conv_3d(x, w, out_size, modes, split: Split) -> torch.Tensor:
@@ -633,8 +743,7 @@ def _split_conv_3d(x, w, out_size, modes, split: Split) -> torch.Tensor:
     out_ft = torch.zeros((b, co, r, d2, d3 // 2 + 1), dtype=y.dtype, device=y.device)
     out_ft[..., :n_y, :m3] = y[..., :n_y, :]
     out_ft[..., d2 - m2 :, :m3] = y[..., m2:, :]
-    return torch.fft.irfft(torch.fft.ifft(out_ft, dim=-2, norm="forward"), n=d3, dim=-1,
-                           norm="forward")
+    return _irfftn(torch.fft.ifft(out_ft, dim=-2, norm="forward"), (d3,), (-1,), m3, "forward")
 
 
 def _split_truncate_3d(x, out_size, split: Split) -> torch.Tensor:
@@ -658,4 +767,4 @@ def _split_truncate_3d(x, out_size, split: Split) -> torch.Tensor:
     b, c, r = y.shape[:3]
     spec = torch.zeros((b, c, r, d2, d3 // 2 + 1), dtype=y.dtype, device=y.device)
     spec[..., list(ky), : len(kt)] = y
-    return torch.fft.irfft(torch.fft.ifft(spec, dim=-2), n=d3, dim=-1)
+    return _irfftn(torch.fft.ifft(spec, dim=-2), (d3,), (-1,), len(kt), "backward")

@@ -75,11 +75,12 @@ def make_rollout(model: torch.nn.Module, t_f: int, remat: bool = True, split=Non
     T_in) the input window, yy (B, S, S, T_f) the targets, pred (B, S, S,
     T_f) f32.  With ``split`` (a ``parallel/spatial.py`` ``Split`` of S),
     xx and yy hold this rank's rows (``UNOModel.input_rows``) and so does
-    pred; the losses are whole."""
+    pred; the losses are whole.  ``model`` may be a served ``torch.export``
+    artifact of one step, which takes no ``split``."""
     group = None if split is None else split.group
 
     def one_step(xx, y_t):
-        im = model(xx, split=split)  # (B, S, S, 1), f32
+        im = model(xx) if split is None else model(xx, split=split)  # (B, S, S, 1), f32
         loss_t = relative_lp_loss(im, y_t, reduction="sum", group=group)
         xx_next = torch.cat([xx[..., 1:], im], dim=-1)
         return xx_next, loss_t, im[..., 0]

@@ -58,8 +58,11 @@ from uno_tpu_torch.train.metrics import MetricLogger
 
 def forecast(model: torch.nn.Module, x: torch.Tensor, t_f: int, split=None) -> torch.Tensor:
     """x (B, S, S, T_in) -> the model's (B, S, S, T_f) forecast, f32 (with
-    ``split``, this rank's rows of the first S)."""
-    return model(x.float()[..., None], split=split).reshape(*x.shape[:3], t_f)
+    ``split``, this rank's rows of the first S).  ``model`` may be a served
+    ``torch.export`` artifact, which takes no ``split``."""
+    x5 = x.float()[..., None]
+    out = model(x5) if split is None else model(x5, split=split)
+    return out.reshape(*x.shape[:3], t_f)
 
 
 def step_rel_l2(out: torch.Tensor, y: torch.Tensor, group=None) -> torch.Tensor:
