@@ -267,6 +267,43 @@ def test_train_ns3d_stop_and_resume_match_uno_tpu(tmp_path):
     assert CheckpointManager(tck).exists("best_params")
 
 
+def test_train_ns3d_across_steplr_matches_uno_tpu():
+    """Five epochs uninterrupted at StepLR(1, 0.5), validation every 2
+    (epochs 0, 2 and 4), the val targets of one sample negated so that the
+    per-step val loss rises and falls: the saved pattern, the learning rate
+    of every epoch, each logged loss, the test pass on the best-val params
+    and those params, as uno_tpu's."""
+    a, u = _ns_data(6, seed=3)
+    u[3] *= -1
+    kw = dict(epochs=5, batch_size=2, learning_rate=3e-2, weight_decay=1e-5, seed=0,
+              eval_every=2, scheduler_step=1)
+    split = (a[:2], u[:2], a[2:4], u[2:4], a[4:], u[4:])  # one step per epoch
+    init = _port("uno3d_t10", T10)
+    jrec, trec = _JRecords(), _Records()
+    jout = j_train_ns3d(_FixedInit(jax_build_model("uno3d_t10", **T10), _tree(init)), *split,
+                        JTrainConfig(**kw), t_f=T_F, logger=jrec)
+    tout = train_ns3d(_port("uno3d_t10", T10), *split, TrainConfig(**kw), t_f=T_F, logger=trec)
+
+    je = [r for r in jrec.records if "epoch" in r]
+    te = [r for r in trec.records if "epoch" in r]
+    assert [r["epoch"] for r in te] == [r["epoch"] for r in je] == list(range(5))
+    assert [r.get("saved") for r in te] == [r.get("saved") for r in je]
+    assert [r["lr"] for r in te] == pytest.approx([r["lr"] for r in je], rel=1e-12)
+    assert len({r["lr"] for r in te}) == 5
+    assert [r["saved"] for r in te if "saved" in r] != [True] * 3
+    for a_, b_ in zip(te, je):
+        for k in ("train_step_rel_l2", "val_step_rel_l2", "val_full_rel_l2"):
+            assert (k in a_) == (k in b_), k
+            if k in b_:
+                assert a_[k] == pytest.approx(b_[k], rel=1e-3), (k, a_[k], b_[k])
+    for k in ("test_full_rel_l2", "test_step_rel_l2"):
+        assert tout[k] == pytest.approx(jout[k], rel=1e-3), (k, tout[k], jout[k])
+    assert tout["best_val"] == pytest.approx(jout["best_val"], rel=1e-3)
+    got = _flat_tree(bridge.params_to_flax(_load(tout["params"])))
+    for path, w in _flat_tree(jout["params"]).items():
+        assert _rel(got[path], w) <= 1e-3, (path, _rel(got[path], w))
+
+
 def _load(state):
     model = _port("uno3d_t10", T10)
     model.load_state_dict(state)

@@ -168,10 +168,17 @@ def test_uno9_bf16_gradients_are_as_accurate_as_uno_tpus():
         assert err_port <= 2.0 * err_jax + 0.02, (path, err_port, err_jax)
 
 
-def test_train_darcy_matches_uno_tpu():
+# "across_steplr": 4 epochs at StepLR(1, 0.5), so the learning rate halves
+# three times, and a val set whose last 3 targets are negated, so val falls,
+# rises and falls again: a best-val pattern with a miss in it
+@pytest.mark.parametrize("epochs,lr,sched,negated", [(2, 1e-3, 100, 0), (4, 5e-2, 1, 3)],
+                         ids=["short", "across_steplr"])
+def test_train_darcy_matches_uno_tpu(epochs, lr, sched, negated):
     x, y = _darcy_data(16, 85)
     xv, yv = _darcy_data(8, 85, seed=1)
-    kw = dict(epochs=2, batch_size=8, learning_rate=1e-3, weight_decay=1e-3, seed=0)
+    yv[len(yv) - negated:] *= -1
+    kw = dict(epochs=epochs, batch_size=8, learning_rate=lr, weight_decay=1e-3, seed=0,
+              scheduler_step=sched)
     jm = jax_build_model("uno9", **KW)
     jrec = _JRecords()
     jout = j_train_darcy(jm, x, y, xv, yv, xv, yv, JTrainConfig(**kw), logger=jrec)
@@ -183,16 +190,20 @@ def test_train_darcy_matches_uno_tpu():
 
     jepochs = [r for r in jrec.records if "epoch" in r]
     tepochs = [r for r in trec.records if "epoch" in r]
-    assert len(tepochs) == len(jepochs) == 2
+    assert len(tepochs) == len(jepochs) == epochs
+    assert [r["saved"] for r in tepochs] == [r["saved"] for r in jepochs]
+    assert [r["lr"] for r in tepochs] == pytest.approx([r["lr"] for r in jepochs], rel=1e-12)
     for tr, jr in zip(tepochs, jepochs):
         assert set(tr) - {"t"} == set(jr) | {"step_ms"}
-        assert (tr["epoch"], tr["step"], tr["saved"]) == (jr["epoch"], jr["step"], jr["saved"])
-        assert tr["lr"] == pytest.approx(jr["lr"], rel=1e-12)
+        assert (tr["epoch"], tr["step"]) == (jr["epoch"], jr["step"])
         assert len(tr["step_ms"]) == 2
         for k in ("train_rel_l2", "val_rel_l2"):
             assert tr[k] == pytest.approx(jr[k], rel=1e-3), (k, tr[k], jr[k])
+    if negated:  # the case sees what it is there for
+        assert len({r["lr"] for r in tepochs}) == epochs
+        assert not all(r["saved"] for r in tepochs)
     assert tout["test_rel_l2"] == pytest.approx(jout["test_rel_l2"], rel=1e-3)
-    assert tout["step"] == 4
+    assert tout["step"] == 2 * epochs
     got = _flat_tree(bridge.params_to_flax(model))
     want = _flat_tree(jout["params"])
     for path, w in want.items():
