@@ -176,8 +176,22 @@ the trainers).
    the uno3d_*_256 family (``train_ns3d`` and ``forecast`` on synthetic
    256x256 splits); at the end each one's model at full width on 1-2
    samples, card against CPU, f32 and bf16: the forward alone, the loss
-   and every gradient (rollouts at T_f = 2; ``[...-cuda-vs-cpu]``); and
-   the run's total seconds (``[total]``).
+   and every gradient (rollouts at T_f = 2; ``[...-cuda-vs-cpu]``);
+22. the skip concats as channel pieces (the f32 default of a 2-D model)
+   against the materialized form (``UNO_TPU_TORCH_NO_FUSED_SKIPS=1``):
+   darcy_s211 uno9, darcy_s421 uno11 and ns2d uno (the 40-step rollout)
+   in f32 at their batches, each form's warm serve and step ms in turns,
+   peak device memory in training, the kernels a step and a served batch
+   in a ``torch.profiler`` trace and the port's kernel launches a step;
+   darcy_s211's output and all its gradients in the two forms on the card
+   (within 1e-5) and the fused form on the card against the CPU on 2
+   samples (1e-4); uno9 bf16's default (materialized) against
+   ``UNO_TPU_TORCH_FUSED_SKIPS=1`` (2e-2) (``[fused-skips]``);
+   ``ComplexAdam(fused=True)`` against ``fused=False`` on uno9's
+   darcy_s211 parameters on the card: 20 steps of the same gradients, the
+   parameters and moments bit for bit, then each form's ms a step (CUDA
+   events, 50 steps) and kernels a step (``[adam-fused]``); and the run's
+   total seconds (``[total]``).
 
 Any failed phase raises, and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, and
@@ -185,7 +199,9 @@ the same keys under ``ns2d``, ``ns3d``, ``s421``, ``superres``, ``1d``,
 ``dp_nccl``, ``dp``, ``dp_ns3d``, ``export``, ``remat``, ``tp``,
 ``spatial``, ``spatial_ns3d``, ``s85``, ``ns3d_t20``, ``ns3d_t10``,
 ``ns3d_t9``, ``s256``, ``uno_p``, ``uno_demo``, ``ns3d_t40_256``,
-``ns3d_t20_256``, ``ns3d_t10_256`` and ``ns3d_t9_256``); the last line is ``{"ok": true,
+``ns3d_t20_256``, ``ns3d_t10_256``, ``ns3d_t9_256`` and ``fused_skips``,
+the contractions of one f32 darcy_s211 step with the skips as pieces);
+the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits 1 and prints no result.
 
     python3 chip_smoke.py --dp-rank DIR   # one rank of [dp]/[dp-ns3d]/[tp]/[spatial] (started by the script)
@@ -232,7 +248,9 @@ from uno_tpu_torch.ops.spectral import (
 from uno_tpu_torch.export import export_forward, load_forward
 from uno_tpu_torch.parallel import initialize_from_env, make_mesh
 from uno_tpu_torch.parallel.tp import full_state
+from uno_tpu_torch.optim import ComplexAdam, step_lr
 from uno_tpu_torch.train.checkpoint import CheckpointManager
+from uno_tpu_torch.train.common import make_optimizer
 from uno_tpu_torch.train.darcy import train_darcy
 from uno_tpu_torch.train.evaluate import evaluate_superres
 from uno_tpu_torch.train.metrics import MetricLogger
@@ -2266,6 +2284,249 @@ def phase_variant_kernels(dev) -> dict:
     return out
 
 
+FUSED_REL, FUSED_BF16_REL = 1e-5, 2e-2  # [fused-skips]: fused against materialized
+FUSED_CPU_REL = 1e-4  # [fused-skips]: the fused form on the card against the CPU
+FUSED_STEPS, FUSED_SERVES = 12, 8  # [fused-skips] darcy_s211: timed steps, served batches a form
+ADAM_STEPS, ADAM_REPS = 20, 50  # [adam-fused]: steps held bit for bit; steps timed a form
+NO_FUSED = "UNO_TPU_TORCH_NO_FUSED_SKIPS"
+FORMS = {"fused": {}, "materialized": {NO_FUSED: 1}}  # the skip forms: their environment
+
+
+def _kernel_count(fn) -> int:
+    """The CUDA kernels that one call of ``fn`` launches, counted in a
+    ``torch.profiler`` trace of its second call: the profiler's warm-up
+    step takes the first (a trace of a first step can miss its first
+    kernels)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        with open(path) as f:
+            n = sum(1 for e in json.load(f)["traceEvents"]
+                    if e.get("ph") == "X" and e.get("cat") == "kernel")
+    if not n:
+        raise AssertionError("the profiler saw no kernel on the card")
+    return n
+
+
+def _host_ms(fn) -> float:
+    """One call of ``fn`` to its end on the card, on the host's clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _skip_case(dev, preset_name: str, batch: int, seed: int) -> dict:
+    """One preset's model in f32 with its own optimizer and a random batch:
+    the serving call and the training step (the loss the trainer takes, a
+    backward, ``ComplexAdam``) as functions of the form's model."""
+    preset = get_preset(preset_name)
+    rng = np.random.default_rng(seed)
+    s = preset.size if preset.task == "ns2d" else S421 if preset_name == S421_PRESET else S
+    if preset.task == "ns2d":
+        x, y = _pair(rng, (batch, s, s, preset.t_in), (batch, s, s, preset.t_f))
+    else:
+        x, y = _pair(rng, (batch, s, s, 1), (batch, s, s))
+    x, y = x.to(dev), y.to(dev)
+    model = build_model(preset.model, device=dev, generator=torch.Generator().manual_seed(0),
+                        **preset.model_kwargs)
+    opt = make_optimizer(preset.train, 4, model.parameters())
+
+    def loss():
+        if preset.task == "ns2d":
+            return make_rollout(model, preset.t_f)(x, y)[0]
+        return relative_lp_loss(model(x).reshape(y.shape), y, reduction="sum")
+
+    def serve():
+        with torch.inference_mode():
+            if preset.task == "ns2d":
+                make_rollout(model, preset.t_f)(x, torch.zeros_like(y))
+            else:
+                model(x)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss().backward()
+        opt.step()
+
+    what = f"{preset_name} {preset.model} f32 b{batch} {s}x{s}" + (
+        f" T_f={preset.t_f} rollout" if preset.task == "ns2d" else "")
+    return dict(model=model, serve=serve, step=step, what=what, x=x, y=y,
+                nb=len(model.spec.blocks), rollout=preset.t_f if preset.task == "ns2d" else 1)
+
+
+def _time_forms(dev, case: dict, steps: int, serves: int) -> dict:
+    """Each skip form of ``case``'s model: its warm serving and step times
+    (in turns fused, materialized, materialized, fused, half of them a
+    turn), peak device memory in training, the profiler's kernels a step
+    and a served batch, and the port's kernels a step."""
+    res = {f: dict(serve_ms=[], step_ms=[]) for f in FORMS}
+    for form, env in FORMS.items():
+        with _env(**env):
+            case["serve"]()
+            case["step"]()  # warm: cuFFT plans, cuBLAS handles, the allocator
+            torch.cuda.reset_peak_memory_stats(dev)
+            _zero_launches()
+            res[form]["step_ms"].append(_host_ms(case["step"]))
+            res[form]["launches"] = _launches()
+            res[form]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            res[form]["kernels_step"] = _kernel_count(case["step"])
+            res[form]["kernels_serve"] = _kernel_count(case["serve"])
+    for form in ("fused", "materialized", "materialized", "fused"):
+        with _env(**FORMS[form]):
+            res[form]["step_ms"] += [_host_ms(case["step"]) for _ in range(steps // 2)]
+            res[form]["serve_ms"] += [_host_ms(case["serve"]) for _ in range(max(serves // 2, 1))]
+    nb, reps = case["nb"], case["rollout"]
+    want = {"cmul_fwd": nb * reps * (2 if reps > 1 else 1), "cmul_bwd_x": nb * reps,
+            "cmul_bwd_w": nb * reps, "mlp_head_fwd": 0, "mlp_head_bwd": 0}
+    for form, r in res.items():
+        if r["launches"] != want:
+            raise AssertionError(f"[fused-skips] {case['what']} {form}: kernel launches a step "
+                                 f"{r['launches']}, expected {want}")
+        print(f"[fused-skips] {case['what']} {form}: serve ms a batch {_spread(r['serve_ms'])}; "
+              f"step ms {_spread(r['step_ms'])} over {len(r['step_ms'])} steps (the first, "
+              f"after one warm step, {r['step_ms'][0]:.3f}); peak device memory in training "
+              f"{r['peak_gb']:.4f} GB; kernels a step {r['kernels_step']}, a served batch "
+              f"{r['kernels_serve']} (profiler); port kernels a step {r['launches']}")
+    return res
+
+
+def _grads_of(model, x, y) -> tuple:
+    """The forward's output and all the parameters' gradients of the Darcy
+    loss as one vector (complex ones as their (re, im) pairs): the gradients
+    of a bias that an instance norm follows are rounding noise about 0,
+    which no relative bound of its own can hold."""
+    model.zero_grad(set_to_none=True)
+    out = model(x)
+    relative_lp_loss(out.reshape(y.shape), y, reduction="sum").backward()
+    return out.detach(), torch.cat([
+        torch.view_as_real(p.grad).flatten() if p.is_complex() else p.grad.flatten()
+        for p in model.parameters()])
+
+
+def phase_fused_skips(dev) -> dict:
+    """The skip concats carried as channel pieces (the f32 default of a 2-D
+    model) against the materialized form (``UNO_TPU_TORCH_NO_FUSED_SKIPS=1``):
+    darcy_s211 uno9 f32 batch 16 (serving, steps, memory, launches; output
+    and every gradient of the two forms on the card, and the fused form on
+    the card against the CPU on 2 samples); darcy_s421 uno11 f32 batch 4
+    and ns2d uno f32 batch 16 (a few steps and served rollouts each way);
+    uno9 under bf16, the default (materialized) against
+    ``UNO_TPU_TORCH_FUSED_SKIPS=1``.  Returns the fused darcy_s211 steps'
+    port kernel launches (one step)."""
+    case = _skip_case(dev, PRESET, BATCH, 31)
+    res = _time_forms(dev, case, FUSED_STEPS, FUSED_SERVES)
+    model, x, y = case["model"], case["x"], case["y"]
+    grads = {}
+    for form, env in FORMS.items():
+        with _env(**env):
+            grads[form] = _grads_of(model, x, y)
+    card_rel = max(_rel(a, b) for a, b in zip(grads["fused"], grads["materialized"]))
+    cpu = build_model("uno9", generator=torch.Generator().manual_seed(0),
+                      **get_preset(PRESET).model_kwargs)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    on_card = _grads_of(model, x[:2], y[:2])
+    on_cpu = _grads_of(cpu, x[:2].cpu(), y[:2].cpu())
+    cpu_out, cpu_grads = (_rel(a, b) for a, b in zip(on_card, on_cpu))
+    if card_rel > FUSED_REL or cpu_out > FUSED_CPU_REL or cpu_grads > FUSED_CPU_REL:
+        raise AssertionError(f"[fused-skips] {case['what']}: fused against materialized on the "
+                             f"card {card_rel} (bound {FUSED_REL}); fused on the card against "
+                             f"the CPU: output {cpu_out}, gradients {cpu_grads} (bound "
+                             f"{FUSED_CPU_REL})")
+    print(f"[fused-skips] {case['what']}: fused against materialized on the card, output and "
+          f"all the gradients, the worse rel-L2 {card_rel:.3g} (bound {FUSED_REL}); fused on the "
+          f"card against the CPU, 2 samples: output rel-L2 {cpu_out:.3g}, all the gradients "
+          f"rel-L2 {cpu_grads:.3g} (bound {FUSED_CPU_REL})")
+    del case, model, cpu, grads
+    for name, batch, steps, serves in ((S421_PRESET, S421_BATCH, 4, 4),
+                                       (NS_PRESET, BATCH, 2, 2)):
+        _time_forms(dev, _skip_case(dev, name, batch, 32), steps, serves)
+    bf16 = build_model("uno9", dtype="bfloat16", device=dev,
+                       generator=torch.Generator().manual_seed(0),
+                       **get_preset(PRESET).model_kwargs)
+    xb = x.clone()
+    outs, ms = {}, {}
+    for form, env in (("default (materialized)", {}),
+                      ("UNO_TPU_TORCH_FUSED_SKIPS=1", {"UNO_TPU_TORCH_FUSED_SKIPS": 1})):
+        with _env(**env), torch.inference_mode():
+            bf16(xb)
+            ms[form] = [_host_ms(lambda: bf16(xb)) for _ in range(FUSED_SERVES)]
+            outs[form] = bf16(xb).float()
+    rel = _rel(*outs.values())
+    if not rel <= FUSED_BF16_REL:
+        raise AssertionError(f"[fused-skips] uno9 bf16: forced fused against the default, "
+                             f"rel-L2 {rel} (bound {FUSED_BF16_REL})")
+    print(f"[fused-skips] {PRESET} uno9 bf16 b{BATCH}: "
+          + "; ".join(f"{f} serve ms a batch {_spread(v)}" for f, v in ms.items())
+          + f"; forced fused against the default, output rel-L2 {rel:.3g} (bound "
+          f"{FUSED_BF16_REL})")
+    return res["fused"]["launches"]
+
+
+def phase_adam_fused(dev) -> None:
+    """``ComplexAdam(fused=True)`` against ``fused=False`` on uno9's
+    darcy_s211 parameters on the card, f32: ADAM_STEPS steps of the same
+    gradients must leave parameters and moments bit-equal; then each form's
+    ms per step (CUDA events, median of ADAM_REPS) and kernels per step
+    (profiler)."""
+    model = build_model("uno9", device=dev, generator=torch.Generator().manual_seed(0),
+                        **get_preset(PRESET).model_kwargs)
+    forms = {}
+    for fused in (False, True):
+        params = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+        opt = ComplexAdam(params, lr=step_lr(1e-3, 100, 0.5, 4), weight_decay=1e-4, fused=fused)
+        forms[fused] = (params, opt)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for _ in range(ADAM_STEPS):
+        for p, q in zip(forms[False][0], forms[True][0]):
+            p.grad = torch.randn(p.shape, dtype=p.dtype, device=dev, generator=g)
+            q.grad = p.grad.clone()
+        forms[False][1].step()
+        forms[True][1].step()
+    torch.cuda.synchronize()
+    (ref, ref_opt), (fus, fus_opt) = forms[False], forms[True]
+    diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(ref, fus))
+    flat = fus_opt.state["flat0"]
+    for dt in {str(p.dtype) for p in ref}:
+        ps = [p for p in ref if str(p.dtype) == dt]
+        for key in ("exp_avg", "exp_avg_sq"):
+            want = torch.cat([ref_opt.state[p][key].reshape(-1) for p in ps])
+            diff = max(diff, float((flat[dt][key] - want).abs().max()))
+    if diff != 0.0:
+        raise AssertionError(f"[adam-fused] fused against per-parameter after {ADAM_STEPS} "
+                             f"steps: max abs difference {diff}")
+    timing = {}
+    for fused in (False, True, True, False):  # in turns
+        opt = forms[fused][1]
+        ms = []
+        for _ in range(ADAM_REPS // 2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            opt.step()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        timing.setdefault(fused, []).extend(ms)
+    n = sum(p.numel() for p in ref)
+    for fused in (False, True):
+        host = statistics.median(_host_ms(forms[fused][1].step) for _ in range(10))
+        print(f"[adam-fused] uno9 {PRESET} f32, {len(ref)} parameters ({n} numbers), "
+              f"fused={fused}: ms per optimizer step {_spread(timing[fused])} (CUDA events, "
+              f"{len(timing[fused])} steps); host to host median {host:.3f}; kernels a step "
+              f"{_kernel_count(forms[fused][1].step)} (profiler)")
+    print(f"[adam-fused] fused against per-parameter after {ADAM_STEPS} steps of the same "
+          f"gradients: parameters and moments max abs difference {diff}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -2324,6 +2585,8 @@ def main() -> int:
     phase_s421_cuda_vs_cpu(dev)
     oned_launches = phase_1d(dev)
     phase_variants_cuda_vs_cpu(dev)
+    fused_launches = phase_fused_skips(dev)
+    phase_adam_fused(dev)
     # top level: the Darcy path (darcy_s211 shapes, launches of its train
     # run); "ns2d", "ns3d", "s421" (darcy_s421: its train run), "superres"
     # (the super-resolution evaluation at 421, forward only) and "1d" (the
@@ -2335,7 +2598,9 @@ def main() -> int:
     # run: the Darcy shapes), "tp" (rank 0 of the TP run, at the Co/2
     # shards), "spatial" and "spatial_ns3d" (rank 0 of the split runs: the
     # whole reduced modes, the Darcy and NS-3D shapes); then the variants'
-    # paths (VARIANT_KERNELS: their shapes, the launches of their train runs)
+    # paths (VARIANT_KERNELS: their shapes, the launches of their train runs);
+    # "fused_skips": one f32 darcy_s211 step with the skips as channel pieces
+    # (the Darcy contraction shapes; the head is not on the f32 path)
     export_times = {k: times[k] for k in ("cmul_fwd", "mlp_head_fwd")}
     paths = {"ns2d": (ns_times, ns_launches), "ns3d": (ns3d_times, ns3d_launches),
              "s421": (s421_times, s421_launches), "superres": (sr_times, sr_launches),
@@ -2346,6 +2611,8 @@ def main() -> int:
              "tp": (tp_times, mesh_launches["tp"]),
              "spatial": (spatial_times, mesh_launches["spatial"]),
              "spatial_ns3d": (ns3d_times, mesh_launches["spatial_ns3d"]),
+             "fused_skips": ({k: times[k] for k in ("cmul_fwd", "cmul_bwd_x", "cmul_bwd_w")},
+                             fused_launches),
              **{k: (variant_times[k], variant_launches[k]) for k in variant_times}}
     kernels = []
     for name, (_, _, src, rep) in KERNELS.items():

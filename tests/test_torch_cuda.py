@@ -782,3 +782,58 @@ def test_uno_s256_on_the_card_matches_the_cpu(cuda):
         got, want = (torch.view_as_real(t) if t.is_complex() else t for t in (got, want))
         assert _rel(got, want) <= 1e-4, _rel(got, want)
 
+
+
+@pytest.mark.cuda
+def test_fused_skips_on_the_card_match_the_materialized_form(cuda, monkeypatch):
+    """uno9 f32 at full width on the card with the skips carried as channel
+    pieces (the f32 default) and materialized
+    (``UNO_TPU_TORCH_NO_FUSED_SKIPS=1``): the output and all the gradients
+    (one vector: a bias that an instance norm follows has a gradient of
+    rounding noise about 0) within rel-L2 1e-5, and the same five
+    contraction launches."""
+    g = torch.Generator().manual_seed(11)
+    x, y = torch.randn(2, 85, 85, 1, generator=g).to(cuda), torch.randn(2, 85, 85, 1, generator=g)
+    runs = []
+    for env in (None, "UNO_TPU_TORCH_NO_FUSED_SKIPS"):
+        monkeypatch.delenv("UNO_TPU_TORCH_NO_FUSED_SKIPS", raising=False)
+        monkeypatch.delenv("UNO_TPU_TORCH_FUSED_SKIPS", raising=False)
+        if env:
+            monkeypatch.setenv(env, "1")
+        model = build_model("uno9", device=cuda, generator=torch.Generator().manual_seed(0),
+                            in_width=3, width=32, pad=5)
+        before = C.LAUNCHES["fwd"]
+        out = model(x)
+        ((out - y.to(cuda)) ** 2).sum().backward()
+        torch.cuda.synchronize()
+        grads = torch.cat([torch.view_as_real(p.grad).flatten() if p.is_complex()
+                           else p.grad.flatten() for p in model.parameters()])
+        runs.append((out.detach(), grads, C.LAUNCHES["fwd"] - before))
+    (out_f, grads_f, n_fused), (out_m, grads_m, n_mat) = runs
+    assert n_fused == n_mat == 5
+    assert _rel(out_f, out_m) <= 1e-5, _rel(out_f, out_m)
+    assert _rel(grads_f, grads_m) <= 1e-5, _rel(grads_f, grads_m)
+
+
+@pytest.mark.cuda
+def test_fused_complex_adam_on_the_card_is_bit_equal(cuda):
+    """``ComplexAdam(fused=True)`` against ``fused=False`` on the card over 10
+    steps of the same gradients: uno9's parameters, weight decay, amsgrad."""
+    from uno_tpu_torch.optim import ComplexAdam
+
+    model = build_model("uno9", device=cuda, generator=torch.Generator().manual_seed(0),
+                        in_width=3, width=32, pad=5)
+    ref = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+    fus = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+    opts = [ComplexAdam(ps, lr=1e-3, weight_decay=1e-4, amsgrad=True, fused=f)
+            for ps, f in ((ref, False), (fus, True))]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for _ in range(10):
+        for a, b in zip(ref, fus):
+            a.grad = torch.randn(a.shape, dtype=a.dtype, device=cuda, generator=g)
+            b.grad = a.grad.clone()
+        for opt in opts:
+            opt.step()
+    torch.cuda.synchronize()
+    for a, b in zip(ref, fus):
+        assert torch.equal(a, b)

@@ -12,6 +12,17 @@ encoder while the time axis expands through the decoder) are interpreted,
 as in ``uno_tpu``, whose model has no 1-D padding mode and so no 1-D spec;
 the 1-D operator layers are in ``nn/layers.py``.
 
+Skip concats: a 2-D model carries each one as a list of channel pieces
+``[block output, skip source]`` (``fused_skips``), as ``uno_tpu`` carries
+its tuples.  The next block's spectral conv and 1x1 conv take each piece
+against its own input rows of their weights, so the concatenated
+activation is never written; only the last block's pieces are
+concatenated, after the crop.  As in ``uno_tpu`` this is on under f32 and
+off under bf16, where the skips are materialized with ``torch.cat``;
+``UNO_TPU_TORCH_FUSED_SKIPS=1`` and ``UNO_TPU_TORCH_NO_FUSED_SKIPS=1``
+force either way, read at each forward.  3-D models never fuse.  Both
+forms have the same parameters.
+
 ``remat_blocks`` runs each OperatorBlock under non-reentrant
 ``torch.utils.checkpoint`` when grad is on (``uno_tpu``'s ``nn.checkpoint``):
 the forward keeps each block's input, the backward recomputes the block.
@@ -29,6 +40,7 @@ hidden axis is sharded).
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import Optional, Tuple
@@ -81,6 +93,16 @@ class UNOSpec:
     # round padded grid sizes up to a multiple (extra zeros on the trailing
     # edge, cropped exactly)
     pad_to: Optional[int] = None
+
+
+def fused_skips(ndim: int, dtype: torch.dtype) -> bool:
+    """Whether a model carries its skip concats as channel pieces:
+    ``uno_tpu``'s gate, 2-D only, off under bf16 unless
+    ``UNO_TPU_TORCH_FUSED_SKIPS=1``; ``UNO_TPU_TORCH_NO_FUSED_SKIPS=1`` turns
+    it off everywhere."""
+    if ndim != 2 or os.environ.get("UNO_TPU_TORCH_NO_FUSED_SKIPS") == "1":
+        return False
+    return dtype != torch.bfloat16 or os.environ.get("UNO_TPU_TORCH_FUSED_SKIPS") == "1"
 
 
 def _scale(d: int, f: Fraction) -> int:
@@ -231,10 +253,12 @@ class UNOModel(nn.Module):
         if any(lo or hi for lo, hi in local_pads):
             v = torch.nn.functional.pad(v, [n for lo_hi in reversed(local_pads) for n in lo_hi])
 
-        # U-stack.  Skips are materialized with torch.cat, except after the
-        # last block, whose pieces are cropped first and concatenated at the
-        # cropped grid (one copy instead of concat + crop).  3-D skip
+        # U-stack.  With fused_skips a skip block's output is the list of
+        # its channel pieces; else it is concatenated, except after the last
+        # block, whose pieces are always cropped first and concatenated at
+        # the cropped grid (one copy instead of concat + crop).  3-D skip
         # sources are resized trilinearly to the current grid first.
+        fuse = fused_skips(spec.ndim, self.dtype)
         outs = []
         cur, n_cur = v, base[0]  # n_cur: the global rows of cur's first grid axis
         last = len(spec.blocks) - 1
@@ -252,11 +276,13 @@ class UNOModel(nn.Module):
             n_cur = out_size[0]
             if blk.skip is not None:
                 src = v if blk.skip == LIFT else outs[blk.skip]
+                if isinstance(src, list):  # a skipped block's own pieces
+                    src = torch.cat(src, dim=1)
                 if spec.ndim == 3:
                     src_grid = Fraction(1) if blk.skip == LIFT else spec.blocks[blk.skip].grid[0]
                     src = resize(src, (n_cur, *cur.shape[3:]), (2, 3, 4), "linear", True, False,
                                  None if split is None else split.split(_scale(base[0], src_grid)))
-                cur = [cur, src] if i == last else torch.cat([cur, src], dim=1)
+                cur = [cur, src] if fuse or i == last else torch.cat([cur, src], dim=1)
             outs.append(cur)
 
         if split is not None and n_cur != base[0]:

@@ -20,6 +20,13 @@ bf16 with f32 accumulation; spectral weights and norm statistics stay f32,
 and so do the spectral transforms on the FFT path (on the partial-DFT path
 they take bf16 operands, ``ops/spectral.py``).
 
+A 2-D ``SpectralConv``, ``PointwiseOp`` or ``OperatorBlock`` also takes a
+list of channel pieces in place of one input (a skip concat carried
+unconcatenated, ``models/core.py``): each piece is transformed, resampled
+and multiplied by its own input rows of the weights, and the products are
+summed, which is the concatenated input's result up to rounding.  A 3-D or
+1-D conv given pieces concatenates them; a residual block refuses them.
+
 Two forms for a model shared by the ranks of the mesh's ``spatial`` axis
 (``uno_tpu_torch/parallel``):
 
@@ -105,8 +112,11 @@ class SpectralConv(nn.Module):
             in_codim, out_codim, self.modes, _N_BLOCKS[len(self.modes)], generator, device))
         self.tp = None
 
-    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...], split=None) -> torch.Tensor:
+    def forward(self, x, out_size: Tuple[int, ...], split=None) -> torch.Tensor:
+        """``x``: a tensor, or in 2-D a list of channel pieces."""
         fn = _SPECTRAL_FNS[len(self.modes)]
+        if isinstance(x, list) and len(self.modes) != 2:
+            x = torch.cat(x, dim=1)
         if len(self.modes) == 1:
             if split is not None:
                 raise NotImplementedError(
@@ -132,10 +142,18 @@ class PointwiseOp(nn.Module):
         self.bias = _uniform((out_codim,), k, generator, device)
         self.tp = None
 
-    def _conv(self, z: torch.Tensor) -> torch.Tensor:
-        b, _, *spatial = z.shape
+    def _conv(self, pieces: list) -> torch.Tensor:
+        """The channel product of the channel pieces: each against its own
+        columns of the weight, the later ones added into the first one's
+        product by ``baddbmm``."""
+        b, _, *spatial = pieces[0].shape
         k = self.weight.to(self.dtype)  # (out, in), or this rank's out-channel shard
-        y = torch.matmul(k, z.to(self.dtype).reshape(b, self.in_codim, -1))
+        y, off = None, 0
+        for z in pieces:
+            c = z.shape[1]
+            kz, z = k[:, off : off + c], z.to(self.dtype).reshape(b, c, -1)
+            y = torch.matmul(kz, z) if y is None else torch.baddbmm(y, kz.expand(b, -1, -1), z)
+            off += c
         return y.reshape(b, k.shape[0], *spatial)
 
     def _resize(self, z: torch.Tensor, out_size, split=None) -> torch.Tensor:
@@ -148,11 +166,14 @@ class PointwiseOp(nn.Module):
         return resize(z, out_size, (2, 3, 4), "linear", True, False,
                       None if split is None else split.at(out_size[0]))
 
-    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...], split=None) -> torch.Tensor:
-        """``split``: x holds its rows of axis 2 (``parallel/spatial.py``);
-        the FLOP rule below reads the global grid, so every rank takes the
-        branch an unsplit call takes."""
-        in_grid = x.shape[2:] if split is None else (split.n, *x.shape[3:])
+    def forward(self, x, out_size: Tuple[int, ...], split=None) -> torch.Tensor:
+        """``x``: a tensor or a list of channel pieces.  ``split``: x holds
+        its rows of axis 2 (``parallel/spatial.py``); the FLOP rule below
+        reads the global grid and the summed channels, so every rank and
+        both forms of the input take the branch an unsplit, concatenated
+        call takes."""
+        pieces = x if isinstance(x, list) else [x]
+        in_grid = pieces[0].shape[2:] if split is None else (split.n, *pieces[0].shape[3:])
 
         def resize_flops(ch: int) -> float:
             dims = list(in_grid)
@@ -185,10 +206,10 @@ class PointwiseOp(nn.Module):
         resize_first = resize_flops(self.in_codim) + n_out * self.in_codim * self.out_codim
         shape = (1, -1) + (1,) * len(out_size)
         if resize_first < conv_first:
-            y = self._conv(self._resize(x, out_size, split))
+            y = self._conv([self._resize(z, out_size, split) for z in pieces])
             bias = self.bias * (n_in / n_out) if len(out_size) == 3 else self.bias
             return y + bias.to(y.dtype).reshape(shape)
-        y = self._conv(x)
+        y = self._conv(pieces)
         return self._resize(y + self.bias.to(y.dtype).reshape(shape), out_size, split)
 
 
@@ -208,7 +229,11 @@ class OperatorBlock(nn.Module):
             self.norm_scale = nn.Parameter(torch.ones(out_codim, device=device))
             self.norm_bias = nn.Parameter(torch.zeros(out_codim, device=device))
 
-    def forward(self, x: torch.Tensor, out_size: Tuple[int, ...], split=None) -> torch.Tensor:
+    def forward(self, x, out_size: Tuple[int, ...], split=None) -> torch.Tensor:
+        """``x``: a tensor or a list of channel pieces (not in a residual
+        block)."""
+        if self.residual and isinstance(x, list):
+            raise ValueError("a residual block cannot take channel pieces")
         # uno_tpu's dtype flow: W is in the compute dtype; the spectral conv
         # is f32 on the FFT path, so under bf16 the sum, norm and GELU run in
         # f32 before the final cast, and bf16 on the DFT path, where they

@@ -124,8 +124,14 @@ def complex_mode_matmul(x_ft: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, co, *mode_shape)
 
 
+def _join(parts: list) -> torch.Tensor:
+    """The pieces' mode blocks joined along the channel axis (one piece: as
+    it is)."""
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
 def spectral_conv_2d(
-    x: torch.Tensor,
+    x,
     weights: torch.Tensor,
     out_size: Tuple[int, int],
     modes: Tuple[int, int],
@@ -136,26 +142,39 @@ def spectral_conv_2d(
     x, else f32.  With ``split``, x holds its rows of an H = ``split.n``
     grid and the result its rows of d1 (the module docstring).
 
+    x may be a list of channel pieces (B, Ci_k, H, W), Ci the sum of their
+    Ci_k (a skip concat carried unconcatenated): each piece is transformed
+    alone, and only the kept mode corners of all the pieces are joined
+    into one operand for the contraction, so the concatenated input is
+    never written.
+
     weights: (2, Ci, Co, m1, m2) complex64 — block 0 multiplies the
     ``[:m1, :m2]`` (non-negative kx) corner, block 1 the ``[-m1:, :m2]``
     (negative kx) corner of the rfft2 spectrum.
     """
+    pieces = x if isinstance(x, list) else [x]
     d1, d2 = out_size
     m1, m2 = modes
-    h, w_in = x.shape[-2:]
+    h, w_in = pieces[0].shape[-2:]
     if split is not None:
         h = split.n
     if m1 > d1 or m1 > h or m2 > d2 // 2 + 1 or m2 > w_in // 2 + 1:
-        raise ValueError(f"modes {modes} incompatible with in {tuple(x.shape)} out {out_size}")
+        raise ValueError(
+            f"modes {modes} incompatible with in {tuple(pieces[0].shape)} out {out_size}")
+    if sum(p.shape[1] for p in pieces) != weights.shape[1]:
+        raise ValueError(f"pieces of {[p.shape[1] for p in pieces]} channels for weights of "
+                         f"{weights.shape[1]} in channels")
 
     w = torch.cat([weights[0], weights[1]], dim=2)  # (Ci, Co, 2*m1, m2)
     if split is not None:
-        return _split_conv_2d(x, w, (d1, d2), (m1, m2), split)
+        return _split_conv_2d(pieces, w, (d1, d2), (m1, m2), split)
     if _dft_enabled():
-        return _DFTConv2d.apply(x, w, (d1, d2), (m1, m2))
-    x_ft = torch.fft.rfft2(_f32(x), norm="forward")
-    corners = torch.cat([x_ft[:, :, :m1, :m2], x_ft[:, :, h - m1 :, :m2]], dim=2)
-    out = complex_mode_matmul(corners, w)  # (B, Co, 2*m1, m2)
+        return _DFTConv2d.apply(w, (d1, d2), (m1, m2), *pieces)
+    corners = []
+    for p in pieces:
+        x_ft = torch.fft.rfft2(_f32(p), norm="forward")
+        corners.append(torch.cat([x_ft[:, :, :m1, :m2], x_ft[:, :, h - m1 :, :m2]], dim=2))
+    out = complex_mode_matmul(_join(corners), w)  # (B, Co, 2*m1, m2)
 
     # Zero-embed the corner rows in the output spectrum.  When 2*m1 > d1 the
     # reference's corner writes overlap and the negative-kx block (written
@@ -500,38 +519,44 @@ def _rows(m1: int, h: int) -> tuple:
 class _DFTConv2d(torch.autograd.Function):
     """The 2-D conv on the partial-DFT path (``uno_tpu``'s ``_dft_conv2d``).
 
-    x: (B, Ci, H, W); w: (Ci, Co, 2*m1, m2) complex, the two corner blocks
-    stacked along kx.  The backward is the mirrored chain of ``dft.t_*``
-    transposes, not autograd of the einsums, and returns the weight's
-    gradient in torch's complex convention."""
+    w: (Ci, Co, 2*m1, m2) complex, the two corner blocks stacked along kx;
+    then the input's channel pieces (B, Ci_k, H, W), Ci the sum of their
+    Ci_k (one piece: the whole input).  Each piece is transformed alone and
+    their kept modes are joined for one contraction.  The backward is the
+    mirrored chain of ``dft.t_*`` transposes, not autograd of the einsums:
+    one gradient per piece in its dtype, and the weight's in torch's
+    complex convention."""
 
     @staticmethod
-    def forward(ctx, x, w, out_size, modes):
+    def forward(ctx, w, out_size, modes, *pieces):
         (d1, d2), (m1, m2) = out_size, modes
-        h, w_in = x.shape[-2:]
-        xp = dft.fwd_real(_dft_in(x), -2, h, _rows(m1, h))
-        xp = dft.fwd_cplx(xp, -1, w_in, range(m2))  # (B, Ci, 2, 2*m1, m2)
+        h, w_in = pieces[0].shape[-2:]
+        xps = [dft.fwd_cplx(dft.fwd_real(_dft_in(x), -2, h, _rows(m1, h)), -1, w_in, range(m2))
+               for x in pieces]
+        xp = _join(xps)  # (B, Ci, 2, 2*m1, m2)
         out = _cmul_planes(xp, w)  # (B, Co, 2, 2*m1, m2)
         n_top, idx_out = _keep_idx(m1, d1)
         yp = dft.inv_cplx(_slice_pm(out, -2, m1, n_top), -2, d1, idx_out)
         ctx.save_for_backward(xp, w)
-        ctx.geometry = (out_size, modes, (h, w_in), x.dtype)
+        ctx.geometry = (out_size, modes, (h, w_in), [(x.shape[1], x.dtype) for x in pieces])
         return dft.inv_real(yp, -1, d2)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         xp, w = ctx.saved_tensors
-        (d1, d2), (m1, m2), (h, w_in), xdtype = ctx.geometry
+        (d1, d2), (m1, m2), (h, w_in), pieces = ctx.geometry
         n_top, idx_out = _keep_idx(m1, d1)
         gyp = dft.t_inv_real(_dft_in(g), -1, m2, d2)
         gout = _unslice_pm(dft.t_inv_cplx(gyp, -2, d1, idx_out), -2, m1, n_top)
-        gx = None
-        if ctx.needs_input_grad[0]:
-            gxp = dft.t_fwd_cplx(_cmul_planes_t(gout, w), -1, w_in, range(m2))
-            gx = dft.t_fwd_real(gxp, -2, h, _rows(m1, h)).to(xdtype)
-        gw = _cmul_grad_w(xp, gout).to(w.dtype) if ctx.needs_input_grad[1] else None
-        return gx, gw, None, None
+        gxs = [None] * len(pieces)
+        if any(ctx.needs_input_grad[3:]):
+            gxps = _cmul_planes_t(gout, w).split([c for c, _ in pieces], dim=1)
+            gxs = [dft.t_fwd_real(dft.t_fwd_cplx(gxp, -1, w_in, range(m2)), -2, h,
+                                  _rows(m1, h)).to(dt) if need else None
+                   for gxp, (_, dt), need in zip(gxps, pieces, ctx.needs_input_grad[3:])]
+        gw = _cmul_grad_w(xp, gout).to(w.dtype) if ctx.needs_input_grad[0] else None
+        return gw, None, None, *gxs
 
 
 class _DFTConv1d(torch.autograd.Function):
@@ -697,23 +722,25 @@ def _inv_rows(x: torch.Tensor, split: Split, bins, scale: float) -> torch.Tensor
     return torch.einsum("jk,bck...->bcj...", t, x)
 
 
-def _split_conv_2d(x, w, out_size, modes, split: Split) -> torch.Tensor:
+def _split_conv_2d(pieces, w, out_size, modes, split: Split) -> torch.Tensor:
     """``spectral_conv_2d`` with H split: the W transform locally, the kept
-    kx rows of H from each rank's rows, summed, contracted, inverted at the
-    rank's d1 rows."""
+    kx rows of H from each rank's rows of each channel piece, joined over
+    the pieces, summed over the ranks, contracted, inverted at the rank's
+    d1 rows."""
     (d1, d2), (m1, m2) = out_size, modes
-    h, w_in = split.n, x.shape[-1]
+    h, w_in = split.n, pieces[0].shape[-1]
     n_top, idx_out = _keep_idx(m1, d1)
     out_rows = split.at(d1).rows()
     if _dft_enabled():
-        xp = dft.fwd_real(_dft_in(x), -1, w_in, range(m2))
-        xp = dft.fwd_cplx(xp, -2, h, _rows(m1, h), rows=split.rows())  # (B, Ci, 2, 2*m1, m2)
+        xp = _join([dft.fwd_cplx(dft.fwd_real(_dft_in(x), -1, w_in, range(m2)), -2, h,
+                                 _rows(m1, h), rows=split.rows())
+                    for x in pieces])  # (B, Ci, 2, 2*m1, m2)
         out = _cmul_planes(psum(xp, split.group), w)
         yp = dft.inv_cplx(_slice_pm(out, -2, m1, n_top), -2, d1, idx_out, rows=out_rows)
         return dft.inv_real(yp, -1, d2)
-    xf = torch.fft.rfft(_f32(x), dim=-1, norm="forward")[..., :m2]
-    corners = psum(_fwd_rows(xf, split, _rows(m1, h), 1.0 / h), split.group)
-    out = complex_mode_matmul(corners, w)  # (B, Co, 2*m1, m2)
+    corners = _join([_fwd_rows(torch.fft.rfft(_f32(x), dim=-1, norm="forward")[..., :m2],
+                               split, _rows(m1, h), 1.0 / h) for x in pieces])
+    out = complex_mode_matmul(psum(corners, split.group), w)  # (B, Co, 2*m1, m2)
     y = _inv_rows(_slice_pm(out, 2, m1, n_top), split.at(d1), idx_out, 1.0)
     return _irfftn(y, (d2,), (-1,), m2, "forward")
 
