@@ -1,0 +1,9 @@
+"""Ms a traced training step with nothing on the device while the host's main
+thread was inside one of the program's top spans (``grad`` or ``optimizer``)."""
+
+from benchmark import spans
+
+
+def read(r):
+    split = spans.idle_split(r)
+    return None if split is None else split[0]

@@ -46,6 +46,7 @@ from uno_tpu_torch.train.darcy import train_darcy
 from uno_tpu_torch.train.metrics import MetricLogger
 from uno_tpu_torch.train.ns2d import train_ns2d
 from uno_tpu_torch.train.ns3d import train_ns3d
+from uno_tpu_torch.utils import start_recording, stop_recording
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -376,7 +377,9 @@ def test_initialize_from_env_reads_uno_tpus_spellings(monkeypatch):
 
 def test_world_of_one_equals_the_trainer_without_dp(monkeypatch):
     """A one-rank gloo group (the all-reduces run) against no ``dp`` at all,
-    on a split the batch divides: the same records and weights, bit for bit."""
+    on a split the batch divides: the same records and weights, bit for bit.
+    Recorded, each step's two all-reduces (the loss's and the gradients')
+    are ``allreduce`` spans inside its ``grad`` span."""
     x, y = _darcy_data(16 + 8 + 8, seed=4)
     split = (x[:16], y[:16], x[16:24], y[16:24], x[24:], y[24:])
     cfg = TrainConfig(**dict(DARCY_CFG, epochs=2))
@@ -393,13 +396,20 @@ def test_world_of_one_equals_the_trainer_without_dp(monkeypatch):
             monkeypatch.setenv("RANK", "0")
             assert initialize_from_env("gloo")
             dp = make_mesh(device="cpu")
+        if ms:
+            start_recording()
         try:
             out = train_darcy(model, *split, cfg, logger=logger, dp=dp)
         finally:
             if ms:
+                rec = stop_recording()
                 torch.distributed.destroy_process_group()
         runs.append((logger.records, out, model.state_dict()))
     (r_a, o_a, s_a), (r_b, o_b, s_b) = runs
+    grads = [i for i, s in enumerate(rec.spans) if s[0] == "grad"]
+    assert len(grads) == 4 and all(s[0] != "allreduce" or s[3] in grads for s in rec.spans)
+    for g in grads:
+        assert sum(s[0] == "allreduce" and s[3] == g for s in rec.spans) == 2
     drop = {"t", "epoch_sec", "samples_per_sec", "step_ms"}
     assert [{k: v for k, v in r.items() if k not in drop} for r in r_a] == \
            [{k: v for k, v in r.items() if k not in drop} for r in r_b]

@@ -2,7 +2,8 @@
 (``uno_tpu_torch/utils``, ``train/metrics.py``) against ``uno_tpu``'s, on
 the CPU: ``count_params`` and ``param_bytes`` equal ``uno_tpu``'s on the
 same models at the presets' widths; ``trace`` writes a Chrome trace that
-names its ``annotate`` regions; ``enable_nan_debugging`` stops at the first
+names its ``annotate`` regions, and the program's spans under ``cli train
+--profile-dir``; ``enable_nan_debugging`` stops at the first
 non-finite module output; ``MetricLogger`` writes TensorBoard scalars, and
 raises where ``uno_tpu``'s would drop them; ``cli train --profile-dir
 --tensorboard``."""
@@ -127,4 +128,6 @@ def test_cli_train_profile_dir_and_tensorboard(tmp_path, capsys):
     with open(path) as fh:
         text = fh.read()
     assert "aten::_fft_r2c" in text or "aten::fft_rfft2" in text
+    names = {str(e.get("name")) for e in json.loads(text)["traceEvents"]}
+    assert {"grad", "forward", "backward", "optimizer"} <= names  # the program's spans
     assert glob.glob(os.path.join(tb, "events.out.tfevents.*"))

@@ -54,6 +54,7 @@ from uno_tpu_torch.nn.layers import Dense, OperatorBlock, gelu
 from uno_tpu_torch.ops.kernels.mlp_head import fused_head_enabled, mlp_head
 from uno_tpu_torch.ops.resample import resize
 from uno_tpu_torch.parallel.spatial import Axis, Split
+from uno_tpu_torch.utils.profiling import annotate
 
 LIFT = -1  # skip source: the padded lift output x_fc0
 
@@ -215,11 +216,12 @@ class UNOModel(nn.Module):
             pieces = [p[..., c_lo : p.shape[-1] - c_hi] for p in pieces]
         return pieces
 
+    @annotate("forward")
     def forward(self, x: torch.Tensor, split: Optional[Split] = None) -> torch.Tensor:
         """``split``: the ranks of the mesh's spatial axis when x holds this
         rank's rows ``input_rows(size, split)`` of the first grid axis, its
         global length given by ``split.n`` (a ``Split``); the output holds
-        the same rows."""
+        the same rows.  A call is one ``forward`` span."""
         spec = self.spec
         if x.ndim != spec.ndim + 2:
             raise ValueError(f"{spec.name}: expected a {spec.ndim + 2}-D channels-last input, "

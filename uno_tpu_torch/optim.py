@@ -24,6 +24,8 @@ step from the same loss.
 elementwise sequence on one flat buffer per parameter dtype of a group, a
 dozen launches a dtype instead of about ten a parameter.  Its state is
 flat, so a checkpoint of one form does not load into the other.
+
+``step`` is the ``optimizer`` span (``utils/profiling.py``) in either form.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from __future__ import annotations
 from typing import Callable, Union
 
 import torch
+
+from uno_tpu_torch.utils.profiling import annotate
 
 
 def step_lr(
@@ -124,6 +128,7 @@ class ComplexAdam(torch.optim.Optimizer):
         lr = group["lr"](count) if callable(group["lr"]) else group["lr"]
         return -lr / (1.0 - group["betas"][0] ** count)
 
+    @annotate("optimizer")
     @torch.no_grad()
     def step(self, closure=None):
         loss = None

@@ -27,23 +27,26 @@ import torch.distributed as dist
 
 from uno_tpu_torch.parallel.mesh import DataParallel
 from uno_tpu_torch.parallel.spatial import count_once
+from uno_tpu_torch.utils.profiling import annotate
 
 
 def _sum_over(group, tensors: List[torch.Tensor]) -> None:
     """Sum ``tensors`` over ``group``, in place: one ``all_reduce`` per
     dtype, each tensor flattened into its dtype's buffer, a complex one
-    viewed as real.  Nothing to do without a group."""
+    viewed as real; one ``allreduce`` span.  Nothing to do without a
+    group."""
     if group is None:
         return
     buckets = {}
     for t in tensors:
         r = torch.view_as_real(t) if t.is_complex() else t
         buckets.setdefault(r.dtype, []).append(r)
-    for bucket in buckets.values():
-        flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat, group=group)
-        for t, v in zip(bucket, flat.split([t.numel() for t in bucket])):
-            t.copy_(v.view_as(t))
+    with annotate("allreduce"):
+        for bucket in buckets.values():
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            dist.all_reduce(flat, group=group)
+            for t, v in zip(bucket, flat.split([t.numel() for t in bucket])):
+                t.copy_(v.view_as(t))
 
 
 def all_reduce_sum(dp: Optional[DataParallel], tensors: List[torch.Tensor]) -> None:
@@ -64,14 +67,17 @@ def dp_value_and_grad(loss_fn: Callable, dp: Optional[DataParallel],
     and the gradients over the mesh (``sharded``: the parameters that hold
     a channel shard, summed over ``data`` only).  The grads returned are the
     parameters' ``.grad`` tensors.  Without ``dp`` (or without a process
-    group) it is the plain backward."""
+    group) it is the plain backward.  A call is one ``grad`` span, its
+    backward a ``backward`` span inside it."""
     params = [p for p in params if p.requires_grad]
     sharded = {id(p) for p in sharded}
 
+    @annotate("grad")
     def fn(*args):
         out = loss_fn(*args)
         loss, aux = out if has_aux else (out, None)
-        count_once(loss, 0 if dp is None else dp.spatial_rank).backward()
+        with annotate("backward"):
+            count_once(loss, 0 if dp is None else dp.spatial_rank).backward()
         loss = loss.detach()
         grads = [p.grad for p in params if p.grad is not None]
         if dp is not None:
