@@ -188,10 +188,17 @@ the trainers).
    samples (1e-4); uno9 bf16's default (materialized) against
    ``UNO_TPU_TORCH_FUSED_SKIPS=1`` (2e-2) (``[fused-skips]``);
    ``ComplexAdam(fused=True)`` against ``fused=False`` on uno9's
-   darcy_s211 parameters on the card: 20 steps of the same gradients, the
-   parameters and moments bit for bit, then each form's ms a step (CUDA
-   events, 50 steps) and kernels a step (``[adam-fused]``); and the run's
-   total seconds (``[total]``).
+   darcy_s211 parameters on the card, both through the Adam kernel
+   (``csrc/adam.cu``): 20 steps of the same gradients, the parameters and
+   moments bit for bit and within 2 ulp of the plain sequence of torch ops
+   on the card, then the kernel's and the plain sequence's ms a step
+   (median of 40, L2 flushed) against the bound, each form's ms a step
+   (CUDA events, 50 steps), host to host ms, and kernels a step counted
+   by the profiler in a fresh process and by the kernel's own count
+   (``[adam-fused]``); and
+   the run's total seconds (``[total]``).  Every training run above holds
+   the Adam kernel's launches to its steps times the launches a step (one
+   a 40 parameters), and every serving run to 0.
 
 Any failed phase raises, and the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}`` (per kernel the Darcy path's numbers, and
@@ -200,11 +207,13 @@ the same keys under ``ns2d``, ``ns3d``, ``s421``, ``superres``, ``1d``,
 ``spatial``, ``spatial_ns3d``, ``s85``, ``ns3d_t20``, ``ns3d_t10``,
 ``ns3d_t9``, ``s256``, ``uno_p``, ``uno_demo``, ``ns3d_t40_256``,
 ``ns3d_t20_256``, ``ns3d_t10_256``, ``ns3d_t9_256`` and ``fused_skips``,
-the contractions of one f32 darcy_s211 step with the skips as pieces);
+the contractions of one f32 darcy_s211 step with the skips as pieces;
+``adam_step``, the Adam kernel, is timed at uno9's parameters only);
 the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits 1 and prints no result.
 
     python3 chip_smoke.py --dp-rank DIR   # one rank of [dp]/[dp-ns3d]/[tp]/[spatial] (started by the script)
+    python3 chip_smoke.py --adam-count    # [adam-fused]'s profiler count (started by the script)
 """
 
 from __future__ import annotations
@@ -237,6 +246,7 @@ from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.models import LIFT, MODEL_REGISTRY, build_model
 from uno_tpu_torch.nn.layers import OperatorBlock
 from uno_tpu_torch.ops.kernels import _build
+from uno_tpu_torch.ops.kernels import adam as adam_k
 from uno_tpu_torch.ops.kernels import cmul as cmul_k
 from uno_tpu_torch.ops.kernels import mlp_head as head_k
 from uno_tpu_torch.ops.spectral import (
@@ -248,7 +258,7 @@ from uno_tpu_torch.ops.spectral import (
 from uno_tpu_torch.export import export_forward, load_forward
 from uno_tpu_torch.parallel import initialize_from_env, make_mesh
 from uno_tpu_torch.parallel.tp import full_state
-from uno_tpu_torch.optim import ComplexAdam, step_lr
+from uno_tpu_torch.optim import ComplexAdam, _zero_state, step_lr
 from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import make_optimizer
 from uno_tpu_torch.train.darcy import train_darcy
@@ -328,6 +338,7 @@ KERNELS = {  # name -> (wrapper module, count key, source, the TPU kernel it rep
                      "uno_tpu/ops/pallas/mlp_head.py:93"),
     "mlp_head_bwd": (head_k, "bwd", "uno_tpu_torch/csrc/mlp_head.cu",
                      "uno_tpu/ops/pallas/mlp_head.py:123"),
+    "adam_step": (adam_k, "step", "uno_tpu_torch/csrc/adam.cu", None),  # optax, fused by XLA
 }
 REPS = 20
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
@@ -337,6 +348,13 @@ F32_FLOPS_PER_MS = 67e9    # H100 SXM: 67 TFLOP/s f32 outside the tensor cores
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double().cpu(), b.double().cpu()
     return float((a - b).norm() / b.norm().clamp_min(1e-12))
+
+
+def _adam_per_step(name: str, **kw) -> int:
+    """The Adam kernel's launches a training step of factory ``name``'s
+    model, one parameter group: one a ``MAX_TENSORS`` of its parameters."""
+    n = sum(1 for p in build_model(name, device="meta", **kw).parameters() if p.numel())
+    return -(-n // adam_k.MAX_TENSORS)
 
 
 def _zero_launches() -> None:
@@ -590,8 +608,8 @@ def phase_predict(tmp: str, tag: str = "predict", dft: bool = False) -> list:
             "allow_bf16_reduced_precision_reduction"] or any(report["allow_tf32"].values()):
         raise AssertionError(f"predict ran with {report}")
     if (batches != NPREDICT // BATCH or launches["cmul_fwd"] != (0 if dft else 5 * batches)
-            or launches["mlp_head_fwd"] != batches
-            or launches["cmul_bwd_x"] or launches["cmul_bwd_w"] or launches["mlp_head_bwd"]):
+            or launches["mlp_head_fwd"] != batches or launches["cmul_bwd_x"]
+            or launches["cmul_bwd_w"] or launches["mlp_head_bwd"] or launches["adam_step"]):
         raise AssertionError(f"predict kernel launches {launches} over {batches} batches")
     print(f"[{tag}] {PRESET} uno9 bf16 b{BATCH} {report['spectral']} path: {batches} warm "
           f"batches, ms per batch {_spread(ms)} ({[round(v, 3) for v in ms]}; first run "
@@ -623,8 +641,9 @@ def phase_train(tmp: str, dev, tag: str = "train", dft: bool = False) -> tuple:
     steps = epochs[-1]["step"]
     evals = EPOCHS * -(-NVAL // BATCH) + -(-NTEST // BATCH)  # forward-only batches
     want = {"cmul_fwd": 5 * (steps + evals), "cmul_bwd_x": 5 * steps,
-            "cmul_bwd_w": 5 * steps, "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps}
-    exact = ("mlp_head_fwd", "mlp_head_bwd")
+            "cmul_bwd_w": 5 * steps, "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps,
+            "adam_step": steps * _adam_per_step("uno9", **get_preset(PRESET).model_kwargs)}
+    exact = ("mlp_head_fwd", "mlp_head_bwd", "adam_step")
     if dft:  # the DFT path contracts with an einsum: no contraction kernel
         want.update(cmul_fwd=0, cmul_bwd_x=0, cmul_bwd_w=0)
         exact = tuple(want)
@@ -883,7 +902,8 @@ def phase_ns_train(tmp: str, dev, tag: str = "ns-train") -> tuple:
     # checkpoint's recompute) and its backward once
     want = {"cmul_fwd": 7 * t_f * (2 * steps + evals), "cmul_bwd_x": 7 * t_f * steps,
             "cmul_bwd_w": 7 * t_f * steps, "mlp_head_fwd": t_f * (2 * steps + evals),
-            "mlp_head_bwd": t_f * steps}
+            "mlp_head_bwd": t_f * steps, "adam_step": steps * _adam_per_step(
+                get_preset(NS_PRESET).model, **get_preset(NS_PRESET).model_kwargs)}
     if launches != want:
         raise AssertionError(f"{tag} kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
@@ -989,8 +1009,10 @@ def phase_ns3d_train(tmp: str, dev, tag: str = "ns3d-train", dft: bool = False) 
                              f"{[r['train_step_rel_l2'] for r in epochs]}")
     steps = epochs[-1]["step"]
     evals = len(evaluated) * -(-nval // BATCH) + -(-ntest // BATCH)  # forward-only batches
+    preset = get_preset(NS3D_PRESET)
     want = {"cmul_fwd": 7 * (steps + evals), "cmul_bwd_x": 7 * steps,
-            "cmul_bwd_w": 7 * steps, "mlp_head_fwd": 0, "mlp_head_bwd": 0}
+            "cmul_bwd_w": 7 * steps, "mlp_head_fwd": 0, "mlp_head_bwd": 0,
+            "adam_step": steps * _adam_per_step(preset.model, **preset.model_kwargs)}
     if dft:  # the DFT path contracts with an einsum: no contraction kernel
         want.update(cmul_fwd=0, cmul_bwd_x=0, cmul_bwd_w=0)
     if launches != want:
@@ -1066,8 +1088,10 @@ def phase_s421_train(mat: str, dev) -> tuple:
                              f"{[r['train_rel_l2'] for r in epochs]}")
     steps = epochs[-1]["step"]
     evals = EPOCHS * -(-nval // S421_BATCH) + -(-ntest // S421_BATCH)  # forward-only batches
+    preset = get_preset(S421_PRESET)
     want = {"cmul_fwd": 7 * (steps + evals), "cmul_bwd_x": 7 * steps, "cmul_bwd_w": 7 * steps,
-            "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps}
+            "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps,
+            "adam_step": steps * _adam_per_step(preset.model, **preset.model_kwargs)}
     if launches != want:
         raise AssertionError(f"s421-train kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
@@ -1138,7 +1162,7 @@ def phase_superres(tmp: str, dev, mat: str) -> dict:
     res = evaluate_superres(model, x_lo, y_lo, x_hi, y_hi, batch_size=SR_BATCH)
     launches = _launches()
     want = {"cmul_fwd": 2 * 5, "cmul_bwd_x": 0, "cmul_bwd_w": 0, "mlp_head_fwd": 2,
-            "mlp_head_bwd": 0}
+            "mlp_head_bwd": 0, "adam_step": 0}
     if not all(np.isfinite(v) for v in res.values()) or launches != want:
         raise AssertionError(f"superres: {res}, launches {launches}, expected {want}")
     print(f"[superres] {PRESET} uno9 bf16 trained {SR_EPOCHS} epochs on ::2 of the s421 file "
@@ -1311,10 +1335,12 @@ def _param_rels(got: dict, want: dict) -> dict:
 
 def _darcy_want(steps: int, evals: int, heads: bool) -> dict:
     """uno9's launches over ``steps`` training steps and ``evals`` forward-only
-    batches: 5 contractions a forward, the head under bf16."""
+    batches: 5 contractions a forward, the head under bf16, the Adam kernel
+    a step."""
     h = int(heads)
     return {"cmul_fwd": 5 * (steps + evals), "cmul_bwd_x": 5 * steps, "cmul_bwd_w": 5 * steps,
-            "mlp_head_fwd": h * (steps + evals), "mlp_head_bwd": h * steps}
+            "mlp_head_fwd": h * (steps + evals), "mlp_head_bwd": h * steps,
+            "adam_step": steps * _adam_per_step("uno9", **get_preset(PRESET).model_kwargs)}
 
 
 def phase_dp_nccl(tmp: str) -> dict:
@@ -1547,8 +1573,11 @@ def phase_dp(tmp: str, dev) -> tuple:
            for recs in (ranks[0]["darcy"]["records"], ref["darcy"]["records"])]
     print(f"[dp] val {[round(v, 6) for v in val[0]]} against {[round(v, 6) for v in val[1]]}")
     ns_steps = NS3D_SPLIT[0] // BATCH
+    ns_preset = get_preset(NS3D_PRESET)
     ns_want = {"cmul_fwd": 7 * ns_steps, "cmul_bwd_x": 7 * ns_steps,
-               "cmul_bwd_w": 7 * ns_steps, "mlp_head_fwd": 0, "mlp_head_bwd": 0}
+               "cmul_bwd_w": 7 * ns_steps, "mlp_head_fwd": 0, "mlp_head_bwd": 0,
+               "adam_step": ns_steps * _adam_per_step(ns_preset.model,
+                                                      **ns_preset.model_kwargs)}
     # val and test splits of 4 under the batch of 16 evaluate nothing (0.0, as
     # under uno_tpu's mesh); the bf16 step loss within rel 5e-2 of one process
     launches["dp_ns3d"] = _check_mesh_run(
@@ -1632,7 +1661,7 @@ def phase_head_switch(tmp: str) -> None:
     batches = len(report["batch_ms"])
     rel = float(np.linalg.norm(unfused - kernel) / np.linalg.norm(kernel))
     want = {"cmul_fwd": 5 * batches, "cmul_bwd_x": 0, "cmul_bwd_w": 0, "mlp_head_fwd": 0,
-            "mlp_head_bwd": 0}
+            "mlp_head_bwd": 0, "adam_step": 0}
     if report["fused_head"] or launches != want or not rel <= HEAD_REL:
         raise AssertionError(f"[head-switch]: fused_head {report['fused_head']}, launches "
                              f"{launches} (expected {want}), rel-L2 {rel} (bound {HEAD_REL})")
@@ -1647,7 +1676,7 @@ import json, sys, time
 import numpy as np
 import torch
 from uno_tpu_torch.export import load_forward
-from uno_tpu_torch.ops.kernels import cmul, mlp_head
+from uno_tpu_torch.ops.kernels import adam, cmul, mlp_head
 
 path, xs_path, out_path, batch = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
 fn = load_forward(path)
@@ -1659,7 +1688,7 @@ xs = np.load(xs_path)
 dev = torch.device("cuda", 0)
 with torch.inference_mode():
     fn(torch.from_numpy(xs[:batch]).to(dev)).cpu()  # warm: cuFFT plans, allocator
-    for counts in (cmul.LAUNCHES, mlp_head.LAUNCHES):
+    for counts in (cmul.LAUNCHES, mlp_head.LAUNCHES, adam.LAUNCHES):
         for k in counts:
             counts[k] = 0
     ms, outs = [], []
@@ -1673,7 +1702,8 @@ mods = sorted(m for m in sys.modules if m.startswith((
     "uno_tpu_torch.train", "jax", "flax", "uno_tpu.")))
 print(json.dumps({"ms": ms, "nodes": nodes, "modules": mods, "launches": {
     **{"cmul_" + k: v for k, v in cmul.LAUNCHES.items()},
-    **{"mlp_head_" + k: v for k, v in mlp_head.LAUNCHES.items()}}}))
+    **{"mlp_head_" + k: v for k, v in mlp_head.LAUNCHES.items()},
+    **{"adam_" + k: v for k, v in adam.LAUNCHES.items()}}}))
 """
 CONTRACT_OP, HEAD_OP = "uno_tpu_torch.contract.default", "uno_tpu_torch.mlp_head_fwd.default"
 
@@ -1714,7 +1744,7 @@ def phase_export(tmp: str, dev) -> dict:
     batches = len(xs) // BATCH
     launches = served["launches"]
     want = {"cmul_fwd": 5 * batches, "cmul_bwd_x": 0, "cmul_bwd_w": 0,
-            "mlp_head_fwd": batches, "mlp_head_bwd": 0}
+            "mlp_head_fwd": batches, "mlp_head_bwd": 0, "adam_step": 0}
     if (rel > EXPORT_REL or served["nodes"] != {CONTRACT_OP: 5, HEAD_OP: 1}
             or launches != want or served["modules"] or len(served["ms"]) != batches):
         raise AssertionError(f"export: rel-L2 {rel} (bound {EXPORT_REL}), nodes "
@@ -1863,14 +1893,14 @@ def _variant_shapes(name: str, batch: int, **kw) -> tuple:
 
 
 def _want(nb: int, steps: int, evals: int, head: bool, fwd_step: int = 1, fwd_eval: int = 1,
-          bwd_step: int = 1) -> dict:
+          bwd_step: int = 1, adam: int = 0) -> dict:
     """Launches of ``nb`` contractions a forward over ``steps`` training steps
-    (``fwd_step`` forwards and ``bwd_step`` backwards each) and ``evals``
-    forward-only batches (``fwd_eval`` forwards each), the fused head's too
-    where ``head``."""
+    (``fwd_step`` forwards, ``bwd_step`` backwards and ``adam`` Adam kernels
+    each) and ``evals`` forward-only batches (``fwd_eval`` forwards each),
+    the fused head's too where ``head``."""
     f, b, h = fwd_step * steps + fwd_eval * evals, bwd_step * steps, int(head)
     return {"cmul_fwd": nb * f, "cmul_bwd_x": nb * b, "cmul_bwd_w": nb * b,
-            "mlp_head_fwd": h * f, "mlp_head_bwd": h * b}
+            "mlp_head_fwd": h * f, "mlp_head_bwd": h * b, "adam_step": adam * steps}
 
 
 def _rollout_counts(t_f: int) -> dict:
@@ -1929,10 +1959,11 @@ def _trainer(model, trainer, data, cfg, **kw):
 
 
 def _check_train(tag: str, what: str, run: tuple, shapes: list, head: bool, batch: int,
-                 nval: int, ntest: int, t_f: int = None) -> list:
+                 nval: int, ntest: int, adam: int, t_f: int = None) -> list:
     """A training run of ``_train_run``: EPOCHS epochs, every logged rel-L2
     finite, the train loss falling, each kernel's launches from the steps and
-    evaluation batches (``t_f``: a rollout), the contraction shapes at the
+    evaluation batches (``adam`` Adam kernels a step; ``t_f``: a rollout), the
+    contraction shapes at the
     full batch those of ``shapes``; prints it and returns the warm ms per
     step."""
     records, launches, got_shapes, peak_gb, wall = run
@@ -1947,7 +1978,8 @@ def _check_train(tag: str, what: str, run: tuple, shapes: list, head: bool, batc
         raise AssertionError(f"[{tag}]: loss did not fall: {[r[key] for r in epochs]}")
     steps = epochs[-1]["step"]
     evals = len(validated) * -(-nval // batch) + -(-ntest // batch)  # forward-only batches
-    want = _want(len(shapes), steps, evals, head, **(_rollout_counts(t_f) if t_f else {}))
+    want = _want(len(shapes), steps, evals, head, adam=adam,
+                 **(_rollout_counts(t_f) if t_f else {}))
     want_shapes = {(use, *sh) for sh in shapes for use in ("cmul_fwd", "cmul_bwd_x",
                                                             "cmul_bwd_w")}
     full = {k for k in got_shapes if k[1] == batch}
@@ -2090,7 +2122,8 @@ def phase_s85(tmp: str, dev) -> dict:
     run = _train_run(dev, lambda: _run_cli(["train", *split, "--generate",
                                             "--epochs", str(EPOCHS)]))
     _check_train("s85-train", f"{S85_PRESET} uno9 bf16 b{BATCH}, generated {sum(S85_SPLIT)} "
-                 f"samples at 85x85", run, shapes, True, BATCH, nval, ntest)
+                 f"samples at 85x85", run, shapes, True, BATCH, nval, ntest,
+                 _adam_per_step("uno9", **get_preset(S85_PRESET).model_kwargs))
     out = os.path.join(tmp, "s85_preds.npz")
     _cli_predict("s85-predict", ["predict", *split, "--init-seed", "0", "--split", "test",
                                  "--out", out], out, (ntest, 85, 85), len(shapes), True)
@@ -2118,7 +2151,8 @@ def phase_ns3d_siblings(tmp: str, dev) -> dict:
             "--device", "cuda"]))
         _check_train(f"{tag}-train", f"{name} {preset.model} bf16 b{BATCH} T_in={preset.t_in} "
                      f"-> T_f={preset.t_f}, --data of {NS3D_MAT_N} generated trajectories",
-                     run, shapes, False, BATCH, nval, ntest)
+                     run, shapes, False, BATCH, nval, ntest,
+                     _adam_per_step(preset.model, **preset.model_kwargs))
         data, pred = os.path.join(tmp, f"{name}.npz"), os.path.join(tmp, f"{name}_preds.npz")
         _write_ns3d_split(data, np.random.default_rng(14), NS3D_SIB_PREDICT, name)
         _cli_predict(f"{tag}-predict", [
@@ -2150,7 +2184,7 @@ def phase_s256(tmp: str, dev) -> dict:
     run = _train_run(dev, lambda: _run_cli(["train", *split, "--epochs", str(EPOCHS)]))
     _check_train("s256-train", f"{S256_PRESET} uno_s256 bf16 b{bs} T_f={preset.t_f} BPTT, a "
                  f"synthetic {preset.size}x{preset.size} split", run, shapes, False, bs, nval,
-                 ntest, t_f=preset.t_f)
+                 ntest, _adam_per_step(preset.model, **preset.model_kwargs), t_f=preset.t_f)
     out = os.path.join(tmp, "s256_preds.npz")
     _cli_predict("s256-predict", ["predict", *split, "--init-seed", "0", "--split", "test",
                                   "--out", out],
@@ -2172,7 +2206,8 @@ def phase_uno_p(tmp: str, dev) -> dict:
     run = _train_run(dev, _trainer(model, train_ns2d, split, cfg, t_f=preset.t_f))
     _check_train("uno-p-train", f"uno_p width {UNO_P_KW['width']} bf16 b{BATCH} "
                  f"T_f={preset.t_f} BPTT, train_ns2d on the generated ns2d split", run, shapes,
-                 False, BATCH, len(split[2]), len(split[4]), t_f=preset.t_f)
+                 False, BATCH, len(split[2]), len(split[4]), _adam_per_step("uno_p", **UNO_P_KW),
+                 t_f=preset.t_f)
     xs = _load_split(os.path.join(tmp, "ns2d.npz"))[4][: SERVE_BATCHES * BATCH]
     rollout = _rollout_fns(preset.t_f)[0]
     model.eval()
@@ -2193,7 +2228,8 @@ def phase_uno_demo(tmp: str, dev) -> dict:
     cfg = dataclasses.replace(get_preset(PRESET).train, epochs=EPOCHS)
     run = _train_run(dev, _trainer(model, train_darcy, split, cfg))
     _check_train("uno-demo-train", f"uno_demo width {DEMO_KW['width']} pad 8 bf16 b{BATCH} at "
-                 f"{S}x{S}, train_darcy", run, shapes, True, BATCH, len(split[2]), len(split[4]))
+                 f"{S}x{S}, train_darcy", run, shapes, True, BATCH, len(split[2]), len(split[4]),
+                 _adam_per_step("uno_demo", **DEMO_KW))
     xs = _load_split(os.path.join(tmp, "darcy_s211.npz"))[4][: SERVE_BATCHES * BATCH]
     model.eval()
     _serve("uno-demo-predict", "uno_demo bf16 forward", dev, model, xs, BATCH,
@@ -2220,7 +2256,8 @@ def phase_ns3d_256(dev) -> dict:
         run = _train_run(dev, _trainer(model, train_ns3d, split, cfg, t_f=t_f))
         _check_train(f"{tag}-train", f"{name} width {NS3D_256_KW['width']} bf16 b{bs} {s}x{s} "
                      f"T_in={t_in} -> T_f={t_f}, train_ns3d on a synthetic split", run, shapes,
-                     False, bs, NS3D_256_SPLIT[1], NS3D_256_SPLIT[2])
+                     False, bs, NS3D_256_SPLIT[1], NS3D_256_SPLIT[2],
+                     _adam_per_step(name, **NS3D_256_KW))
         model.eval()
         _serve(f"{tag}-predict", f"{name} bf16 forecast", dev,
                lambda x: forecast(model, x, t_f), a[n:], bs, (s, s, t_f),
@@ -2288,6 +2325,9 @@ FUSED_REL, FUSED_BF16_REL = 1e-5, 2e-2  # [fused-skips]: fused against materiali
 FUSED_CPU_REL = 1e-4  # [fused-skips]: the fused form on the card against the CPU
 FUSED_STEPS, FUSED_SERVES = 12, 8  # [fused-skips] darcy_s211: timed steps, served batches a form
 ADAM_STEPS, ADAM_REPS = 20, 50  # [adam-fused]: steps held bit for bit; steps timed a form
+ADAM_KERNEL_REPS, ADAM_ULPS = 40, 2  # [adam-fused]: kernel launches timed; ulps from plain
+ADAM_COUNTED = 10  # [adam-fused]: steps whose launches are counted
+KERNEL_COUNT_PAD = 0.05  # s of idle on each side of a profiler-counted call
 NO_FUSED = "UNO_TPU_TORCH_NO_FUSED_SKIPS"
 FORMS = {"fused": {}, "materialized": {NO_FUSED: 1}}  # the skip forms: their environment
 
@@ -2296,7 +2336,10 @@ def _kernel_count(fn) -> int:
     """The CUDA kernels that one call of ``fn`` launches, counted in a
     ``torch.profiler`` trace of its second call: the profiler's warm-up
     step takes the first (a trace of a first step can miss its first
-    kernels)."""
+    kernels).  The profiler puts the card's activities on the host's clock
+    with an offset that changes from window to window (up to 4.8 ms on the
+    H100) and drops those it puts outside the window, so the call
+    sits between KERNEL_COUNT_PAD seconds of idle on each side."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
@@ -2305,8 +2348,10 @@ def _kernel_count(fn) -> int:
                 activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
             for _ in range(2):
+                time.sleep(KERNEL_COUNT_PAD)
                 fn()
                 torch.cuda.synchronize()
+                time.sleep(KERNEL_COUNT_PAD)
                 prof.step()
         with open(path) as f:
             n = sum(1 for e in json.load(f)["traceEvents"]
@@ -2361,7 +2406,8 @@ def _skip_case(dev, preset_name: str, batch: int, seed: int) -> dict:
     what = f"{preset_name} {preset.model} f32 b{batch} {s}x{s}" + (
         f" T_f={preset.t_f} rollout" if preset.task == "ns2d" else "")
     return dict(model=model, serve=serve, step=step, what=what, x=x, y=y,
-                nb=len(model.spec.blocks), rollout=preset.t_f if preset.task == "ns2d" else 1)
+                nb=len(model.spec.blocks), rollout=preset.t_f if preset.task == "ns2d" else 1,
+                adam=_adam_per_step(preset.model, **preset.model_kwargs))
 
 
 def _time_forms(dev, case: dict, steps: int, serves: int) -> dict:
@@ -2387,7 +2433,8 @@ def _time_forms(dev, case: dict, steps: int, serves: int) -> dict:
             res[form]["serve_ms"] += [_host_ms(case["serve"]) for _ in range(max(serves // 2, 1))]
     nb, reps = case["nb"], case["rollout"]
     want = {"cmul_fwd": nb * reps * (2 if reps > 1 else 1), "cmul_bwd_x": nb * reps,
-            "cmul_bwd_w": nb * reps, "mlp_head_fwd": 0, "mlp_head_bwd": 0}
+            "cmul_bwd_w": nb * reps, "mlp_head_fwd": 0, "mlp_head_bwd": 0,
+            "adam_step": case["adam"]}
     for form, r in res.items():
         if r["launches"] != want:
             raise AssertionError(f"[fused-skips] {case['what']} {form}: kernel launches a step "
@@ -2472,12 +2519,17 @@ def phase_fused_skips(dev) -> dict:
     return res["fused"]["launches"]
 
 
-def phase_adam_fused(dev) -> None:
+def phase_adam_fused(dev) -> dict:
     """``ComplexAdam(fused=True)`` against ``fused=False`` on uno9's
-    darcy_s211 parameters on the card, f32: ADAM_STEPS steps of the same
-    gradients must leave parameters and moments bit-equal; then each form's
-    ms per step (CUDA events, median of ADAM_REPS) and kernels per step
-    (profiler)."""
+    darcy_s211 parameters on the card, f32, both through the Adam kernel:
+    ADAM_STEPS steps of the same gradients must leave parameters and
+    moments bit-equal, and within ADAM_ULPS of the plain sequence of torch
+    ops on the card; then the kernel's ms a step (median of ADAM_KERNEL_REPS
+    launches, L2 flushed) against its bound, and each form's ms per step
+    (CUDA events, median of ADAM_REPS), host to host ms, and kernels per
+    step by the profiler (``adam_count_main``) and by the kernel's own
+    count, which must agree.
+    Returns the kernel's entry of the kernels line at these shapes."""
     model = build_model("uno9", device=dev, generator=torch.Generator().manual_seed(0),
                         **get_preset(PRESET).model_kwargs)
     forms = {}
@@ -2485,11 +2537,16 @@ def phase_adam_fused(dev) -> None:
         params = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
         opt = ComplexAdam(params, lr=step_lr(1e-3, 100, 0.5, 4), weight_decay=1e-4, fused=fused)
         forms[fused] = (params, opt)
+    plain = [p.detach().clone() for p in model.parameters()]
+    states = [_zero_state(p, False) for p in plain]
+    group = forms[False][1].param_groups[0]
     g = torch.Generator(device=dev).manual_seed(2)
-    for _ in range(ADAM_STEPS):
+    for k in range(1, ADAM_STEPS + 1):
         for p, q in zip(forms[False][0], forms[True][0]):
             p.grad = torch.randn(p.shape, dtype=p.dtype, device=dev, generator=g)
             q.grad = p.grad.clone()
+        adam_k.adam_plain(group, [adam_k.Slot(q, p.grad, s["exp_avg"], s["exp_avg_sq"], None, k)
+                                  for p, q, s in zip(forms[False][0], plain, states)])
         forms[False][1].step()
         forms[True][1].step()
     torch.cuda.synchronize()
@@ -2504,6 +2561,31 @@ def phase_adam_fused(dev) -> None:
     if diff != 0.0:
         raise AssertionError(f"[adam-fused] fused against per-parameter after {ADAM_STEPS} "
                              f"steps: max abs difference {diff}")
+    ulps = {"p": max(adam_k.ulps(p, q) for p, q in zip(ref, plain))}
+    for key in ("exp_avg", "exp_avg_sq"):
+        ulps[key] = max(adam_k.ulps(ref_opt.state[p][key], s[key]) for p, s in zip(ref, states))
+    for real in (True, False):
+        ulps["p real" if real else "p complex"] = max(
+            (adam_k.ulps(p, q) for p, q in zip(ref, plain) if p.is_complex() != real), default=0)
+    plain_err = max(float((p.detach() - q).abs().max()) for p, q in zip(ref, plain))
+    if max(ulps.values()) > ADAM_ULPS:
+        raise AssertionError(f"[adam-fused] the kernel against the plain sequence after "
+                             f"{ADAM_STEPS} steps: ulps {ulps} (bound {ADAM_ULPS})")
+    # the kernel alone: one step's table, packed once, launched ADAM_KERNEL_REPS times
+    for p in ref:
+        p.grad = torch.randn(p.shape, dtype=p.dtype, device=dev, generator=g)
+    launches = adam_k.pack(group, ref_opt._slots(group)[1], _build.device_limits(dev.index)[0])
+    flush = torch.ones(256 * 2**20, dtype=torch.uint8, device=dev)  # 5x the 50 MB L2
+    kernel_ms = statistics.median(_time_ms(lambda: adam_k.launch(launches, dev), flush,
+                                           ADAM_KERNEL_REPS))
+    plain_slots = [adam_k.Slot(q, p.grad, s["exp_avg"], s["exp_avg_sq"], None, ADAM_STEPS + 1)
+                   for p, q, s in zip(ref, plain, states)]
+    plain_ms = statistics.median(_time_ms(lambda: adam_k.adam_plain(group, plain_slots), flush,
+                                          ADAM_KERNEL_REPS))
+    n_cplx = sum(p.numel() for p in ref if p.is_complex())
+    n_real = sum(p.numel() for p in ref if not p.is_complex())
+    # read p, g, mu, nu and write p, mu, nu: 48 bytes a complex64 element, 28 an f32 one
+    bound, by = _bound(48.0 * n_cplx + 28.0 * n_real, 0.0)
     timing = {}
     for fused in (False, True, True, False):  # in turns
         opt = forms[fused][1]
@@ -2516,15 +2598,62 @@ def phase_adam_fused(dev) -> None:
             torch.cuda.synchronize()
             ms.append(a.elapsed_time(b))
         timing.setdefault(fused, []).extend(ms)
-    n = sum(p.numel() for p in ref)
+    print(f"[adam-fused] kernel {kernel_ms:.4f} ms a step (median of {ADAM_KERNEL_REPS} "
+          f"launches, L2 flushed)  plain {plain_ms:.4f} ms (the torch ops, paced by the host)  "
+          f"bound {bound:.4f} ms ({by}: {n_cplx} complex64 and {n_real} f32 numbers)  "
+          f"{len(launches)} launch, {launches[0].blocks} blocks")
+    # the profiler in a fresh process: a window this late in the script saw no kernel of
+    # a step that launches only this one, though windows with torch kernels count it
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--adam-count"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"[adam-fused] the counting process exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    counted = json.loads(proc.stdout.strip().splitlines()[-1])
     for fused in (False, True):
-        host = statistics.median(_host_ms(forms[fused][1].step) for _ in range(10))
-        print(f"[adam-fused] uno9 {PRESET} f32, {len(ref)} parameters ({n} numbers), "
-              f"fused={fused}: ms per optimizer step {_spread(timing[fused])} (CUDA events, "
-              f"{len(timing[fused])} steps); host to host median {host:.3f}; kernels a step "
-              f"{_kernel_count(forms[fused][1].step)} (profiler)")
+        opt = forms[fused][1]
+        host = statistics.median(_host_ms(opt.step) for _ in range(10))
+        before = adam_k.LAUNCHES["step"]
+        for _ in range(ADAM_COUNTED):
+            opt.step()
+        launches = adam_k.LAUNCHES["step"] - before
+        seen = counted[str(fused)]
+        if seen != ADAM_COUNTED or launches != ADAM_COUNTED:
+            raise AssertionError(f"[adam-fused] fused={fused}: {ADAM_COUNTED} steps, {seen} "
+                                 f"kernels (profiler), {launches} launches (the kernel's "
+                                 f"count)")
+        print(f"[adam-fused] uno9 {PRESET} f32, {len(ref)} parameters ({n_cplx + n_real} "
+              f"numbers), fused={fused}: ms per optimizer step {_spread(timing[fused])} (CUDA "
+              f"events, {len(timing[fused])} steps); host to host median {host:.3f}; kernels "
+              f"a step {seen / ADAM_COUNTED:g} (profiler, a fresh process), "
+              f"{launches / ADAM_COUNTED:g} (the kernel's launches, this process)")
     print(f"[adam-fused] fused against per-parameter after {ADAM_STEPS} steps of the same "
-          f"gradients: parameters and moments max abs difference {diff}")
+          f"gradients: parameters and moments max abs difference {diff}; the kernel against "
+          f"the plain sequence: largest gap in ulps {ulps} (bound {ADAM_ULPS})")
+    return dict(max_abs_err=plain_err, max_ulps=max(ulps.values()), ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound, bytes_ms=bound, flops_ms=0.0,
+                library_ms=None)
+
+
+def adam_count_main() -> int:
+    """``[adam-fused]``'s profiler count, in a fresh process: uno9's
+    darcy_s211 parameters on the card in each ``ComplexAdam`` form, one
+    warm step, then the kernels of ADAM_COUNTED steps in one window;
+    prints them as a JSON line keyed by the form."""
+    dev = torch.device("cuda", 0)
+    model = build_model("uno9", device=dev, generator=torch.Generator().manual_seed(0),
+                        **get_preset(PRESET).model_kwargs)
+    g = torch.Generator(device=dev).manual_seed(2)
+    seen = {}
+    for fused in (False, True):
+        params = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+        for p in params:
+            p.grad = torch.randn(p.shape, dtype=p.dtype, device=dev, generator=g)
+        opt = ComplexAdam(params, lr=step_lr(1e-3, 100, 0.5, 4), weight_decay=1e-4, fused=fused)
+        opt.step()
+        seen[str(fused)] = _kernel_count(lambda: [opt.step() for _ in range(ADAM_COUNTED)])
+    print(json.dumps(seen))
+    return 0
 
 
 def main() -> int:
@@ -2586,12 +2715,14 @@ def main() -> int:
     oned_launches = phase_1d(dev)
     phase_variants_cuda_vs_cpu(dev)
     fused_launches = phase_fused_skips(dev)
-    phase_adam_fused(dev)
+    times["adam_step"] = phase_adam_fused(dev)  # uno9's parameters: the Darcy paths'
     # top level: the Darcy path (darcy_s211 shapes, launches of its train
     # run); "ns2d", "ns3d", "s421" (darcy_s421: its train run), "superres"
     # (the super-resolution evaluation at 421, forward only) and "1d" (the
     # 1-D block's card check): the same keys at those paths' shapes; a
-    # kernel a path does not run has launches 0 and on_path false; "dp_nccl"
+    # kernel not timed at a path's shapes has its launches there and on_path
+    # (launched or not: the Adam kernel is timed at uno9's parameters, on the
+    # paths with the Darcy shapes); "dp_nccl"
     # (the Darcy train run as one NCCL rank: the Darcy shapes), "dp" and
     # "dp_ns3d" (rank 0 of the two-rank runs, at B = 8), "export" (the
     # served artifact: the Darcy forward shapes), "remat" (the remat_blocks
@@ -2620,7 +2751,7 @@ def main() -> int:
                      launches=launches[name], **times[name])
         for path, (t, n) in paths.items():
             entry[path] = (dict(launches=n[name], **t[name]) if name in t
-                           else dict(launches=n[name], on_path=False))
+                           else dict(launches=n[name], on_path=n[name] > 0))
         kernels.append(entry)
     print(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the kernels' build "
           f"included")
@@ -2634,4 +2765,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--adam-count"]:
+        sys.exit(adam_count_main())
     sys.exit(main())

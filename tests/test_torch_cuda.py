@@ -837,3 +837,137 @@ def test_fused_complex_adam_on_the_card_is_bit_equal(cuda):
     torch.cuda.synchronize()
     for a, b in zip(ref, fus):
         assert torch.equal(a, b)
+
+
+def _adam_against_plain(cuda, wd: float, amsgrad: bool, steps: int):
+    """uno9's darcy_s211 parameters stepped by ``ComplexAdam`` (the kernel)
+    and by the plain sequence on the card, on the same gradients, under
+    StepLR with 7 steps an epoch: (kernel params, optimizer, plain params,
+    plain states)."""
+    from uno_tpu_torch.ops.kernels import adam as A
+    from uno_tpu_torch.optim import ComplexAdam, _zero_state, step_lr
+
+    model = build_model("uno9", device=cuda, generator=torch.Generator().manual_seed(0),
+                        in_width=3, width=32, pad=12)
+    kern = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+    plain = [p.detach().clone() for p in model.parameters()]
+    states = [_zero_state(p, amsgrad) for p in plain]
+    opt = ComplexAdam(kern, lr=step_lr(1e-3, 1, 0.5, steps_per_epoch=7), weight_decay=wd,
+                      amsgrad=amsgrad)
+    group = opt.param_groups[0]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for k in range(1, steps + 1):
+        for p in kern:  # magnitudes from 1e-5 to 1, as a step's gradients spread
+            scale = 10.0 ** -torch.randint(0, 6, (), generator=g, device=cuda).float()
+            p.grad = torch.randn(p.shape, dtype=p.dtype, device=cuda, generator=g) * scale
+        A.adam_plain(group, [A.Slot(q, p.grad, s["exp_avg"], s["exp_avg_sq"],
+                                    s.get("max_exp_avg_sq"), k)
+                             for p, q, s in zip(kern, plain, states)])
+        opt.step()
+    torch.cuda.synchronize()
+    return kern, opt, plain, states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [0.0, 1e-3])
+@pytest.mark.parametrize("amsgrad", [False, True])
+def test_adam_kernel_against_the_plain_sequence(cuda, wd, amsgrad):
+    """20 steps: every element of p, mu, nu and max_nu within 2 ulp of the
+    plain sequence's, and in fact bit-equal (PERF.md §6): the kernel rounds
+    each operation as torch's CUDA kernels round it."""
+    from uno_tpu_torch.ops.kernels.adam import ulps
+
+    kern, opt, plain, states = _adam_against_plain(cuda, wd, amsgrad, 20)
+    keys = ("exp_avg", "exp_avg_sq") + (("max_exp_avg_sq",) if amsgrad else ())
+    for i, (p, q, s) in enumerate(zip(kern, plain, states)):
+        assert opt.state[p]["step"] == 20
+        gaps = {"p": ulps(p, q), **{k: ulps(opt.state[p][k], s[k]) for k in keys}}
+        assert max(gaps.values()) <= 2, (i, p.dtype, gaps)
+        assert torch.equal(p, q) and all(torch.equal(opt.state[p][k], s[k]) for k in keys), i
+
+
+@pytest.mark.cuda
+def test_adam_kernel_launches_once_a_group_a_step(cuda):
+    from uno_tpu_torch.ops.kernels import adam as A
+    from uno_tpu_torch.optim import ComplexAdam
+
+    ps = [torch.nn.Parameter(torch.randn(n, device=cuda)) for n in (5, 70000, 3)]
+    ps.append(torch.nn.Parameter(torch.randn(9, 4, dtype=torch.complex64, device=cuda)))
+    for fused in (False, True):
+        opt = ComplexAdam([{"params": ps[:2]}, {"params": ps[2:], "lr": 1e-2}], lr=1e-3,
+                          fused=fused)
+        for _ in range(3):
+            for p in ps:
+                p.grad = torch.randn_like(p)
+            before = A.LAUNCHES["step"]
+            opt.step()
+            assert A.LAUNCHES["step"] - before == 2
+
+
+@pytest.mark.cuda
+def test_adam_kernel_skips_a_parameter_without_gradient(cuda):
+    from uno_tpu_torch.optim import ComplexAdam
+
+    ps = [torch.nn.Parameter(torch.randn(40, device=cuda)),
+          torch.nn.Parameter(torch.randn(6, 7, dtype=torch.complex64, device=cuda)),
+          torch.nn.Parameter(torch.randn(5, device=cuda))]
+    before = [p.detach().clone() for p in ps]
+    opt = ComplexAdam(ps, lr=1e-2, weight_decay=1e-3)
+    ps[0].grad, ps[2].grad = torch.randn_like(ps[0]), torch.randn_like(ps[2])
+    opt.step()
+    torch.cuda.synchronize()
+    assert torch.equal(ps[1].detach(), before[1]) and not opt.state[ps[1]]
+    for i in (0, 2):
+        assert not torch.equal(ps[i].detach(), before[i]) and opt.state[ps[i]]["step"] == 1
+
+
+@pytest.mark.cuda
+def test_adam_kernel_refuses_float64_and_a_non_contiguous_gradient(cuda):
+    from uno_tpu_torch.optim import ComplexAdam
+
+    p64 = torch.nn.Parameter(torch.randn(8, dtype=torch.float64, device=cuda))
+    p64.grad = torch.randn_like(p64)
+    with pytest.raises(TypeError, match="float64"):
+        ComplexAdam([p64], lr=1e-3).step()
+    p = torch.nn.Parameter(torch.randn(4, 6, device=cuda))
+    opt = ComplexAdam([p], lr=1e-3)
+    p.grad = torch.randn(6, 4, device=cuda).t()
+    with pytest.raises(ValueError, match="gradient of parameter 0 .* not contiguous"):
+        opt.step()
+    assert opt.state[p]["step"] == 0  # the refused step is not counted
+
+
+@pytest.mark.cuda
+def test_adam_kernel_splits_a_long_table_with_the_same_bits(cuda):
+    """100 parameters, complex and real, from 1 to 9,000 elements: one
+    optimizer (three launches a step), one optimizer a parameter, and the
+    flat form, whose views lie at offsets that are not 16-byte aligned
+    (the element-by-element path), give the same bits over 5 steps."""
+    from uno_tpu_torch.ops.kernels import adam as A
+    from uno_tpu_torch.optim import ComplexAdam
+
+    gen = torch.Generator().manual_seed(3)
+    sizes = torch.randint(1, 9000, (100,), generator=gen).tolist()
+    init = [torch.randn(n, dtype=torch.complex64 if i % 3 == 0 else torch.float32,
+                        generator=gen) for i, n in enumerate(sizes)]
+    runs = {form: [torch.nn.Parameter(t.to(cuda)) for t in init]
+            for form in ("table", "single", "flat")}
+    kw = dict(lr=1e-3, weight_decay=1e-3, amsgrad=True)
+    opts = {"table": [ComplexAdam(runs["table"], **kw)],
+            "single": [ComplexAdam([p], **kw) for p in runs["single"]],
+            "flat": [ComplexAdam(runs["flat"], fused=True, **kw)]}
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for _ in range(5):
+        grads = [torch.randn(p.shape, dtype=p.dtype, device=cuda, generator=g)
+                 for p in runs["table"]]
+        for form, ps in runs.items():
+            for p, gr in zip(ps, grads):
+                p.grad = gr.clone()
+        before = A.LAUNCHES["step"]
+        opts["table"][0].step()
+        assert A.LAUNCHES["step"] - before == 3
+        for opt in opts["single"] + opts["flat"]:
+            opt.step()
+    torch.cuda.synchronize()
+    for a, b, c in zip(*runs.values()):
+        assert torch.equal(a, b) and torch.equal(a, c)

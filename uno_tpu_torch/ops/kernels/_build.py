@@ -41,6 +41,8 @@ _SIGNATURES = {
     # B, C, N, H, O, then the launch plan (mlp_head.py: FwdPlan.args, BwdPlan.args)
     "uno_mlp_head_fwd": [_P] * 6 + [_I] * 10 + [_P],
     "uno_mlp_head_bwd": [_P] * 11 + [_I] * 11 + [_P],
+    # the step's table in host memory, its entries, the grid (adam.py: Launch)
+    "uno_adam_step": [_P, _I, _I, _P],
     # device, then where to write its SM count and opt-in shared memory
     "uno_device_limits": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }

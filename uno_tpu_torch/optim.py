@@ -20,10 +20,17 @@ this optimizer does **not** conjugate.  ``uno_tpu``'s ``complex_adam``
 conjugates because ``jax.grad`` returns the conjugate; both take the same
 step from the same loss.
 
-``fused=True`` is ``uno_tpu``'s ``complex_adam(fused=True)``: the same
-elementwise sequence on one flat buffer per parameter dtype of a group, a
-dozen launches a dtype instead of about ten a parameter.  Its state is
-flat, so a checkpoint of one form does not load into the other.
+``fused=True`` is ``uno_tpu``'s ``complex_adam(fused=True)``: the moments
+of a group live in one flat buffer per parameter dtype.  Its state is flat,
+so a checkpoint of one form does not load into the other.  It is kept for
+parity with ``uno_tpu`` alone: with both forms one kernel launch a step on
+the card it saves nothing, and its views into the flat buffers make its
+step slower than ``fused=False``'s, which every trainer uses.
+
+Either form hands a group's step to ``ops/kernels/adam.py``: on the card
+one launch of a hand-written kernel over all the group's parameters, on
+the CPU the plain sequence of torch ops a parameter at a time; both forms
+run the same arithmetic on each element, so they agree bit for bit.
 
 ``step`` is the ``optimizer`` span (``utils/profiling.py``) in either form.
 """
@@ -34,6 +41,7 @@ from typing import Callable, Union
 
 import torch
 
+from uno_tpu_torch.ops.kernels import adam
 from uno_tpu_torch.utils.profiling import annotate
 
 
@@ -53,13 +61,6 @@ def step_lr(
         return base_lr * gamma ** (epoch // step_size_epochs)
 
     return schedule
-
-
-def _abs2(g: torch.Tensor) -> torch.Tensor:
-    """``re(g * conj(g))``: |g|^2, real, for real and complex g."""
-    if g.is_complex():
-        return torch.view_as_real(g).square().sum(dim=-1)
-    return g * g
 
 
 def _zero_state(like: torch.Tensor, amsgrad: bool) -> dict:
@@ -82,12 +83,10 @@ class ComplexAdam(torch.optim.Optimizer):
     in it, one flat ``exp_avg`` and one flat real ``exp_avg_sq`` (and
     ``max_exp_avg_sq``) over all the group's parameters of that dtype, in
     their order, under ``state["flat<group>"]`` with the group's step count.
-    A step gathers the gradients of a dtype with one ``torch.cat``, runs
-    the per-parameter sequence on the flat buffers and adds the update to
-    the parameters with one ``torch._foreach_add_``: the same operations on
-    the same numbers, bit for bit.  Each step needs a gradient for every
-    parameter of a group or for none.  That state does not load into a
-    ``fused=False`` optimizer, nor the other way round.
+    A step hands each parameter its views into those buffers.  Each step
+    needs a gradient for every parameter of a group or for none.  That
+    state does not load into a ``fused=False`` optimizer, nor the other way
+    round.
     """
 
     def __init__(
@@ -105,29 +104,6 @@ class ComplexAdam(torch.optim.Optimizer):
         super().__init__(params, defaults)
         self.fused = fused
 
-    @staticmethod
-    def _update(group: dict, count: int, g, p, state: dict) -> torch.Tensor:
-        """Advance ``state``'s moments by gradient ``g`` of parameter ``p``
-        (tensors, or flat buffers of the same elements); returns the update
-        before its factor ``-lr / bc1`` (``_step_size``)."""
-        b1, b2 = group["betas"]
-        if group["weight_decay"] != 0.0:
-            g = g + group["weight_decay"] * p
-        mu, nu = state["exp_avg"], state["exp_avg_sq"]
-        mu.mul_(b1).add_(g, alpha=1.0 - b1)
-        nu.mul_(b2).add_(_abs2(g), alpha=1.0 - b2)
-        if group["amsgrad"]:
-            torch.maximum(state["max_exp_avg_sq"], nu, out=state["max_exp_avg_sq"])
-            nu = state["max_exp_avg_sq"]
-        bc2 = 1.0 - b2**count
-        denom = nu.sqrt().div_(bc2**0.5).add_(group["eps"])
-        return mu / denom
-
-    @staticmethod
-    def _step_size(group: dict, count: int) -> float:
-        lr = group["lr"](count) if callable(group["lr"]) else group["lr"]
-        return -lr / (1.0 - group["betas"][0] ** count)
-
     @annotate("optimizer")
     @torch.no_grad()
     def step(self, closure=None):
@@ -136,25 +112,31 @@ class ComplexAdam(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for i, group in enumerate(self.param_groups):
-            if self.fused:
-                self._fused_step(i, group)
-                continue
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state.update(step=0, **_zero_state(p, group["amsgrad"]))
+            states, slots = self._flat_slots(i, group) if self.fused else self._slots(group)
+            if slots:
+                adam.adam_step(group, slots)
+            for state in states:  # counted once the step is taken: a refused one is not
                 state["step"] += 1
-                count = state["step"]
-                p.add_(self._update(group, count, p.grad, p, state),
-                       alpha=self._step_size(group, count))
         return loss
 
-    def _fused_step(self, i: int, group: dict) -> None:
+    def _slots(self, group: dict) -> tuple:
+        """(the states whose count the step advances, the step's slots)."""
+        states, slots = [], []
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            state = self.state[p]
+            if not state:
+                state.update(step=0, **_zero_state(p, group["amsgrad"]))
+            states.append(state)
+            slots.append(adam.Slot(p, p.grad, state["exp_avg"], state["exp_avg_sq"],
+                                   state.get("max_exp_avg_sq"), state["step"] + 1))
+        return states, slots
+
+    def _flat_slots(self, i: int, group: dict) -> tuple:
         params = [p for p in group["params"] if p.grad is not None]
         if not params:
-            return
+            return [], []
         if len(params) != len(group["params"]):
             raise ValueError(f"ComplexAdam(fused=True): group {i} has gradients for "
                              f"{len(params)} of its {len(group['params'])} parameters")
@@ -167,14 +149,15 @@ class ComplexAdam(torch.optim.Optimizer):
             for dt, ps in by_dtype.items():
                 n = sum(p.numel() for p in ps)
                 flat[dt] = _zero_state(ps[0].new_empty(n), group["amsgrad"])
-        flat["step"] += 1
-        count = flat["step"]
+        slots = []
         for dt, ps in by_dtype.items():
-            g = torch.cat([p.grad.reshape(-1) for p in ps])
-            pf = torch.cat([p.reshape(-1) for p in ps]) if group["weight_decay"] else None
-            upd = self._update(group, count, g, pf, flat[dt])
-            views = [u.view_as(p) for u, p in zip(upd.split([p.numel() for p in ps]), ps)]
-            torch._foreach_add_(ps, views, alpha=self._step_size(group, count))
+            sizes = [p.numel() for p in ps]
+            views = {k: [v.view(p.shape) for v, p in zip(buf.split(sizes), ps)]
+                     for k, buf in flat[dt].items()}
+            maxes = views.get("max_exp_avg_sq", [None] * len(ps))
+            slots += [adam.Slot(p, p.grad, mu, nu, mx, flat["step"] + 1)
+                      for p, mu, nu, mx in zip(ps, views["exp_avg"], views["exp_avg_sq"], maxes)]
+        return [flat], slots
 
     def load_state_dict(self, state_dict: dict) -> None:
         """torch's, after checking that the state is of this optimizer's
