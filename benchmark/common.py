@@ -1,15 +1,22 @@
 """What the traffic drivers share: the run's context, the program's model
-built from a configuration, and the comparisons that decide ``correct``."""
+built from a configuration (checked by its family's ``check_spec``), and
+the comparisons that decide ``correct``."""
 
 from __future__ import annotations
 
 import gc
 import statistics
 from dataclasses import dataclass
-from fractions import Fraction
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from benchmark import plugins
+
+# the configuration keys the harness itself reads; the model family
+# (``plugins.family``) declares the rest
+CONFIG_KEYS = {"name", "source", "about", "reduced", "assumed", "task", "reference", "program",
+               "model", "optimizer", "data"}
 
 
 @dataclass
@@ -46,25 +53,6 @@ def set_precision() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def _check_spec(spec, model: dict) -> None:
-    """The program's spec is the architecture the configuration describes."""
-    want = {k: model[k] for k in ("in_width", "width", "lift_hidden", "embed", "pad",
-                                  "pad_mode", "darcy_base", "proj_hidden",
-                                  "proj_concat_lift", "out_dim")}
-    got = {k: getattr(spec, k) for k in want}
-    blocks = [(b["channels"], Fraction(b["grid"]), tuple(b["modes"]), bool(b.get("normalize")),
-               bool(b.get("residual")), -1 if b.get("skip") == "lift" else b.get("skip"))
-              for b in model["blocks"]]
-    got_blocks = [(b.channels, b.grid[0], tuple(b.modes), b.normalize, b.residual, b.skip)
-                  for b in spec.blocks]
-    if got != want or got_blocks != blocks or any(b.grid[0] != b.grid[1] for b in spec.blocks):
-        raise ValueError(f"the program's {spec.name} is not the configuration's model: "
-                         f"{got} {got_blocks} against {want} {blocks}")
-    if spec.dtype != model["precision"]:
-        raise ValueError(f"the program runs {spec.dtype}, the configuration states "
-                         f"{model['precision']}")
-
-
 def program_model(cfg: dict, weights: Dict[str, torch.Tensor], device) -> torch.nn.Module:
     """The program's model for the configuration, holding ``weights``."""
     from uno_tpu_torch.models import build_model
@@ -72,7 +60,7 @@ def program_model(cfg: dict, weights: Dict[str, torch.Tensor], device) -> torch.
     prog = cfg["program"]
     model = build_model(prog["model"], dtype=prog["dtype"], device=device,
                         generator=torch.Generator().manual_seed(0), **prog["kwargs"])
-    _check_spec(model.spec, cfg["model"])
+    plugins.family(cfg).check_spec(model.spec, cfg["model"])
     model.load_state_dict(weights, strict=True)
     return model
 

@@ -2,21 +2,21 @@
 calls, for the program and the reference alike.
 
 Weights: one uniform draw and one normal draw for all the leaves of a
-configuration (``reference/uno2d.py`` ``leaves`` names them, their shapes
-and laws), split and scaled per leaf.  Inputs: Gaussian random fields by
-one inverse FFT per batch of fields (``grf``), then the configuration's
-task turns them into Darcy coefficient fields and targets, or Navier-Stokes
-input windows.
+configuration (its model family's ``leaves`` names them, their shapes and
+laws), split and scaled per leaf.  Inputs: the configuration's task
+(``benchmark/tasks/<task>.py``) makes its training split and what a serving
+client sends, from Gaussian random fields drawn by one inverse FFT per
+batch of fields (``grf``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
-from benchmark.reference import uno2d
+from benchmark import plugins
 
 SEED_SALT = {"weights": 1, "train": 2, "serve": 3, "order": 4, "sample": 5}
 
@@ -29,9 +29,10 @@ def generator(seed: int, what: str, device) -> torch.Generator:
     return g
 
 
-def weights(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Every leaf of ``model``, f32 or complex64, drawn on ``device``."""
-    spec = uno2d.leaves(model)
+def weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """Every leaf of the configuration's model, f32 or complex64, drawn on
+    ``device``."""
+    spec = plugins.family(cfg).leaves(cfg["model"])
     n_uni = sum(math.prod(s) for _, s, law, _ in spec if law == "uniform")
     n_cn = sum(math.prod(s) for _, s, law, _ in spec if law == "cnormal")
     g = generator(seed, "weights", device)
@@ -68,34 +69,11 @@ def grf(g: torch.Generator, n: int, s: int, alpha: float, tau: float, device) ->
     return field / field.std(dim=(1, 2), keepdim=True)
 
 
-def darcy_pairs(cfg: dict, g: torch.Generator, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``n`` Darcy samples at the configuration's grid: coefficient fields
-    (n, s, s, 1) and targets (n, s, s)."""
-    d, s = cfg["data"], cfg["grid"]
-    field = grf(g, n, s, d["grf_alpha"], d["grf_tau"], device)
-    a = torch.where(field >= 0, d["coeff_high"], d["coeff_low"])
-    k1 = torch.fft.fftfreq(s, device=device)
-    k2 = torch.fft.rfftfreq(s, device=device)
-    sig = d["target_smooth_cells"]
-    blur = torch.exp(-2 * math.pi**2 * sig**2 * (k1[:, None] ** 2 + k2[None, :] ** 2))
-    smooth = torch.fft.irfft2(torch.fft.rfft2(a) * blur, s=(s, s))
-    x = torch.linspace(0.0, 1.0, s, device=device)
-    env = torch.sin(math.pi * x)[:, None] * torch.sin(math.pi * x)[None, :]
-    y = smooth * env * d["target_scale"]
-    return a[..., None].contiguous(), y.contiguous()
-
-
-def ns_windows(cfg: dict, g: torch.Generator, n: int, device) -> torch.Tensor:
-    """``n`` input windows (n, s, s, t_in) of slowly turning vorticity."""
-    d, s, t_in = cfg["data"], cfg["grid"], cfg["t_in"]
-    a = grf(g, n, s, d["grf_alpha"], d["grf_tau"], device)
-    b = grf(g, n, s, d["grf_alpha"], d["grf_tau"], device)
-    t = torch.arange(t_in, device=device, dtype=torch.float32) * d["frame_angle"]
-    return (a[..., None] * t.cos() + b[..., None] * t.sin()).contiguous()
+def train_split(cfg: dict, g: torch.Generator, n: int, device):
+    """``n`` training samples of the configuration's task: (inputs, targets)."""
+    return plugins.task(cfg).train_split(cfg, g, n, device)
 
 
 def serve_inputs(cfg: dict, g: torch.Generator, n: int, device) -> torch.Tensor:
-    """What a serving client sends for ``n`` samples of the task."""
-    if cfg["task"] == "darcy":
-        return darcy_pairs(cfg, g, n, device)[0]
-    return ns_windows(cfg, g, n, device)
+    """What a serving client sends for ``n`` samples of the configuration's task."""
+    return plugins.task(cfg).serve_inputs(cfg, g, n, device)

@@ -31,6 +31,10 @@ output, the head's input).  The reference itself passes none.  With
 precision, the unit in which the program's distance from the reference is
 measured; the control passes a rounding to float8 (``fp8_round``), the
 precision below bf16.
+
+The ``uno2d`` family's other declarations (``benchmark/plugins.py``): the
+configuration keys it reads, ``leaves``, ``check_spec``, and the counts of
+its work (``step_flops``, ``bounds``, from ``uno2d_counts.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +45,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from benchmark.reference.uno2d_counts import bounds, step_flops  # noqa: F401
+
+# the configuration keys the family reads: top-level ones beyond the
+# harness's own, the ``model`` section's (all present), and a block's
+CONFIG_KEYS = {"grid", "t_in", "t_f"}
+MODEL_KEYS = {"in_width", "width", "lift_hidden", "embed", "pad", "pad_mode", "darcy_base",
+              "blocks", "proj_hidden", "proj_concat_lift", "out_dim", "precision"}
+BLOCK_KEYS = {"channels", "grid", "modes", "normalize", "residual", "skip"}
 
 Quant = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
@@ -109,6 +122,25 @@ def leaves(model: dict) -> List[Tuple[str, tuple, str, float]]:
     head_in = model["proj_hidden"] + (model["lift_hidden"] if model["proj_concat_lift"] else 0)
     dense("fc2", head_in, model["out_dim"])
     return out
+
+
+def check_spec(spec, model: dict) -> None:
+    """The program's spec is the architecture the configuration describes."""
+    want = {k: model[k] for k in ("in_width", "width", "lift_hidden", "embed", "pad",
+                                  "pad_mode", "darcy_base", "proj_hidden",
+                                  "proj_concat_lift", "out_dim")}
+    got = {k: getattr(spec, k) for k in want}
+    blocks = [(b["channels"], Fraction(b["grid"]), tuple(b["modes"]), bool(b.get("normalize")),
+               bool(b.get("residual")), -1 if b.get("skip") == "lift" else b.get("skip"))
+              for b in model["blocks"]]
+    got_blocks = [(b.channels, b.grid[0], tuple(b.modes), b.normalize, b.residual, b.skip)
+                  for b in spec.blocks]
+    if got != want or got_blocks != blocks or any(b.grid[0] != b.grid[1] for b in spec.blocks):
+        raise ValueError(f"the program's {spec.name} is not the configuration's model: "
+                         f"{got} {got_blocks} against {want} {blocks}")
+    if spec.dtype != model["precision"]:
+        raise ValueError(f"the program runs {spec.dtype}, the configuration states "
+                         f"{model['precision']}")
 
 
 def _grid(embed: str, b: int, s1: int, s2: int, device) -> torch.Tensor:

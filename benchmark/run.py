@@ -3,7 +3,8 @@
     python -m benchmark.run --workload CELL --seed N --seconds S --trace 0|1
 
 Everything a cell needs is found by name: its entry in ``BENCHMARK.json``,
-its configuration's file (the entry's ``file``), its traffic mix
+its configuration's file (the entry's ``file``) with the model family and
+the task that file names (``benchmark/plugins.py``), its traffic mix
 (``benchmark/traffic/<traffic>.json``, whose ``driver`` names
 ``benchmark/traffic/<driver>.py``), its limits
 (``benchmark/workloads/<cell>.json``) and each per-layer metric's reader

@@ -1,4 +1,5 @@
-"""``counts.py`` against the arithmetic of ``chip_smoke.py`` (its
+"""The ``uno2d`` family's counts (``reference/uno2d_counts.py``, read
+through ``counts.py``) against the arithmetic of ``chip_smoke.py`` (its
 ``_bound``, the contraction's and the head's bytes and flops) at
 darcy_s211's and ns2d's shapes, and the step's flop count against a sum
 written out by hand for one block."""
@@ -12,6 +13,7 @@ from pathlib import Path
 import pytest
 
 from benchmark import counts
+from benchmark.reference import uno2d_counts
 
 ROOT = Path(__file__).resolve().parents[2]
 PEAK = counts.PEAKS["H100"]
@@ -34,31 +36,32 @@ def _smoke_bound(nbytes, flops):
 @pytest.mark.parametrize("name,cfg", [("darcy", DARCY), ("ns2d", NS2D)])
 def test_shapes_and_bounds_equal_chip_smoke(name, cfg):
     cmul, head = SMOKE[name]
-    assert counts.contract_shapes(cfg["model"], cfg["grid"], 16) == cmul
-    assert counts.head_shape(cfg["model"], cfg["grid"], 16) == head
+    assert uno2d_counts.contract_shapes(cfg["model"], cfg["grid"], 16) == cmul
+    assert uno2d_counts.head_shape(cfg["model"], cfg["grid"], 16) == head
     for b, ci, co, m in cmul:
         nbytes = 8 * (b * ci * m + ci * co * m + b * co * m)  # x, w, out; dx and dw alike
         want = _smoke_bound(nbytes, 8.0 * (b * co * m) * ci)
-        assert counts.contract_bound_s((b, ci, co, m), PEAK) == pytest.approx(want, rel=1e-12)
+        assert uno2d_counts.contract_bound_s((b, ci, co, m), PEAK) == pytest.approx(want,
+                                                                                   rel=1e-12)
     b, c, n, h, o = head
     wbytes = 4 * (c * h + h + h * o + o)
     fwd = _smoke_bound(2 * b * c * n + wbytes + 4 * b * o * n, 2.0 * b * n * (c * h + h * o))
     bwd = _smoke_bound(4 * b * c * n + 4 * b * o * n + wbytes - 4 * o + wbytes,
                        2.0 * b * n * (3 * c * h + 2 * h * o))
-    assert counts.head_bounds_s(head, PEAK) == pytest.approx((fwd, bwd), rel=1e-12)
+    assert uno2d_counts.head_bounds_s(head, PEAK) == pytest.approx((fwd, bwd), rel=1e-12)
 
 
 def test_bounds_per_step_and_batch():
     """Training counts a forward and both gradients of each contraction and
     the head's forward and backward; a rollout counts t_f forwards."""
     shapes, head = SMOKE["darcy"]
-    one = sum(counts.contract_bound_s(s, PEAK) for s in shapes)
-    fwd, bwd = counts.head_bounds_s(head, PEAK)
+    one = sum(uno2d_counts.contract_bound_s(s, PEAK) for s in shapes)
+    fwd, bwd = uno2d_counts.head_bounds_s(head, PEAK)
     assert counts.bounds(DARCY, 16, "train", PEAK) == pytest.approx(
         {"contract_s": 3 * one, "head_s": fwd + bwd})
     shapes, head = SMOKE["ns2d"]
-    one = sum(counts.contract_bound_s(s, PEAK) for s in shapes)
-    fwd, _ = counts.head_bounds_s(head, PEAK)
+    one = sum(uno2d_counts.contract_bound_s(s, PEAK) for s in shapes)
+    fwd, _ = uno2d_counts.head_bounds_s(head, PEAK)
     assert counts.bounds(NS2D, 16, "serve", PEAK) == pytest.approx(
         {"contract_s": 40 * one, "head_s": 40 * fwd})
 
@@ -76,6 +79,6 @@ def test_forward_flops_by_hand():
             + 2 * 2.5 * b * 4 * n * math.log2(n) + 8.0 * b * 4 * 4 * 18
             + 2.0 * b * 4 * 4 * n + 8.0 * b * 4 * n
             + 2.0 * b * n * (8 * 5 + 5 * 1))
-    assert counts.forward_flops(model, s, b) == pytest.approx(want)
-    cfg = {"grid": s, "model": model}
+    assert uno2d_counts.forward_flops(model, s, b) == pytest.approx(want)
+    cfg = {"reference": "uno2d", "grid": s, "model": model}
     assert counts.step_flops(cfg, b, "train") == pytest.approx(3 * (want + 4.0 * b * n))

@@ -1,6 +1,8 @@
 """BENCHMARK.json and every file it names: the contract's keys, names and
 limits, and each configuration, cell, traffic mix and metric file holding
-only keys the harness reads."""
+only keys the harness reads: a configuration the keys its model family
+declares (``benchmark/plugins.py``), a traffic mix and a cell's limits the
+keys their driver declares."""
 
 from __future__ import annotations
 
@@ -10,24 +12,36 @@ from pathlib import Path
 
 import pytest
 
-from benchmark import common, inputs
+from benchmark import common, inputs, plugins
+from benchmark.run import load_module
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
-CONFIG_KEYS = {"name", "source", "about", "reduced", "assumed", "task", "reference", "grid",
-               "program", "model", "optimizer", "data", "t_in", "t_f"}
-MODEL_KEYS = {"in_width", "width", "lift_hidden", "embed", "pad", "pad_mode", "darcy_base",
-              "blocks", "proj_hidden", "proj_concat_lift", "out_dim", "precision"}
-BLOCK_KEYS = {"channels", "grid", "modes", "normalize", "residual", "skip"}
-TRAFFIC_KEYS = {"train_step": {"driver", "batch", "compared_steps", "warm_steps",
-                               "timing_steps", "trace_skip", "trace_steps"},
-                "serve_batch": {"driver", "batch", "pool_batches", "warm_batches",
-                                "sample_batches", "trace_skip", "trace_batches"}}
-LIMIT_KEYS = {"train_step": {"loss_gap", "grad_gap", "change_gap", "change_median_gap"},
-              "serve_batch": {"answer_gap"}}
+
+def _driver(name: str):
+    return load_module(ROOT / "benchmark" / "traffic" / f"{name}.py")
+
+
+def test_declarations_hold_the_keys_the_harness_reads():
+    """The uno2d family's and the two drivers' declared keys."""
+    fam = plugins.family({"reference": "uno2d"})
+    assert common.CONFIG_KEYS | fam.CONFIG_KEYS == {
+        "name", "source", "about", "reduced", "assumed", "task", "reference", "grid", "program",
+        "model", "optimizer", "data", "t_in", "t_f"}
+    assert fam.MODEL_KEYS == {"in_width", "width", "lift_hidden", "embed", "pad", "pad_mode",
+                              "darcy_base", "blocks", "proj_hidden", "proj_concat_lift",
+                              "out_dim", "precision"}
+    assert fam.BLOCK_KEYS == {"channels", "grid", "modes", "normalize", "residual", "skip"}
+    train, serve = _driver("train_step"), _driver("serve_batch")
+    assert train.TRAFFIC_KEYS == {"driver", "batch", "compared_steps", "warm_steps",
+                                  "timing_steps", "trace_skip", "trace_steps"}
+    assert serve.TRAFFIC_KEYS == {"driver", "batch", "pool_batches", "warm_batches",
+                                  "sample_batches", "trace_skip", "trace_batches"}
+    assert train.LIMIT_KEYS == {"loss_gap", "grad_gap", "change_gap", "change_median_gap"}
+    assert serve.LIMIT_KEYS == {"answer_gap"}
 
 
 def test_top_level_keys_and_command():
@@ -76,33 +90,33 @@ def test_each_cell_reports_setup_another_metric_and_a_layer():
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda e: e["name"])
 def test_config_file(entry):
     cfg = json.loads((ROOT / entry["file"]).read_text())
-    assert set(cfg) <= CONFIG_KEYS and cfg["name"] == entry["name"]
+    fam = plugins.family(cfg)
+    assert set(cfg) <= common.CONFIG_KEYS | fam.CONFIG_KEYS and cfg["name"] == entry["name"]
     assert cfg["source"] == entry["source"] and cfg["reduced"] == entry["reduced"] == []
-    assert set(cfg["model"]) == MODEL_KEYS
-    assert all(set(b) <= BLOCK_KEYS for b in cfg["model"]["blocks"])
+    assert set(cfg["model"]) == fam.MODEL_KEYS
+    assert all(set(b) <= fam.BLOCK_KEYS for b in cfg["model"]["blocks"])
+    plugins.task(cfg)  # the task's module is there
     # the program builds the architecture the file states, and takes its weights
     from uno_tpu_torch.models import build_model
 
     prog = cfg["program"]
     spec = build_model(prog["model"], dtype=prog["dtype"], **prog["kwargs"]).spec
-    common._check_spec(spec, cfg["model"])
+    fam.check_spec(spec, cfg["model"])
 
 
 @pytest.mark.parametrize("entry", BENCH["workloads"], ids=lambda e: e["name"])
 def test_cell_files(entry):
     traffic = json.loads((ROOT / "benchmark" / "traffic" / f"{entry['traffic']}.json")
                          .read_text())
-    assert set(traffic) == TRAFFIC_KEYS[traffic["driver"]]
-    assert (ROOT / "benchmark" / "traffic" / f"{traffic['driver']}.py").exists()
+    driver = _driver(traffic["driver"])
+    assert set(traffic) == driver.TRAFFIC_KEYS
     cell = json.loads((ROOT / "benchmark" / "workloads" / f"{entry['name']}.json").read_text())
-    assert set(cell) == {"limits"} and set(cell["limits"]) == LIMIT_KEYS[traffic["driver"]]
+    assert set(cell) == {"limits"} and set(cell["limits"]) == driver.LIMIT_KEYS
     assert all(v > 0 for v in cell["limits"].values())
 
 
 @pytest.mark.parametrize("metric", BENCH["per_layer"], ids=lambda m: m["name"])
 def test_metric_reader_exists(metric):
-    from benchmark.run import load_module
-
     mod = load_module(ROOT / "benchmark" / "metrics" / f"{metric['name']}.py")
     assert callable(mod.read)
 
@@ -113,11 +127,11 @@ def test_weights_are_the_seeds():
     cfg = json.loads((ROOT / "benchmark/configs/darcy_s211-uno9-bf16.json").read_text())
     cfg = dict(cfg, grid=32)
     seed = 2**31 + 12345
-    a = inputs.weights(cfg["model"], seed, "cpu")
-    b = inputs.weights(cfg["model"], seed, "cpu")
-    c = inputs.weights(cfg["model"], seed + 1, "cpu")
+    a = inputs.weights(cfg, seed, "cpu")
+    b = inputs.weights(cfg, seed, "cpu")
+    c = inputs.weights(cfg, seed + 1, "cpu")
     assert all(a[k].equal(b[k]) for k in a) and not a["fc.weight"].equal(c["fc.weight"])
-    x1, y1 = inputs.darcy_pairs(cfg, inputs.generator(seed, "train", "cpu"), 3, "cpu")
-    x2, _ = inputs.darcy_pairs(cfg, inputs.generator(seed, "train", "cpu"), 3, "cpu")
+    x1, y1 = inputs.train_split(cfg, inputs.generator(seed, "train", "cpu"), 3, "cpu")
+    x2, _ = inputs.train_split(cfg, inputs.generator(seed, "train", "cpu"), 3, "cpu")
     assert x1.equal(x2) and set(x1.unique().tolist()) == {3.0, 12.0}
     assert x1.shape == (3, 32, 32, 1) and y1.shape == (3, 32, 32)

@@ -23,7 +23,7 @@ def _rel(a, b):
 def _pair(name, seed):
     cfg = tiny.tiny_config(name)
     cfg["program"]["dtype"] = cfg["model"]["precision"] = "float32"
-    w = inputs.weights(cfg["model"], seed, "cpu")
+    w = inputs.weights(cfg, seed, "cpu")
     return cfg, w, common.program_model(cfg, w, torch.device("cpu"))
 
 
@@ -71,7 +71,7 @@ def test_rollout_equals_make_rollout():
     from uno_tpu_torch.train.ns2d import make_rollout
 
     cfg, w, model = _pair("ns2d-uno-bf16", 7)
-    x = inputs.ns_windows(cfg, inputs.generator(7, "serve", "cpu"), 2, "cpu")
+    x = inputs.serve_inputs(cfg, inputs.generator(7, "serve", "cpu"), 2, "cpu")
     with torch.no_grad():
         out = make_rollout(model, 3)(x, torch.ones(x.shape[:3] + (3,)))[1]
         ref = uno2d.rollout(cfg["model"], w, x, 3)

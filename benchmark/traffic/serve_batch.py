@@ -1,8 +1,9 @@
 """Batch inference, host to host, as the program's ``cli predict`` serves
 it (``uno_tpu_torch/cli.py`` ``cmd_predict``): a batch of the client's
 samples in host memory is copied to the card, the configuration's task
-runs on it under ``inference_mode`` (Darcy: one forward; NS-2D: the
-``make_rollout`` of ``t_f`` steps), and the prediction is copied back.
+runs on it under ``inference_mode`` (its ``program_serve``; Darcy: one
+forward; NS-2D: the ``make_rollout`` of ``t_f`` steps), and the prediction
+is copied back.
 
 One client serves in a closed loop: each request, a batch of ``batch``
 samples, is sent as soon as the one before it has returned, so the card is
@@ -13,7 +14,8 @@ every request shape is warmed before the window.
 
 ``correct``: a sample of ``sample_batches`` of the served requests, drawn
 from the seed over all those completed (reservoir sampling), is run through
-the plain float32 reference after the window, and through the reference
+the plain float32 reference after the window (the task's
+``reference_answer`` on the family's reference), and through the reference
 rounded to bf16 where the configuration's policy rounds.  The number
 compared, ``answer_gap``, is the worst sample's distance from the float32
 answer over the bf16 reference's distance from it: the program's error in
@@ -30,26 +32,18 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from benchmark import common, inputs, trace
-from benchmark.reference import uno2d
+from benchmark import common, inputs, plugins, trace
+
+TRAFFIC_KEYS = {"driver", "batch", "pool_batches", "warm_batches", "sample_batches",
+                "trace_skip", "trace_batches"}
+LIMIT_KEYS = {"answer_gap"}
 
 
 def _program(ctx: common.Context, w: Dict[str, torch.Tensor]) -> Callable:
     """The program's serving call on a host batch."""
     model = common.program_model(ctx.cfg, w, ctx.device).eval()
-    s, dev = ctx.cfg["grid"], ctx.device
-    if ctx.cfg["task"] == "darcy":
-        def fwd(xb):
-            return model(xb.float()).reshape(xb.shape[0], s, s)
-    else:
-        from uno_tpu_torch.train.ns2d import make_rollout
-
-        t_f = ctx.cfg["t_f"]
-        rollout = make_rollout(model, t_f)
-
-        def fwd(xb):
-            # the rollout needs targets only for its loss: zeros, as cmd_predict passes
-            return rollout(xb, torch.zeros(xb.shape[:3] + (t_f,), device=dev))[1]
+    dev = ctx.device
+    fwd = plugins.task(ctx.cfg).program_serve(model, ctx.cfg, dev)
 
     def serve(host_batch: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -60,15 +54,12 @@ def _program(ctx: common.Context, w: Dict[str, torch.Tensor]) -> Callable:
 
 def _reference(ctx: common.Context, w: Dict[str, torch.Tensor], quant=None) -> Callable:
     """The reference's answer to a host batch, on the card."""
-    model, s = ctx.cfg["model"], ctx.cfg["grid"]
+    reference_answer = plugins.task(ctx.cfg).reference_answer
 
     def answer(host_batch: torch.Tensor) -> torch.Tensor:
         x = host_batch.to(ctx.device)
         with torch.no_grad():
-            if ctx.cfg["task"] == "darcy":
-                out = uno2d.forward(model, w, x, quant).reshape(x.shape[0], s, s)
-            else:
-                out = uno2d.rollout(model, w, x, ctx.cfg["t_f"], quant)
+            out = reference_answer(ctx.cfg, w, x, quant)
         return out.cpu()
 
     return answer
@@ -101,7 +92,7 @@ class Reservoir:
 
 
 def _gap(ctx: common.Context, w, pool, kept) -> Dict[str, float]:
-    ref, ref16 = _reference(ctx, w), _reference(ctx, w, uno2d.bf16_round)
+    ref, ref16 = _reference(ctx, w), _reference(ctx, w, plugins.family(ctx.cfg).bf16_round)
     ratio, raw = 0.0, 0.0
     for j, out in kept:
         want = ref(pool[j])
@@ -116,9 +107,9 @@ def calibrate(ctx: common.Context) -> Dict[str, float]:
     program's (a short window), or the control's, served in turn."""
     t = ctx.traffic
     pool = _pool(ctx)
-    w = inputs.weights(ctx.cfg["model"], ctx.seed, ctx.device)
+    w = inputs.weights(ctx.cfg, ctx.seed, ctx.device)
     if ctx.mode == "control":
-        serve = _reference(ctx, w, uno2d.fp8_round)
+        serve = _reference(ctx, w, plugins.family(ctx.cfg).fp8_round)
         kept = [(j, serve(pool[j])) for j in range(t["sample_batches"])]
     else:
         serve = _program(ctx, w)
@@ -136,7 +127,7 @@ def run(ctx: common.Context) -> dict:
     common.reset_peak(ctx.device)
     common.phase(ctx, "start")
     pool = _pool(ctx)
-    w = inputs.weights(ctx.cfg["model"], ctx.seed, ctx.device)
+    w = inputs.weights(ctx.cfg, ctx.seed, ctx.device)
     serve = _program(ctx, w)
     w = common.host(w)
     common.phase(ctx, "pool, weights and model")

@@ -1,9 +1,12 @@
 """A closed-loop trainer: the program's training step driven over the
 shuffled batches of a training split resident on the device, in
 ``train_darcy``'s order (``uno_tpu_torch/train/darcy.py``): per step
-``zero_grad``, ``dp_value_and_grad`` over the summed relative L2 loss,
-``ComplexAdam.step`` under its StepLR rate, the loss added to a device sum
-that is read once an epoch.  No validation and no checkpoint.
+``zero_grad``, ``dp_value_and_grad`` over the task's loss (Darcy: the
+summed relative L2), ``ComplexAdam.step`` under its StepLR rate, the loss
+(or what the task's ``logged`` gives) added to a device sum that is read
+once an epoch.  No validation and no checkpoint.  The split, the program's
+loss and the reference's are the configuration's task's; the reference's
+Adam, StepLR and roundings its model family's (``benchmark/plugins.py``).
 
 On more than one chip every rank is one process of the program's data
 parallelism (``make_mesh``): each holds the split, takes its rows of every
@@ -13,15 +16,14 @@ rank waits on a collective another has left.
 
 ``correct``: set-up drives the trainer from the seed through its first
 ``compared_steps`` steps, on rows that all differ, and hands it to the
-window.  After the window the plain float32 reference
-(``reference/uno2d.py``) follows those steps from the same weights on the
-same rows, and the run compares each step's loss, the first gradient as the
-optimizer took it (its first moment after one step over ``1 - beta1``) and
-each parameter's change over the steps, by the worst leaf's gap in norms,
-and the median leaf's gap in the change, which is steadier from seed to
-seed.  Leaves whose reference gradient is under a thousandth of the median
-leaf's (a bias just before an instance norm) move by rounding alone and are
-left out of the change.  Each number is measured in units of the same
+window.  After the window the family's plain float32 reference follows
+those steps from the same weights on the same rows, and the run compares
+each step's loss, the first gradient as the optimizer took it (its first
+moment after one step over ``1 - beta1``) and each parameter's change over
+the steps, by the worst leaf's gap in norms, and the median leaf's gap in
+the change, which is steadier from seed to seed.  Leaves whose reference
+gradient is under a thousandth of the median leaf's (a bias just before an
+instance norm) move by rounding alone and are left out of the change.  Each number is measured in units of the same
 number for the reference rounded to bf16 where the configuration's policy
 rounds (its own three steps): with random weights, how far rounding moves
 these numbers varies several times from seed to seed.
@@ -31,13 +33,16 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from benchmark import common, inputs, trace
-from benchmark.reference import uno2d
+from benchmark import common, inputs, plugins, trace
+
+TRAFFIC_KEYS = {"driver", "batch", "compared_steps", "warm_steps", "timing_steps", "trace_skip",
+                "trace_steps"}
+LIMIT_KEYS = {"loss_gap", "grad_gap", "change_gap", "change_median_gap"}
 
 
 def _train_config(ctx: common.Context):
@@ -54,28 +59,30 @@ class Program:
     """The program's trainer: its model, optimizer and step."""
 
     def __init__(self, ctx: common.Context, w: Dict[str, torch.Tensor], steps_per_epoch: int):
-        from uno_tpu_torch import losses
         from uno_tpu_torch.parallel import dp_value_and_grad, place_state
         from uno_tpu_torch.train.common import make_optimizer
 
+        task = plugins.task(ctx.cfg)
         model = common.program_model(ctx.cfg, w, ctx.device)
         place_state(ctx.dp, model)
         self.opt = make_optimizer(_train_config(ctx), steps_per_epoch, model.parameters())
-
-        def loss_fn(x, y):
-            # through the module, so that a planted fault reaches it
-            return losses.relative_lp_loss(model(x).reshape(y.shape), y, reduction="sum")
-
         self.model = model
-        self.value_and_grad = dp_value_and_grad(loss_fn, ctx.dp, model.parameters())
+        self.logged = getattr(task, "logged", None)
+        self.value_and_grad = dp_value_and_grad(task.program_loss(model, ctx.cfg), ctx.dp,
+                                                model.parameters(),
+                                                has_aux=self.logged is not None)
         self.beta1 = self.opt.param_groups[0]["betas"][0]
 
-    def step(self, x, y, cap=None) -> torch.Tensor:
+    def step(self, x, y, cap=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the step's loss, what it adds to the epoch's sum)."""
         self.opt.zero_grad(set_to_none=True)
-        loss, _ = self.value_and_grad(x, y)
+        out, _ = self.value_and_grad(x, y)
         with trace.span(cap, "optimizer", cap is not None):
             self.opt.step()
-        return loss
+        if self.logged is None:
+            return out, out
+        with torch.no_grad():
+            return out[0], self.logged(out[1], y)
 
     def grads_only(self, x, y) -> None:
         """A forward and backward that leaves the state as it was."""
@@ -99,18 +106,20 @@ class Control:
             raise ValueError("the control steps one process over its own rows: run it on "
                              "one chip, where its rows are the global batch")
         o = ctx.cfg["optimizer"]
-        self.model = ctx.cfg["model"]
+        self.cfg, self.ref = ctx.cfg, plugins.family(ctx.cfg)
+        self.loss = plugins.task(ctx.cfg).reference_loss
         self.p = {k: v.clone().requires_grad_() for k, v in w.items()}
-        self.adam = uno2d.Adam(self.p, uno2d.step_lr(o["lr"], o["scheduler_step_epochs"],
-                                                     o["scheduler_gamma"], steps_per_epoch),
-                               o["weight_decay"], tuple(o["betas"]), o["eps"])
+        self.adam = self.ref.Adam(self.p, self.ref.step_lr(o["lr"], o["scheduler_step_epochs"],
+                                                           o["scheduler_gamma"], steps_per_epoch),
+                                  o["weight_decay"], tuple(o["betas"]), o["eps"])
         self.beta1 = o["betas"][0]
 
-    def step(self, x, y, cap=None) -> torch.Tensor:
-        loss = uno2d.rel_l2_sum(uno2d.forward(self.model, self.p, x, uno2d.fp8_round), y)
+    def step(self, x, y, cap=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        loss = self.loss(self.cfg, self.p, x, y, self.ref.fp8_round)
         grads = torch.autograd.grad(loss, list(self.p.values()))
         self.adam.step(dict(zip(self.p, grads)))
-        return loss.detach()
+        loss = loss.detach()
+        return loss, loss
 
     def grads_only(self, x, y) -> None:
         pass
@@ -162,9 +171,9 @@ def _setup(ctx: common.Context):
     t = ctx.traffic
     ntrain = ctx.cfg["data"]["ntrain"]
     common.phase(ctx, "start")
-    x, y = inputs.darcy_pairs(ctx.cfg, inputs.generator(ctx.seed, "train", ctx.device),
+    x, y = inputs.train_split(ctx.cfg, inputs.generator(ctx.seed, "train", ctx.device),
                               ntrain, ctx.device)
-    w = inputs.weights(ctx.cfg["model"], ctx.seed, ctx.device)
+    w = inputs.weights(ctx.cfg, ctx.seed, ctx.device)
     common.phase(ctx, "split and weights")
     side = (Control if ctx.mode == "control" else Program)(ctx, w, _steps_per_epoch(ctx))
     common.phase(ctx, "trainer")
@@ -174,7 +183,7 @@ def _setup(ctx: common.Context):
     losses, mu1 = [], None
     for k in range(t["compared_steps"]):
         idx, _ = feed.next()
-        losses.append(side.step(x[idx], y[idx]))
+        losses.append(side.step(x[idx], y[idx])[0])
         if k == 0 and ctx.main:
             mu1 = common.host(side.first_moment())
     common.phase(ctx, "compared steps")
@@ -192,17 +201,18 @@ def _reference_steps(ctx: common.Context, readings: dict, quant=None):
     """The reference's steps from the first weights on the compared rows:
     (each step's loss, the first moment after one step, the first step's
     gradient, the weights after the last step)."""
-    o, model, b = ctx.cfg["optimizer"], ctx.cfg["model"], ctx.traffic["batch"]
+    o, b = ctx.cfg["optimizer"], ctx.traffic["batch"]
+    ref, task = plugins.family(ctx.cfg), plugins.task(ctx.cfg)
     dev = ctx.device
     p = {k: v.to(dev, copy=True).requires_grad_() for k, v in readings["w0"].items()}
-    adam = uno2d.Adam(p, uno2d.step_lr(o["lr"], o["scheduler_step_epochs"], o["scheduler_gamma"],
-                                       _steps_per_epoch(ctx)),
-                      o["weight_decay"], tuple(o["betas"]), o["eps"])
+    adam = ref.Adam(p, ref.step_lr(o["lr"], o["scheduler_step_epochs"], o["scheduler_gamma"],
+                                   _steps_per_epoch(ctx)),
+                    o["weight_decay"], tuple(o["betas"]), o["eps"])
     xs, ys = readings["rows"]
     losses, raw1, mu1 = [], None, None
     for k in range(len(readings["losses"])):
         xb, yb = xs[k * b : (k + 1) * b].to(dev), ys[k * b : (k + 1) * b].to(dev)
-        loss = uno2d.rel_l2_sum(uno2d.forward(model, p, xb, quant), yb)
+        loss = task.reference_loss(ctx.cfg, p, xb, yb, quant)
         grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
         adam.step(grads)
         losses.append(float(loss.detach()))
@@ -232,7 +242,7 @@ def _reference(ctx: common.Context, readings: dict) -> Dict[str, float]:
     numbers compared, each in units of the bf16 reference's."""
     keys = ("losses", "mu1", "raw1", "p_end")
     ref = dict(zip(keys, _reference_steps(ctx, readings)))
-    bf16 = dict(zip(keys, _reference_steps(ctx, readings, uno2d.bf16_round)))
+    bf16 = dict(zip(keys, _reference_steps(ctx, readings, plugins.family(ctx.cfg).bf16_round)))
     norms = {n: float(g.norm()) for n, g in ref["raw1"].items()}
     med = float(np.median(list(norms.values())))
     moved = [n for n in norms if norms[n] >= 1e-3 * med]
@@ -300,7 +310,7 @@ def run(ctx: common.Context) -> dict:
             common.sync(ctx.device)
             cap.start()
         idx, last = feed.next()
-        total += side.step(x[idx], y[idx], cap if cap and lo <= steps < hi else None)
+        total += side.step(x[idx], y[idx], cap if cap and lo <= steps < hi else None)[1]
         steps += 1
         samples += len(idx) * world
         if last:
