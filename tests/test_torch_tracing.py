@@ -3,12 +3,17 @@
 and calls nothing of torch; on, a Darcy step through ``dp_value_and_grad``
 and ``ComplexAdam`` (both forms) records ``grad`` around ``forward`` and
 ``backward``, then ``optimizer``, each on the main thread with its parent; a
-served forward records one ``forward``; ``export_forward`` exports with
+served forward records one ``forward``; a 3-D forward opens ``conv3d`` and
+``truncate3d`` once a block and ``skip_resize`` once a skip inside it, and
+``ops/spectral.py``'s ``TRANSFORMS_3D`` counts two r2c and two c2r a block
+and none more in the backward, where a Darcy step opens and counts none of
+them; ``export_forward`` exports with
 recording on as with it off, and its tracing records nothing.  The
 ``allreduce`` spans are checked in ``tests/test_torch_parallel.py``, the
 ``trace`` bridge in ``tests/test_torch_utils.py``."""
 
 import io
+from collections import Counter
 import threading
 import time
 import tracemalloc
@@ -19,6 +24,7 @@ import torch
 from uno_tpu_torch.export import export_forward
 from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.models import build_model
+from uno_tpu_torch.ops import spectral
 from uno_tpu_torch.optim import ComplexAdam
 from uno_tpu_torch.parallel import dp_value_and_grad
 from uno_tpu_torch.utils import annotate, profiling, start_recording, stop_recording
@@ -122,6 +128,29 @@ def test_an_inference_forward_records_one_forward(recording):
         model(_batch(1)[0])
     (span,) = recording().spans
     assert span[0] == "forward" and span[3] is None and span[4] == threading.get_ident()
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_the_3d_spans_and_transform_count_are_the_3d_paths(recording, dims):
+    """uno3d_t40 at width 2 on a 48x48 grid (its factory's modes need 6 cells
+    at the bottom block, 48 / 8), 10 frames, against uno9 at 85x85."""
+    if dims == 3:
+        model = build_model("uno3d_t40", width=2, generator=torch.Generator().manual_seed(3))
+        x = torch.randn(1, 48, 48, 10, 1, generator=torch.Generator().manual_seed(4))
+    else:
+        model, x = _model(), _batch(1)[0]
+    spectral.TRANSFORMS_3D.update(dict.fromkeys(spectral.TRANSFORMS_3D, 0))
+    out = model(x)
+    forward = dict(spectral.TRANSFORMS_3D)
+    out.square().sum().backward()
+    rec = recording()
+    blocks = model.spec.blocks if dims == 3 else ()
+    n, skips = len(blocks), sum(b.skip is not None for b in blocks)
+    names = Counter(s[0] for s in rec.spans)
+    assert names == Counter(forward=1, conv3d=n, truncate3d=n, skip_resize=skips) + Counter()
+    top = [i for i, s in enumerate(rec.spans) if s[0] == "forward"]
+    assert all(s[3] == top[0] for s in rec.spans if s[0] != "forward")
+    assert forward == spectral.TRANSFORMS_3D == {"r2c": 2 * n, "c2r": 2 * n}
 
 
 def test_export_with_recording_on_exports_as_off():

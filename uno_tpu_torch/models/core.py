@@ -282,8 +282,10 @@ class UNOModel(nn.Module):
                     src = torch.cat(src, dim=1)
                 if spec.ndim == 3:
                     src_grid = Fraction(1) if blk.skip == LIFT else spec.blocks[blk.skip].grid[0]
-                    src = resize(src, (n_cur, *cur.shape[3:]), (2, 3, 4), "linear", True, False,
-                                 None if split is None else split.split(_scale(base[0], src_grid)))
+                    with annotate("skip_resize"):
+                        src = resize(src, (n_cur, *cur.shape[3:]), (2, 3, 4), "linear", True,
+                                     False, None if split is None
+                                     else split.split(_scale(base[0], src_grid)))
                 cur = [cur, src] if fuse or i == last else torch.cat([cur, src], dim=1)
             outs.append(cur)
 

@@ -38,6 +38,9 @@ block only); every rank contracts the same block (through the CUDA kernel
 on the FFT path) and inverts the split axis for its own output rows only,
 with no collective.  The backward is autograd's through those stages, the
 all-reduce's being an all-reduce.
+
+The 3-D ops are spans (``conv3d``, ``truncate3d``; ``utils/profiling.py``),
+and ``TRANSFORMS_3D`` counts the 3-D transforms of their FFT path by kind.
 """
 
 from __future__ import annotations
@@ -54,12 +57,24 @@ from torch.autograd.function import once_differentiable
 from uno_tpu_torch.ops import dft
 from uno_tpu_torch.ops.kernels.cmul import cmul
 from uno_tpu_torch.parallel.spatial import Split, psum
+from uno_tpu_torch.utils.profiling import annotate
 
 # Transform policy: None = the environment decides (UNO_TPU_TORCH_DFT=1 turns
 # the partial-DFT path on, anything else leaves the FFT path), True/False =
 # forced.  uno_tpu picks the DFT path on the TPU; the port keeps the FFT path
 # until the H100 bench picks one.
 _DFT_MODE = None
+
+# the 3-D transforms the FFT path has issued since the count was last set to
+# 0, by kind: each r2c and c2r of ``spectral_conv_3d`` and
+# ``fourier_truncate_3d`` (their backward is autograd's, one adjoint each)
+TRANSFORMS_3D = {"r2c": 0, "c2r": 0}
+
+
+def _counted_3d(t: torch.Tensor, kind: str) -> torch.Tensor:
+    """``t``, the output of a 3-D transform of ``kind``, counted."""
+    TRANSFORMS_3D[kind] += 1
+    return t
 
 
 def set_dft_mode(enabled) -> None:
@@ -320,6 +335,7 @@ def spectral_conv_1d(x: torch.Tensor, weights: torch.Tensor, out_size: int,
     return _irfftn(torch.cat([out, tail], dim=-1), (d1,), (-1,), m1, "forward")
 
 
+@annotate("conv3d")
 def spectral_conv_3d(
     x: torch.Tensor,
     weights: torch.Tensor,
@@ -350,7 +366,7 @@ def spectral_conv_3d(
         return _split_conv_3d(x, w, (d1, d2, d3), (m1, m2, m3), split)
     if _dft_enabled():
         return _DFTConv3d.apply(x, w, (d1, d2, d3), (m1, m2, m3))
-    x_ft = torch.fft.rfftn(_f32(x), dim=(-3, -2, -1), norm="forward")
+    x_ft = _counted_3d(torch.fft.rfftn(_f32(x), dim=(-3, -2, -1), norm="forward"), "r2c")
     # the four corners as one (B, Ci, 2*m1, 2*m2, m3) block laid out
     # [[(+,+), (+,-)], [(-,+), (-,-)]], so one contraction covers all
     lo_x = torch.cat([x_ft[:, :, :m1, :m2, :m3], x_ft[:, :, :m1, sy - m2 :, :m3]], dim=3)
@@ -369,7 +385,7 @@ def spectral_conv_3d(
     out_ft[:, :, :n_x, d2 - m2 :, :m3] = out[:, :, :n_x, m2:]
     out_ft[:, :, d1 - m1 :, :n_y, :m3] = out[:, :, m1:, :n_y]
     out_ft[:, :, d1 - m1 :, d2 - m2 :, :m3] = out[:, :, m1:, m2:]
-    return _irfftn(out_ft, (d1, d2, d3), (-3, -2, -1), m3, "forward")
+    return _counted_3d(_irfftn(out_ft, (d1, d2, d3), (-3, -2, -1), m3, "forward"), "c2r")
 
 
 def _build_truncate_mask(sx: int, sy: int, st: int, m1: int, m2: int, m3: int, device):
@@ -395,6 +411,7 @@ def _truncate_mask(*args):
     return build(*args)
 
 
+@annotate("truncate3d")
 def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int],
                         split: Optional[Split] = None) -> torch.Tensor:
     """Low-pass the spectrum as the reference's 3-D pointwise op does.  x:
@@ -417,11 +434,11 @@ def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int],
         return _split_truncate_3d(x, (d1, d2, d3), split)
     if _dft_enabled():
         return _DFTTruncate3d.apply(x, (d1, d2, d3))
-    ft = torch.fft.rfftn(_f32(x), dim=(-3, -2, -1))
+    ft = _counted_3d(torch.fft.rfftn(_f32(x), dim=(-3, -2, -1)), "r2c")
     mask = _truncate_mask(*ft.shape[-3:], d1 // 2, d2 // 2, d3 // 2, ft.device)
     # the mask keeps the time bins below d3 // 2: the Nyquist bin is 0
-    return _irfftn(_fit(ft * mask, (d1, d2, d3 // 2 + 1)), (d1, d2, d3), (-3, -2, -1), d3 // 2,
-                   "backward")
+    return _counted_3d(_irfftn(_fit(ft * mask, (d1, d2, d3 // 2 + 1)), (d1, d2, d3),
+                               (-3, -2, -1), d3 // 2, "backward"), "c2r")
 
 
 # --- the partial-DFT path -----------------------------------------------------
