@@ -82,12 +82,18 @@ the trainers).
    (``[ns-cuda-vs-cpu]``);
 11. NS-3D: the three contractions at uno3d_t40's seven shapes, batch 16
    (``[kernels ns3d]``; the head is not on this path: a 3-D model projects
-   through the unfused f32 Dense pair); ``cli predict --preset ns3d_t40``
-   over 8 batches of 16 input windows, warm and measured, 7 contraction
-   and no head launches per batch (``[ns3d-predict]``); ``cli train
+   through the unfused f32 Dense pair) and the spectrum remap kernel at each
+   of the 42 remaps of one f32 uno3d_t40 training step at batch 16, bit for
+   bit against its plain version, timed as the kernels above against its
+   bytes (its plain version is no single PyTorch call; the same at
+   uno3d_t40_256's 54, batch 4, 256x256, in ``[kernels ns3d-t40-256]``);
+   ``cli predict --preset ns3d_t40``
+   over 8 batches of 16 input windows, warm and measured, 7 contraction,
+   21 remap and no head launches per batch (``[ns3d-predict]``); ``cli train
    --preset ns3d_t40 --generate`` of a 32/4/4 split for 3 epochs of 2
-   steps, validation on epochs 0 and 2, 7 / 7 / 7 contractions per step
-   and 7 per evaluation batch, no head launch (``[ns3d-train]``: warm ms
+   steps, validation on epochs 0 and 2, 7 / 7 / 7 contractions and 42
+   remaps per step and 7 and 21 per evaluation batch, no head launch
+   (``[ns3d-train]``: warm ms
    per step, peak device memory); uno3d_t40 at width 4, 2 samples at
    64x64, on the card and the CPU with the same weights: the output, the
    loss and every gradient (``[ns3d-cuda-vs-cpu]``).
@@ -208,7 +214,9 @@ the same keys under ``ns2d``, ``ns3d``, ``s421``, ``superres``, ``1d``,
 ``ns3d_t9``, ``s256``, ``uno_p``, ``uno_demo``, ``ns3d_t40_256``,
 ``ns3d_t20_256``, ``ns3d_t10_256``, ``ns3d_t9_256`` and ``fused_skips``,
 the contractions of one f32 darcy_s211 step with the skips as pieces;
-``adam_step``, the Adam kernel, is timed at uno9's parameters only);
+``adam_step``, the Adam kernel, is timed at uno9's parameters only;
+``remap``, the spectrum remap, at ``ns3d`` and ``ns3d_t40_256`` only, and
+its launches a path on every path);
 the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits 1 and prints no result.
 
@@ -249,6 +257,7 @@ from uno_tpu_torch.ops.kernels import _build
 from uno_tpu_torch.ops.kernels import adam as adam_k
 from uno_tpu_torch.ops.kernels import cmul as cmul_k
 from uno_tpu_torch.ops.kernels import mlp_head as head_k
+from uno_tpu_torch.ops.kernels import remap as remap_k
 from uno_tpu_torch.ops.spectral import (
     fourier_truncate_3d,
     set_dft_mode,
@@ -291,6 +300,7 @@ NS3D_PRESET = "ns3d_t40"  # uno3d_t40, width 8, pad 3, T_in 10, T_f 40, batch 16
 NS3D_PREDICT = 8 * BATCH  # the ns3d-predict phase's test split: 8 batches of 16 windows
 NS3D_SPLIT = (32, 4, 4)  # the ns3d-train phase's generated split: 2 steps per epoch
 NS3D_CHECK_WIDTH = 4  # ns3d-cuda-vs-cpu: uno3d_t40 at width 4, 2 samples
+NS3D_REMAPS = 3 * 7  # remaps of a uno3d_t40 forward, and of its backward: 2 a conv, 1 a truncation
 # (B, Ci, Co, M = 2*m1 * 2*m2 * m3) of uno3d_t40's seven spectral contractions at ns3d_t40
 NS3D_CMUL_SHAPES = [(16, 8, 16, 6400), (16, 16, 32, 3136), (16, 32, 64, 576),
                     (16, 64, 128, 1008), (16, 128, 32, 1008), (16, 64, 16, 7840),
@@ -339,6 +349,8 @@ KERNELS = {  # name -> (wrapper module, count key, source, the TPU kernel it rep
     "mlp_head_bwd": (head_k, "bwd", "uno_tpu_torch/csrc/mlp_head.cu",
                      "uno_tpu/ops/pallas/mlp_head.py:123"),
     "adam_step": (adam_k, "step", "uno_tpu_torch/csrc/adam.cu", None),  # optax, fused by XLA
+    # XLA fuses uno_tpu's slicing and padding of the spectra
+    "remap": (remap_k, "remap", "uno_tpu_torch/csrc/spectrum.cu", None),
 }
 REPS = 20
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
@@ -499,6 +511,59 @@ def phase_kernels(dev, cmul_shapes=CMUL_SHAPES, head_shape=HEAD_SHAPE,
     return res
 
 
+def phase_remap(dev, name: str, kw: dict, batch: int, size: int, t_in: int, t_f: int,
+                tag: str) -> dict:
+    """The remap kernel at every remap of one f32 training step of ``name``
+    (the forward and the backward, at the path's shapes), each launch
+    against the plain version on the card: the same bits, times in turns,
+    the bound (the destination written and the source elements its maps
+    read, each once, at the card's memory rate); summed over the step."""
+    calls, launch = [], remap_k.remap
+
+    def spy(src, p):
+        calls.append((src, p))
+        return launch(src, p)
+
+    model = build_model(name, device=dev, generator=torch.Generator().manual_seed(0), **kw)
+    g = torch.Generator().manual_seed(1)
+    xx = torch.randn((batch, size, size, t_in), generator=g).to(dev)
+    yy = torch.randn((batch, size, size, t_f), generator=g).to(dev)
+    remap_k.remap = spy
+    try:
+        relative_lp_loss(forecast(model, xx, t_f), yy).backward()
+    finally:
+        remap_k.remap = launch
+    del model, xx, yy
+    flush = torch.ones(256 * 2**20, dtype=torch.uint8, device=dev)  # 5x the 50 MB L2
+    res = {}
+    for src, p in calls:
+        tables = p.tables(src.device)
+        got, again = launch(src, p), launch(src, p)
+        want = remap_k.remap_plain(src, *tables, p.shape)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"[{tag}] remap {tuple(src.shape)} -> {p.shape}: the kernel "
+                                 f"differs from the plain version by "
+                                 f"{float((got - want).abs().max())}, or between two runs")
+        km, pm = _turns(lambda: launch(src, p),
+                        lambda: remap_k.remap_plain(src, *tables, p.shape), flush)
+        d1, d2, d3 = p.shape
+        axes = (p.tab[: 2 * d1], p.tab[2 * d1 : 2 * d1 + 2 * d2],
+                p.tab[2 * d1 + 2 * d2 : 2 * d1 + 2 * d2 + d3])
+        read = math.prod(len({v for v in a if v >= 0}) for a in axes)
+        _add(res, "remap", 0.0, km, pm, _bound(8 * (got.numel() + src.shape[0] * src.shape[1]
+                                                  * read), 0.0), None)
+        del got, again, want
+    r = res["remap"]
+    print(f"[{tag}] remap: {len(calls)} launches of a {name} f32 b{batch} training step, each "
+          f"equal bit for bit to the plain version and to itself; kernel {r['ms']:.4f} ms  "
+          f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms (bytes, summed)")
+    r.pop("flops_ms")
+    r.pop("bytes_ms")
+    r["bound_by"] = "bytes"
+    return r
+
+
 def _head_cases(dev, head_shape, g, flush, res, tag: str, forward_only: bool = False) -> None:
     """The head's forward and backward kernels (the forward alone when
     ``forward_only``) at one shape: errors, bits, times, bounds."""
@@ -609,7 +674,8 @@ def phase_predict(tmp: str, tag: str = "predict", dft: bool = False) -> list:
         raise AssertionError(f"predict ran with {report}")
     if (batches != NPREDICT // BATCH or launches["cmul_fwd"] != (0 if dft else 5 * batches)
             or launches["mlp_head_fwd"] != batches or launches["cmul_bwd_x"]
-            or launches["cmul_bwd_w"] or launches["mlp_head_bwd"] or launches["adam_step"]):
+            or launches["cmul_bwd_w"] or launches["mlp_head_bwd"] or launches["adam_step"]
+            or launches["remap"]):
         raise AssertionError(f"predict kernel launches {launches} over {batches} batches")
     print(f"[{tag}] {PRESET} uno9 bf16 b{BATCH} {report['spectral']} path: {batches} warm "
           f"batches, ms per batch {_spread(ms)} ({[round(v, 3) for v in ms]}; first run "
@@ -642,8 +708,9 @@ def phase_train(tmp: str, dev, tag: str = "train", dft: bool = False) -> tuple:
     evals = EPOCHS * -(-NVAL // BATCH) + -(-NTEST // BATCH)  # forward-only batches
     want = {"cmul_fwd": 5 * (steps + evals), "cmul_bwd_x": 5 * steps,
             "cmul_bwd_w": 5 * steps, "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps,
-            "adam_step": steps * _adam_per_step("uno9", **get_preset(PRESET).model_kwargs)}
-    exact = ("mlp_head_fwd", "mlp_head_bwd", "adam_step")
+            "adam_step": steps * _adam_per_step("uno9", **get_preset(PRESET).model_kwargs),
+            "remap": 0}
+    exact = ("mlp_head_fwd", "mlp_head_bwd", "adam_step", "remap")
     if dft:  # the DFT path contracts with an einsum: no contraction kernel
         want.update(cmul_fwd=0, cmul_bwd_x=0, cmul_bwd_w=0)
         exact = tuple(want)
@@ -903,7 +970,7 @@ def phase_ns_train(tmp: str, dev, tag: str = "ns-train") -> tuple:
     want = {"cmul_fwd": 7 * t_f * (2 * steps + evals), "cmul_bwd_x": 7 * t_f * steps,
             "cmul_bwd_w": 7 * t_f * steps, "mlp_head_fwd": t_f * (2 * steps + evals),
             "mlp_head_bwd": t_f * steps, "adam_step": steps * _adam_per_step(
-                get_preset(NS_PRESET).model, **get_preset(NS_PRESET).model_kwargs)}
+                get_preset(NS_PRESET).model, **get_preset(NS_PRESET).model_kwargs), "remap": 0}
     if launches != want:
         raise AssertionError(f"{tag} kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
@@ -967,6 +1034,7 @@ def phase_ns3d_predict(tmp: str, tag: str = "ns3d-predict", dft: bool = False) -
     if report["spectral"] != ("dft" if dft else "fft") or report["dtype"] != "bfloat16":
         raise AssertionError(f"{tag} ran with {report}")
     if (batches != NS3D_PREDICT // BATCH or launches["cmul_fwd"] != (0 if dft else 7 * batches)
+            or launches["remap"] != (0 if dft else NS3D_REMAPS * batches)
             or launches["mlp_head_fwd"] or launches["mlp_head_bwd"]
             or launches["cmul_bwd_x"] or launches["cmul_bwd_w"]):
         raise AssertionError(f"{tag} kernel launches {launches} over {batches} batches")
@@ -1012,9 +1080,10 @@ def phase_ns3d_train(tmp: str, dev, tag: str = "ns3d-train", dft: bool = False) 
     preset = get_preset(NS3D_PRESET)
     want = {"cmul_fwd": 7 * (steps + evals), "cmul_bwd_x": 7 * steps,
             "cmul_bwd_w": 7 * steps, "mlp_head_fwd": 0, "mlp_head_bwd": 0,
-            "adam_step": steps * _adam_per_step(preset.model, **preset.model_kwargs)}
-    if dft:  # the DFT path contracts with an einsum: no contraction kernel
-        want.update(cmul_fwd=0, cmul_bwd_x=0, cmul_bwd_w=0)
+            "adam_step": steps * _adam_per_step(preset.model, **preset.model_kwargs),
+            "remap": NS3D_REMAPS * (2 * steps + evals)}
+    if dft:  # the DFT path contracts with an einsum and slices no spectrum: no kernel
+        want.update(cmul_fwd=0, cmul_bwd_x=0, cmul_bwd_w=0, remap=0)
     if launches != want:
         raise AssertionError(f"{tag} kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
@@ -1091,7 +1160,7 @@ def phase_s421_train(mat: str, dev) -> tuple:
     preset = get_preset(S421_PRESET)
     want = {"cmul_fwd": 7 * (steps + evals), "cmul_bwd_x": 7 * steps, "cmul_bwd_w": 7 * steps,
             "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps,
-            "adam_step": steps * _adam_per_step(preset.model, **preset.model_kwargs)}
+            "adam_step": steps * _adam_per_step(preset.model, **preset.model_kwargs), "remap": 0}
     if launches != want:
         raise AssertionError(f"s421-train kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
@@ -1162,7 +1231,7 @@ def phase_superres(tmp: str, dev, mat: str) -> dict:
     res = evaluate_superres(model, x_lo, y_lo, x_hi, y_hi, batch_size=SR_BATCH)
     launches = _launches()
     want = {"cmul_fwd": 2 * 5, "cmul_bwd_x": 0, "cmul_bwd_w": 0, "mlp_head_fwd": 2,
-            "mlp_head_bwd": 0, "adam_step": 0}
+            "mlp_head_bwd": 0, "adam_step": 0, "remap": 0}
     if not all(np.isfinite(v) for v in res.values()) or launches != want:
         raise AssertionError(f"superres: {res}, launches {launches}, expected {want}")
     print(f"[superres] {PRESET} uno9 bf16 trained {SR_EPOCHS} epochs on ::2 of the s421 file "
@@ -1340,7 +1409,8 @@ def _darcy_want(steps: int, evals: int, heads: bool) -> dict:
     h = int(heads)
     return {"cmul_fwd": 5 * (steps + evals), "cmul_bwd_x": 5 * steps, "cmul_bwd_w": 5 * steps,
             "mlp_head_fwd": h * (steps + evals), "mlp_head_bwd": h * steps,
-            "adam_step": steps * _adam_per_step("uno9", **get_preset(PRESET).model_kwargs)}
+            "adam_step": steps * _adam_per_step("uno9", **get_preset(PRESET).model_kwargs),
+            "remap": 0}
 
 
 def phase_dp_nccl(tmp: str) -> dict:
@@ -1581,7 +1651,7 @@ def phase_dp(tmp: str, dev) -> tuple:
     # val and test splits of 4 under the batch of 16 evaluate nothing (0.0, as
     # under uno_tpu's mesh); the bf16 step loss within rel 5e-2 of one process
     launches["dp_ns3d"] = _check_mesh_run(
-        "dp-ns3d", "ns3d", ranks, ref["ns3d"], ns_want,
+        "dp-ns3d", "ns3d", ranks, ref["ns3d"], dict(ns_want, remap=2 * NS3D_REMAPS * ns_steps),
         _shapes(DP_NS3D_CMUL_SHAPES, ns_steps, ns_steps), (DP_NS3D_REL, None))
     launches["tp"] = _check_mesh_run(
         "tp", "tp", ranks, ref["darcy"], darcy_want,
@@ -1590,8 +1660,9 @@ def phase_dp(tmp: str, dev) -> tuple:
     launches["spatial"] = _check_mesh_run(
         "spatial", "spatial", ranks, ref["darcy"], darcy_want,
         _shapes(CMUL_SHAPES, steps + evals, steps), (DP_TRAIN_REL, DP_WEIGHT_REL))
+    # the split path transforms the split axis by a partial DFT: no remap
     launches["spatial_ns3d"] = _check_mesh_run(
-        "spatial-ns3d", "spatial_ns3d", ranks, ref["ns3d"], ns_want,
+        "spatial-ns3d", "spatial_ns3d", ranks, ref["ns3d"], dict(ns_want, remap=0),
         _shapes(NS3D_CMUL_SHAPES, ns_steps, ns_steps), (DP_NS3D_REL, None))
     return launches
 
@@ -1661,7 +1732,7 @@ def phase_head_switch(tmp: str) -> None:
     batches = len(report["batch_ms"])
     rel = float(np.linalg.norm(unfused - kernel) / np.linalg.norm(kernel))
     want = {"cmul_fwd": 5 * batches, "cmul_bwd_x": 0, "cmul_bwd_w": 0, "mlp_head_fwd": 0,
-            "mlp_head_bwd": 0, "adam_step": 0}
+            "mlp_head_bwd": 0, "adam_step": 0, "remap": 0}
     if report["fused_head"] or launches != want or not rel <= HEAD_REL:
         raise AssertionError(f"[head-switch]: fused_head {report['fused_head']}, launches "
                              f"{launches} (expected {want}), rel-L2 {rel} (bound {HEAD_REL})")
@@ -1676,7 +1747,7 @@ import json, sys, time
 import numpy as np
 import torch
 from uno_tpu_torch.export import load_forward
-from uno_tpu_torch.ops.kernels import adam, cmul, mlp_head
+from uno_tpu_torch.ops.kernels import adam, cmul, mlp_head, remap
 
 path, xs_path, out_path, batch = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
 fn = load_forward(path)
@@ -1688,7 +1759,7 @@ xs = np.load(xs_path)
 dev = torch.device("cuda", 0)
 with torch.inference_mode():
     fn(torch.from_numpy(xs[:batch]).to(dev)).cpu()  # warm: cuFFT plans, allocator
-    for counts in (cmul.LAUNCHES, mlp_head.LAUNCHES, adam.LAUNCHES):
+    for counts in (cmul.LAUNCHES, mlp_head.LAUNCHES, adam.LAUNCHES, remap.LAUNCHES):
         for k in counts:
             counts[k] = 0
     ms, outs = [], []
@@ -1703,9 +1774,10 @@ mods = sorted(m for m in sys.modules if m.startswith((
 print(json.dumps({"ms": ms, "nodes": nodes, "modules": mods, "launches": {
     **{"cmul_" + k: v for k, v in cmul.LAUNCHES.items()},
     **{"mlp_head_" + k: v for k, v in mlp_head.LAUNCHES.items()},
-    **{"adam_" + k: v for k, v in adam.LAUNCHES.items()}}}))
+    **{"adam_" + k: v for k, v in adam.LAUNCHES.items()}, **remap.LAUNCHES}}))
 """
 CONTRACT_OP, HEAD_OP = "uno_tpu_torch.contract.default", "uno_tpu_torch.mlp_head_fwd.default"
+REMAP_OP = "uno_tpu_torch.remap.default"
 
 
 def phase_export(tmp: str, dev) -> dict:
@@ -1744,7 +1816,7 @@ def phase_export(tmp: str, dev) -> dict:
     batches = len(xs) // BATCH
     launches = served["launches"]
     want = {"cmul_fwd": 5 * batches, "cmul_bwd_x": 0, "cmul_bwd_w": 0,
-            "mlp_head_fwd": batches, "mlp_head_bwd": 0, "adam_step": 0}
+            "mlp_head_fwd": batches, "mlp_head_bwd": 0, "adam_step": 0, "remap": 0}
     if (rel > EXPORT_REL or served["nodes"] != {CONTRACT_OP: 5, HEAD_OP: 1}
             or launches != want or served["modules"] or len(served["ms"]) != batches):
         raise AssertionError(f"export: rel-L2 {rel} (bound {EXPORT_REL}), nodes "
@@ -1759,8 +1831,11 @@ def phase_export(tmp: str, dev) -> dict:
           f"eager {_spread(eager_ms)}")
 
     g = torch.Generator().manual_seed(12)
-    for name, shape, nodes in ((NS3D_PRESET, (BATCH, NS_S, NS_S, 10, 1), {CONTRACT_OP: 7}),
-                               (NS_PRESET, (BATCH, NS_S, NS_S, 10), {CONTRACT_OP: 7, HEAD_OP: 1})):
+    # (preset, input, custom-op nodes, remap launches of the served and the eager forward)
+    for name, shape, nodes, remaps in (
+            (NS3D_PRESET, (BATCH, NS_S, NS_S, 10, 1), {CONTRACT_OP: 7, REMAP_OP: NS3D_REMAPS},
+             2 * NS3D_REMAPS),
+            (NS_PRESET, (BATCH, NS_S, NS_S, 10), {CONTRACT_OP: 7, HEAD_OP: 1}, 0)):
         p = get_preset(name)
         model = build_model(p.model, dtype="bfloat16", device=dev,
                             generator=torch.Generator().manual_seed(0), **p.model_kwargs).eval()
@@ -1774,7 +1849,8 @@ def phase_export(tmp: str, dev) -> dict:
             got, want_y = fn(x), model(x)
         moved = {k: v - c0[k] for k, v in _launches().items()}
         rel = _rel(got, want_y)
-        if rel > EXPORT_NS_REL or dict(found) != nodes or moved["cmul_fwd"] != 14:
+        if (rel > EXPORT_NS_REL or dict(found) != nodes or moved["cmul_fwd"] != 14
+                or moved["remap"] != remaps):
             raise AssertionError(f"export {name}: rel-L2 {rel} (bound {EXPORT_NS_REL}), nodes "
                                  f"{dict(found)}, launches {moved}")
         print(f"[export] {name} {p.model} bf16 forward {tuple(shape)}: {len(data) / 1e6:.1f} MB, "
@@ -1893,14 +1969,16 @@ def _variant_shapes(name: str, batch: int, **kw) -> tuple:
 
 
 def _want(nb: int, steps: int, evals: int, head: bool, fwd_step: int = 1, fwd_eval: int = 1,
-          bwd_step: int = 1, adam: int = 0) -> dict:
+          bwd_step: int = 1, adam: int = 0, remap: int = 0) -> dict:
     """Launches of ``nb`` contractions a forward over ``steps`` training steps
     (``fwd_step`` forwards, ``bwd_step`` backwards and ``adam`` Adam kernels
     each) and ``evals`` forward-only batches (``fwd_eval`` forwards each),
-    the fused head's too where ``head``."""
+    the fused head's too where ``head``, ``remap`` remaps a forward and a
+    backward."""
     f, b, h = fwd_step * steps + fwd_eval * evals, bwd_step * steps, int(head)
     return {"cmul_fwd": nb * f, "cmul_bwd_x": nb * b, "cmul_bwd_w": nb * b,
-            "mlp_head_fwd": h * f, "mlp_head_bwd": h * b, "adam_step": adam * steps}
+            "mlp_head_fwd": h * f, "mlp_head_bwd": h * b, "adam_step": adam * steps,
+            "remap": remap * (f + b)}
 
 
 def _rollout_counts(t_f: int) -> dict:
@@ -1959,7 +2037,7 @@ def _trainer(model, trainer, data, cfg, **kw):
 
 
 def _check_train(tag: str, what: str, run: tuple, shapes: list, head: bool, batch: int,
-                 nval: int, ntest: int, adam: int, t_f: int = None) -> list:
+                 nval: int, ntest: int, adam: int, t_f: int = None, remap: int = 0) -> list:
     """A training run of ``_train_run``: EPOCHS epochs, every logged rel-L2
     finite, the train loss falling, each kernel's launches from the steps and
     evaluation batches (``adam`` Adam kernels a step; ``t_f``: a rollout), the
@@ -1978,7 +2056,7 @@ def _check_train(tag: str, what: str, run: tuple, shapes: list, head: bool, batc
         raise AssertionError(f"[{tag}]: loss did not fall: {[r[key] for r in epochs]}")
     steps = epochs[-1]["step"]
     evals = len(validated) * -(-nval // batch) + -(-ntest // batch)  # forward-only batches
-    want = _want(len(shapes), steps, evals, head, adam=adam,
+    want = _want(len(shapes), steps, evals, head, adam=adam, remap=remap,
                  **(_rollout_counts(t_f) if t_f else {}))
     want_shapes = {(use, *sh) for sh in shapes for use in ("cmul_fwd", "cmul_bwd_x",
                                                             "cmul_bwd_w")}
@@ -2000,7 +2078,7 @@ def _check_train(tag: str, what: str, run: tuple, shapes: list, head: bool, batc
 
 
 def _cli_predict(tag: str, argv: list, out: str, pred_shape: tuple, nb: int, head: bool,
-                 per_batch: int = 1) -> list:
+                 per_batch: int = 1, remap: int = 0) -> list:
     """``cli predict`` once to warm up and once measured, the counts set to 0
     between: the output, the launches (``per_batch`` forwards a batch), the
     ms per batch host to host."""
@@ -2010,7 +2088,7 @@ def _cli_predict(tag: str, argv: list, out: str, pred_shape: tuple, nb: int, hea
     launches = _launches()
     ms = report["batch_ms"]
     pred = np.load(out)["pred"]
-    want = _want(nb, 0, len(ms), head, fwd_eval=per_batch)
+    want = _want(nb, 0, len(ms), head, fwd_eval=per_batch, remap=remap)
     if (pred.shape != pred_shape or not np.isfinite(pred).all() or launches != want
             or report["spectral"] != "fft" or report["dtype"] != "bfloat16"):
         raise AssertionError(f"[{tag}]: pred {pred.shape} (expected {pred_shape}), finite "
@@ -2024,7 +2102,7 @@ def _cli_predict(tag: str, argv: list, out: str, pred_shape: tuple, nb: int, hea
 
 
 def _serve(tag: str, what: str, dev, fwd, xs: np.ndarray, batch: int, out_shape: tuple,
-           nb: int, head: bool, per_batch: int = 1) -> list:
+           nb: int, head: bool, per_batch: int = 1, remap: int = 0) -> list:
     """The serving forward under ``inference_mode``: one batch to warm up,
     then ``len(xs) // batch`` batches host to host, the counts set to 0
     between; checks each output and the launches."""
@@ -2038,7 +2116,7 @@ def _serve(tag: str, what: str, dev, fwd, xs: np.ndarray, batch: int, out_shape:
             y = fwd(torch.from_numpy(xs[i * batch : (i + 1) * batch]).to(dev)).cpu()
             ms.append((time.perf_counter() - t0) * 1e3)
             finite &= bool(torch.isfinite(y).all()) and tuple(y.shape) == (batch, *out_shape)
-    launches, want = _launches(), _want(nb, 0, n, head, fwd_eval=per_batch)
+    launches, want = _launches(), _want(nb, 0, n, head, fwd_eval=per_batch, remap=remap)
     if not finite or launches != want:
         raise AssertionError(f"[{tag}]: outputs finite and {(batch, *out_shape)}: {finite}; "
                              f"launches {launches}, expected {want}")
@@ -2074,7 +2152,7 @@ def _card_vs_cpu(tag: str, dev, name: str, kw: dict, x, y, fwd, loss, head: bool
                 for p in model.parameters()])))
         moved = {k: v - c0[k] for k, v in _launches().items()}
         want = _want(nb, 1, 1, head and dtype == "bfloat16", fwd_step=2 * reps if t_f else 1,
-                     fwd_eval=reps, bwd_step=reps)
+                     fwd_eval=reps, bwd_step=reps, remap=3 * nb * (spec.ndim == 3))
         ro, rl, rg = (_rel(g, w) for g, w in zip(res[1], res[0]))
         if not (torch.isfinite(res[1][0]).all() and torch.isfinite(res[1][2]).all()
                 and ro <= E2E_REL[dtype] and max(rl, rg) <= GRAD_REL[dtype] and moved == want):
@@ -2152,14 +2230,15 @@ def phase_ns3d_siblings(tmp: str, dev) -> dict:
         _check_train(f"{tag}-train", f"{name} {preset.model} bf16 b{BATCH} T_in={preset.t_in} "
                      f"-> T_f={preset.t_f}, --data of {NS3D_MAT_N} generated trajectories",
                      run, shapes, False, BATCH, nval, ntest,
-                     _adam_per_step(preset.model, **preset.model_kwargs))
+                     _adam_per_step(preset.model, **preset.model_kwargs), remap=3 * len(shapes))
         data, pred = os.path.join(tmp, f"{name}.npz"), os.path.join(tmp, f"{name}_preds.npz")
         _write_ns3d_split(data, np.random.default_rng(14), NS3D_SIB_PREDICT, name)
         _cli_predict(f"{tag}-predict", [
             "predict", "--preset", name, "--dtype", "bfloat16", "--init-seed", "0",
             "--data-cache", data, "--ntrain", "0", "--nval", "0", "--ntest",
             str(NS3D_SIB_PREDICT), "--split", "test", "--out", pred, "--device", "cuda"],
-            pred, (NS3D_SIB_PREDICT, NS_S, NS_S, preset.t_f), len(shapes), False)
+            pred, (NS3D_SIB_PREDICT, NS_S, NS_S, preset.t_f), len(shapes), False,
+            remap=3 * len(shapes))
         out[name] = run[1]
     return out
 
@@ -2257,11 +2336,11 @@ def phase_ns3d_256(dev) -> dict:
         _check_train(f"{tag}-train", f"{name} width {NS3D_256_KW['width']} bf16 b{bs} {s}x{s} "
                      f"T_in={t_in} -> T_f={t_f}, train_ns3d on a synthetic split", run, shapes,
                      False, bs, NS3D_256_SPLIT[1], NS3D_256_SPLIT[2],
-                     _adam_per_step(name, **NS3D_256_KW))
+                     _adam_per_step(name, **NS3D_256_KW), remap=3 * len(shapes))
         model.eval()
         _serve(f"{tag}-predict", f"{name} bf16 forecast", dev,
                lambda x: forecast(model, x, t_f), a[n:], bs, (s, s, t_f),
-               len(shapes), False)
+               len(shapes), False, remap=3 * len(shapes))
         out[name] = run[1]
         del model, run, split, a, u
     return out
@@ -2434,7 +2513,7 @@ def _time_forms(dev, case: dict, steps: int, serves: int) -> dict:
     nb, reps = case["nb"], case["rollout"]
     want = {"cmul_fwd": nb * reps * (2 if reps > 1 else 1), "cmul_bwd_x": nb * reps,
             "cmul_bwd_w": nb * reps, "mlp_head_fwd": 0, "mlp_head_bwd": 0,
-            "adam_step": case["adam"]}
+            "adam_step": case["adam"], "remap": 0}
     for form, r in res.items():
         if r["launches"] != want:
             raise AssertionError(f"[fused-skips] {case['what']} {form}: kernel launches a step "
@@ -2664,6 +2743,9 @@ def main() -> int:
     times = phase_kernels(dev)
     ns_times = phase_kernels(dev, NS_CMUL_SHAPES, NS_HEAD_SHAPE, "kernels ns2d")
     ns3d_times = phase_kernels(dev, NS3D_CMUL_SHAPES, None, "kernels ns3d")
+    ns3d = get_preset(NS3D_PRESET)
+    ns3d_times["remap"] = phase_remap(dev, ns3d.model, ns3d.model_kwargs, BATCH, NS_S,
+                                      ns3d.t_in, ns3d.t_f, "kernels ns3d")
     s421_times = phase_kernels(dev, S421_CMUL_SHAPES, S421_HEAD_SHAPE, "kernels s421")
     sr_times = phase_kernels(dev, SR_CMUL_SHAPES, SR_HEAD_SHAPE, "kernels s421 superres",
                              forward_only=True)
@@ -2673,6 +2755,9 @@ def main() -> int:
     tp_times = phase_kernels(dev, TP_CMUL_SHAPES, None, "kernels tp")
     spatial_times = phase_kernels(dev, CMUL_SHAPES, None, "kernels spatial")
     variant_times = phase_variant_kernels(dev)
+    variant_times["ns3d_t40_256"]["remap"] = phase_remap(
+        dev, "uno3d_t40_256", NS3D_256_KW, NS3D_256_BATCH, NS3D_256_S,
+        *NS3D_256["uno3d_t40_256"], "kernels ns3d-t40-256")
     with tempfile.TemporaryDirectory() as tmp:
         fft_predict_ms = phase_predict(tmp)
         phase_head_switch(tmp)
@@ -2741,14 +2826,17 @@ def main() -> int:
              "export": (export_times, export_launches), "remat": (times, remat_launches),
              "tp": (tp_times, mesh_launches["tp"]),
              "spatial": (spatial_times, mesh_launches["spatial"]),
-             "spatial_ns3d": (ns3d_times, mesh_launches["spatial_ns3d"]),
+             # the split path transforms its split axis by a partial DFT: no remap to time
+             "spatial_ns3d": ({k: v for k, v in ns3d_times.items() if k != "remap"},
+                              mesh_launches["spatial_ns3d"]),
              "fused_skips": ({k: times[k] for k in ("cmul_fwd", "cmul_bwd_x", "cmul_bwd_w")},
                              fused_launches),
              **{k: (variant_times[k], variant_launches[k]) for k in variant_times}}
     kernels = []
     for name, (_, _, src, rep) in KERNELS.items():
         entry = dict(name=name, route="cuda", source=src, replaces=rep,
-                     launches=launches[name], **times[name])
+                     launches=launches[name],
+                     **(times[name] if name in times else dict(on_path=launches[name] > 0)))
         for path, (t, n) in paths.items():
             entry[path] = (dict(launches=n[name], **t[name]) if name in t
                            else dict(launches=n[name], on_path=n[name] > 0))

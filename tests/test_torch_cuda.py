@@ -13,6 +13,11 @@ largest M (uno3d_t40_256), at uno_demo's 512 x 512 bottleneck, at batch 4
 (uno_s256 and the uno3d_*_256 family), and the head at darcy_s85's and
 uno_demo's shapes.
 
+Also: the spectrum remap kernel against its plain version at
+every remap of a uno3d_t40 and a uno3d_t40_256 forward and backward, its
+custom op, and one ns3d_t40 training step's loss and gradients on the card
+against the CPU.
+
 This file imports no JAX, so it runs where the port runs; tests/conftest.py
 imports JAX, so on a machine without it run
 
@@ -26,6 +31,7 @@ import torch
 from uno_tpu_torch.models import build_model
 from uno_tpu_torch.ops.kernels import cmul as C
 from uno_tpu_torch.ops.kernels import mlp_head as H
+from uno_tpu_torch.ops.kernels import remap as R
 
 # (B, Ci, Co, M) of the five uno9 contractions at darcy_s211, batch 16
 DARCY_S211 = [(16, 32, 64, 648), (16, 64, 128, 128), (16, 128, 128, 128),
@@ -509,6 +515,85 @@ def test_uno3d_t40_on_the_card_matches_the_cpu(cuda, dtype, bound, grad_bound):
     assert _rel(res[1][0], res[0][0]) <= bound
     assert _rel(res[1][1], res[0][1]) <= grad_bound
     assert _rel(res[1][2], res[0][2]) <= grad_bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size,blocks", [("uno3d_t40", 64, 7), ("uno3d_t40_256", 256, 9)])
+def test_remap_kernel_matches_plain_at_every_block(cuda, monkeypatch, name, size, blocks):
+    """Every remap of one forward and backward of the model (width 2, one
+    sample) on the card: the kernel's output equal, bit for bit, to the
+    plain version's of the same source and plan on the CPU; three remaps
+    a block each way, one kernel launch each."""
+    from uno_tpu_torch.losses import relative_lp_loss
+    from uno_tpu_torch.train.ns3d import forecast
+
+    calls = []
+    launch = R.remap
+
+    def spy(src, p):
+        out = launch(src, p)
+        calls.append((src.cpu(), p, out.cpu()))
+        return out
+
+    monkeypatch.setattr(R, "remap", spy)
+    model = build_model(name, device=cuda, generator=torch.Generator().manual_seed(1),
+                        in_width=6, width=2)
+    g = torch.Generator().manual_seed(2)
+    xx = torch.randn((1, size, size, 10), generator=g).to(cuda)
+    yy = torch.randn((1, size, size, 40), generator=g).to(cuda)
+    n0 = R.LAUNCHES["remap"]
+    relative_lp_loss(forecast(model, xx, 40), yy).backward()
+    torch.cuda.synchronize()
+    assert len(calls) == R.LAUNCHES["remap"] - n0 == 6 * blocks
+    for src, p, got in calls:
+        want = R.remap_plain(src, *p.tables("cpu"), p.shape)
+        assert got.shape == want.shape == src.shape[:2] + p.shape
+        assert torch.equal(got, want), (p.shape, float((got - want).abs().max()))
+
+
+@pytest.mark.cuda
+def test_remap_custom_op_launches_the_kernel(cuda):
+    """``uno_tpu_torch::remap`` on the card: one launch, equal to the plain
+    version; the kernel takes complex64 alone."""
+    g = torch.Generator().manual_seed(3)
+    src = _rand_c(g, 2, 3, 8, 8, 5)
+    p = R.plan([(0,), (7, 1), (), (3,)], [(1, 6), (0,), (2,)], [0, 4, None],
+               scale=[1.0, 2.0, 0.5], herm=(0,))
+    n0 = R.LAUNCHES["remap"]
+    got = torch.ops.uno_tpu_torch.remap(src.to(cuda), list(p.tab), list(p.scale), list(p.shape))
+    assert R.LAUNCHES["remap"] == n0 + 1
+    assert torch.equal(got.cpu(), R.remap_plain(src, *p.tables("cpu"), p.shape))
+    with pytest.raises(TypeError, match="complex64"):
+        R.remap(src.to(torch.complex128).to(cuda), p)
+
+
+@pytest.mark.cuda
+def test_ns3d_t40_training_step_on_the_card_matches_the_cpu(cuda):
+    """One ns3d_t40 training step's loss and gradients (uno3d_t40 width 4,
+    two samples, the summed relative L2 as the trainer takes it) on the
+    card and on the CPU: the loss and all gradients together within 1e-4
+    (the biases before an instance norm have gradients of rounding alone,
+    so no leaf is held by itself); 42 remap launches on the card, three a
+    block each way."""
+    from uno_tpu_torch.losses import relative_lp_loss
+    from uno_tpu_torch.train.ns3d import forecast
+
+    g = torch.Generator().manual_seed(4)
+    xx, yy = torch.randn((2, 64, 64, 10), generator=g), torch.randn((2, 64, 64, 40), generator=g)
+    res = []
+    for dev in ("cpu", cuda):
+        model = build_model("uno3d_t40", device=dev, generator=torch.Generator().manual_seed(0),
+                            in_width=6, width=4, pad=3)
+        n0 = R.LAUNCHES["remap"]
+        loss = relative_lp_loss(forecast(model, xx.to(dev), 40), yy.to(dev), reduction="sum")
+        loss.backward()
+        if dev != "cpu":
+            assert R.LAUNCHES["remap"] - n0 == 42
+        res.append((loss.detach(), torch.cat([
+            torch.view_as_real(p.grad).flatten() if p.is_complex() else p.grad.flatten()
+            for p in model.parameters()])))
+    (l0, g0), (l1, g1) = res
+    assert _rel(l1, l0) <= 1e-4 and _rel(g1, g0) <= 1e-4, (_rel(l1, l0), _rel(g1, g0))
 
 
 @pytest.mark.cuda

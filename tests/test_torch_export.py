@@ -39,6 +39,7 @@ UNO = dict(in_width=14, width=8, pad=0)
 UNO3D = dict(in_width=6, width=4, pad=3)
 CONTRACT = "uno_tpu_torch.contract.default"
 HEAD = "uno_tpu_torch.mlp_head_fwd.default"
+REMAP = "uno_tpu_torch.remap.default"
 
 
 def _rel(a, b):
@@ -115,7 +116,9 @@ def test_uno3d_t40_round_trip(tmp_path):
     model = _port("uno3d_t40", UNO3D, "float32")
     served = _round_trip(model, jax_build_model("uno3d_t40", **UNO3D),
                          bridge.params_to_flax(model), x, 1e-5, tmp_path)
-    assert _custom_nodes(served) == Counter({CONTRACT: 7})  # a 3-D model has no fused head
+    # a 3-D model has no fused head; each block's conv lays out its spectra with two
+    # remaps and its truncation with one
+    assert _custom_nodes(served) == Counter({CONTRACT: 7, REMAP: 21})
     with torch.no_grad():  # the artifact serves through forecast as the eager model does
         got = forecast(served, torch.from_numpy(x[..., 0]), 40)
         assert _rel(got, forecast(model, torch.from_numpy(x[..., 0]), 40)) <= 1e-5

@@ -45,6 +45,7 @@ from uno_tpu_torch.train.checkpoint import CheckpointManager
 from uno_tpu_torch.train.common import TrainConfig
 from uno_tpu_torch.train.evaluate import evaluate_ns3d
 from uno_tpu_torch.train.ns3d import forecast, train_ns3d
+from _threads import worker_share_of_threads  # noqa: F401,E402
 
 # uno3d_t10 at width 2 on a 32x32 grid: the smallest its fixed modes allow
 # (22 at 3/4 of the grid, 6 at 1/4)

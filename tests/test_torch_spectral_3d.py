@@ -31,6 +31,7 @@ from uno_tpu_torch import bridge
 from uno_tpu_torch.models import embeddings as temb
 from uno_tpu_torch.nn import layers as tl
 from uno_tpu_torch.ops.spectral import fourier_truncate_3d, set_dft_mode, spectral_conv_3d
+from _threads import worker_share_of_threads  # noqa: F401,E402
 
 CONV_CASES = [
     # (B, Ci, Co, X, Y, T), out_size, modes
@@ -38,6 +39,7 @@ CONV_CASES = [
     ((2, 3, 2, 12, 10, 8), (14, 10, 19), (5, 4, 3)),    # upsample, odd time
     ((1, 2, 3, 12, 12, 8), (8, 10, 8), (6, 6, 3)),      # 2*m > d on kx and on ky
     ((1, 2, 2, 8, 8, 9), (8, 8, 9), (3, 3, 5)),         # m3 at its limit d3 // 2 + 1
+    ((1, 2, 3, 8, 8, 6), (12, 12, 6), (6, 6, 3)),       # 2*m > X and Y: the input corners overlap
 ]
 TRUNC_CASES = [
     ((2, 3, 12, 10, 8), (6, 5, 4)),     # down on every axis

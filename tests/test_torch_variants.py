@@ -41,6 +41,7 @@ from uno_tpu.ops.pallas.mlp_head import set_fused_head_mode
 from uno_tpu_torch import bridge
 from uno_tpu_torch.losses import relative_lp_loss
 from uno_tpu_torch.models import build_model
+from _threads import worker_share_of_threads  # noqa: F401,E402
 
 W = 4  # the 2-D models' width
 F32 = 1e-4

@@ -2,9 +2,10 @@
 training step on one CUDA card, for an NS or a Darcy preset.
 
     python3 tools/torch_ns2d_profile.py [--preset ns2d|ns3d_t40|darcy_s211|darcy_s421] \
-        [--reps 5] [--trace-dir DIR]
+        [--dtype bfloat16|float32] [--reps 5] [--trace-dir DIR] [--by-op]
 
-Builds the preset's model at full width with the bf16 policy and random
+Builds the preset's model at full width with the ``--dtype`` policy (bf16
+by default; the benchmark's ns3d_t40 configuration is f32) and random
 weights from seed 0 on ``cuda:0`` (``ns2d``: ``uno``, width 32, 64x64,
 batch 16, T_f 40; ``ns3d_t40``: ``uno3d_t40``, width 8, 64x64, batch 16,
 T_in 10 -> T_f 40; ``darcy_s211``: ``uno9``, width 32, 211x211, batch 16;
@@ -32,7 +33,14 @@ kernels launched and the device busy time (the union of the kernels',
 copies' and sets' intervals), and lists the kernels that took the most
 time, and the aten ops the host dispatched with those that took the most
 host time under the profiler.  The idle share is 1 - busy / the
-unprofiled time.  Inputs and targets are standard normal: the work does
+unprofiled time.  With ``--by-op`` each call's line also puts every device
+activity down to the chain of CPU ops and autograd nodes above the op
+that launched it, sorted into a class by its name (``copy``,
+``memcpy_dtod``, ``fill``, ``complex_add``, ``float_add``, ``fft``,
+``remap``, ``other``): the ms of each class and its chains that took the
+most; and counts the ops that the 3-D FFT path's autograd used to run
+(``slice_backward``, ``select_backward``, ``_fft_c2c``) by the autograd
+node they ran under.  Inputs and targets are standard normal: the work does
 not depend on the values.
 
 Prints the card (nvidia-smi name and power limit) and one JSON line per
@@ -65,6 +73,9 @@ from uno_tpu_torch.train.ns2d import make_rollout  # noqa: E402
 from uno_tpu_torch.train.ns3d import forecast, step_rel_l2  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+WATCHED = ("aten::slice_backward", "aten::select_backward", "aten::_fft_c2c")
+# ops left out of a chain above the launching op: allocations and casts
+SKIP = ("aten::empty", "aten::empty_strided", "aten::to", "aten::_to_copy")
 
 
 def _event_ms(fn, reps: int) -> list:
@@ -107,7 +118,65 @@ def _busy(trace_path: str) -> dict:
     }
 
 
-def _measure(name: str, fn, reps: int, trace_dir, preset: str) -> dict:
+def _class(name: str) -> str:
+    if "Memcpy DtoD" in name or "Memcpy Device to Device" in name:
+        return "memcpy_dtod"
+    if name.startswith("Memcpy") or name.startswith("Memset"):
+        return "memcpy_other"
+    if "remap_kernel" in name:
+        return "remap"
+    if "fft" in name:
+        return "fft"
+    if "copy_kernel" in name:
+        return "copy"
+    if "FillFunctor" in name:
+        return "fill"
+    if "CUDAFunctor_add" in name or "AddFunctor" in name:
+        return "complex_add" if "complex" in name else "float_add"
+    return "other"
+
+
+def _node(evt) -> str:
+    """The autograd node an op ran under, or "-"."""
+    e = evt.cpu_parent
+    while e is not None and "evaluate_function" not in e.name:
+        e = e.cpu_parent
+    return "-" if e is None else e.name.split(": ")[-1]
+
+
+def _chain(evt) -> str:
+    """The launching op and the non-aten ops and autograd nodes above it."""
+    names, e = [], evt
+    while e is not None:
+        if (e is evt or not e.name.startswith("aten::") or e.cpu_parent is None) \
+                and e.name not in SKIP:
+            names.append(e.name.replace("autograd::engine::evaluate_function: ", "bwd:"))
+        e = e.cpu_parent
+    return " > ".join(reversed(names))
+
+
+def _by_op(prof) -> dict:
+    """Every device activity of one call by class, and the watched ops."""
+    chains = collections.defaultdict(lambda: collections.defaultdict(lambda: [0, 0.0]))
+    watched = collections.Counter()
+    for evt in prof.profiler.function_events:
+        if evt.name in WATCHED:
+            watched[f"{evt.name} under {_node(evt)}"] += 1
+        for k in evt.kernels:
+            c = chains[_class(k.name)][_chain(evt)]
+            c[0] += 1
+            c[1] += k.duration / 1e3  # us -> ms
+    classes = {}
+    for cls, by_chain in sorted(chains.items()):
+        top = sorted(by_chain.items(), key=lambda kv: -kv[1][1])[:8]
+        classes[cls] = {"ms": round(sum(v[1] for v in by_chain.values()), 4),
+                        "count": sum(v[0] for v in by_chain.values()),
+                        "top_chains": [{"chain": ch[-200:], "count": n, "ms": round(ms, 4)}
+                                       for ch, (n, ms) in top]}
+    return {"classes": classes, "watched": dict(sorted(watched.items()))}
+
+
+def _measure(name: str, fn, reps: int, trace_dir, preset: str, by_op: bool) -> dict:
     fn()
     fn()  # warm: cuFFT plans, cuBLAS handles, the allocator
     torch.cuda.synchronize()
@@ -124,21 +193,25 @@ def _measure(name: str, fn, reps: int, trace_dir, preset: str) -> dict:
     # under the profiler, which slows the host; the shares are what count)
     ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
     host = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]
+    extra = {"by_op": _by_op(prof)} if by_op else {}
     return {"call": name, "wall_ms_median": med, "wall_ms": wall,
             "idle_share": 1.0 - stats["busy_ms"] / med, **stats,
             "aten_ops": sum(e.count for e in ops),
             "top_host_ops": [{"name": e.key, "count": e.count,
                               "self_cpu_ms": round(e.self_cpu_time_total / 1e3, 3)}
                              for e in host],
-            "trace": path if trace_dir else None}
+            "trace": path if trace_dir else None, **extra}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="ns2d",
                     choices=["ns2d", "ns3d_t40", "darcy_s211", "darcy_s421"])
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--trace-dir", default=None, help="keep the chrome traces here")
+    ap.add_argument("--by-op", action="store_true",
+                    help="put each call's device time down to the ops that launched it")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_ns2d_profile: torch.cuda.is_available() is false", file=sys.stderr)
@@ -156,7 +229,7 @@ def main(argv=None) -> int:
     darcy = preset.task == "darcy"
     if darcy:
         s, t_f = (421 - 1) // preset.sub + 1, None
-    model = build_model(preset.model, dtype="bfloat16", device=dev,
+    model = build_model(preset.model, dtype=args.dtype, device=dev,
                         generator=torch.Generator().manual_seed(0), **preset.model_kwargs)
     rng = np.random.default_rng(0)
     x_shape, y_shape = ((bs, s, s, 1), (bs, s, s)) if darcy else (
@@ -205,9 +278,10 @@ def main(argv=None) -> int:
     calls = (("serving_batch", serve), ("exported_serving_batch", lambda: serve(exported)),
              ("training_step", train_step))
     for name, fn in calls:
-        print(json.dumps({"preset": args.preset, "model": preset.model, "dtype": "bfloat16",
+        print(json.dumps({"preset": args.preset, "model": preset.model, "dtype": args.dtype,
                           "batch": bs, "t_f": t_f,
-                          **_measure(name, fn, args.reps, args.trace_dir, args.preset)}))
+                          **_measure(name, fn, args.reps, args.trace_dir, args.preset,
+                                     args.by_op)}))
     return 0
 
 

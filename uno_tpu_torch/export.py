@@ -5,9 +5,9 @@ input shape (one artifact per serving shape, as in ``uno_tpu``) and saves
 the ``ExportedProgram``: the graph of aten ops, with the trained weights
 baked in, as one self-contained file.  The port's hand-written kernels are
 ``torch.library`` custom ops (``uno_tpu_torch::contract``,
-``uno_tpu_torch::mlp_head_fwd``), so the graph holds each launch as a node,
-and running it launches the CUDA kernel on the card (the plain version on
-the CPU).
+``uno_tpu_torch::mlp_head_fwd``, ``uno_tpu_torch::remap``), so the graph
+holds each launch as a node, and running it launches the CUDA kernel on the
+card (the plain version on the CPU).
 
 ``load_forward`` needs those ops registered, so it imports
 ``uno_tpu_torch.ops.kernels``, and nothing of the model-building code

@@ -43,6 +43,9 @@ _SIGNATURES = {
     "uno_mlp_head_bwd": [_P] * 11 + [_I] * 11 + [_P],
     # the step's table in host memory, its entries, the grid (adam.py: Launch)
     "uno_adam_step": [_P, _I, _I, _P],
+    # src, dst, the table and scales on the card, B*C, S1..S3, D1..D3, threads
+    # a block, channel slices (remap.py)
+    "uno_remap": [_P] * 4 + [_I] * 9 + [_P],
     # device, then where to write its SM count and opt-in shared memory
     "uno_device_limits": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }

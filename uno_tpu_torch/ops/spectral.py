@@ -17,9 +17,14 @@ None, by the environment variable ``UNO_TPU_TORCH_DFT=1``:
 * **FFT** (the default on every device until an H100 measurement decides):
   ``rfft2``/``irfft2`` in f32 whatever the input dtype, f32 output.  The
   per-mode complex contraction goes through the CUDA kernels of
-  ``ops/kernels/cmul.py`` (forward and both gradients); everything around it
-  is differentiated by torch autograd, where a positive-kx row that the
-  negative-kx block overwrites gets a zero gradient.
+  ``ops/kernels/cmul.py`` (forward and both gradients).  In 1-D and 2-D
+  everything around it is differentiated by torch autograd, where a
+  positive-kx row that the negative-kx block overwrites gets a zero
+  gradient.  In 3-D each spectrum is laid out by one remap
+  (``ops/kernels/remap.py``: the CUDA kernel on the card) in each
+  direction, and the conv and the truncation are each one autograd node
+  with a hand-written backward (``_FFTConv3d``, ``_FFTTruncate3d``), so
+  nothing around cuFFT and the contraction is left to autograd.
 * **Partial DFT** (``uno_tpu``'s default on the TPU): every stage is one
   einsum against a table of ``ops/dft.py`` on (re, im)-plane data, and the
   contraction is one einsum against a 2x2 block weight tensor.  A bf16
@@ -40,7 +45,8 @@ with no collective.  The backward is autograd's through those stages, the
 all-reduce's being an all-reduce.
 
 The 3-D ops are spans (``conv3d``, ``truncate3d``; ``utils/profiling.py``),
-and ``TRANSFORMS_3D`` counts the 3-D transforms of their FFT path by kind.
+``TRANSFORMS_3D`` counts the 3-D transforms of their FFT path's forward by
+kind, and ``REMAPS`` that path's remaps by pass.
 """
 
 from __future__ import annotations
@@ -48,13 +54,15 @@ from __future__ import annotations
 import math
 import os
 from functools import lru_cache
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from uno_tpu_torch.ops import dft
+from uno_tpu_torch.ops.kernels import cmul as cmul_k
+from uno_tpu_torch.ops.kernels import remap as remap_k
 from uno_tpu_torch.ops.kernels.cmul import cmul
 from uno_tpu_torch.parallel.spatial import Split, psum
 from uno_tpu_torch.utils.profiling import annotate
@@ -66,9 +74,13 @@ from uno_tpu_torch.utils.profiling import annotate
 _DFT_MODE = None
 
 # the 3-D transforms the FFT path has issued since the count was last set to
-# 0, by kind: each r2c and c2r of ``spectral_conv_3d`` and
-# ``fourier_truncate_3d`` (their backward is autograd's, one adjoint each)
+# 0, by kind: each forward r2c and c2r of ``spectral_conv_3d`` and
+# ``fourier_truncate_3d`` (their hand-written backward calls torch.fft
+# directly, one adjoint each, uncounted)
 TRANSFORMS_3D = {"r2c": 0, "c2r": 0}
+# the remaps of the 3-D FFT path since the count was last set to 0, on
+# either device, by pass: two a conv and one a truncation each way
+REMAPS = {"forward": 0, "backward": 0}
 
 
 def _counted_3d(t: torch.Tensor, kind: str) -> torch.Tensor:
@@ -297,18 +309,6 @@ def _irfftn(spec: torch.Tensor, s: Tuple[int, ...], dims: Tuple[int, ...], kept:
     return torch.fft.irfftn(spec, s=s, dim=dims, norm=norm)
 
 
-def _fit(spec: torch.Tensor, sizes: Tuple[int, ...]) -> torch.Tensor:
-    """``spec`` trimmed or zero-padded at the end of each of its last
-    ``len(sizes)`` axes to ``sizes``, as ``irfftn``'s ``s`` does."""
-    have = tuple(spec.shape[-len(sizes):])
-    if have == tuple(sizes):
-        return spec
-    keep = (..., *(slice(0, min(h, n)) for h, n in zip(have, sizes)))
-    out = spec.new_zeros(spec.shape[: -len(sizes)] + tuple(sizes))
-    out[keep] = spec[keep]
-    return out
-
-
 def _f32(x: torch.Tensor) -> torch.Tensor:
     """The FFT paths' compute dtype: f32, except that float64 stays float64
     (``gradcheck``)."""
@@ -335,6 +335,15 @@ def spectral_conv_1d(x: torch.Tensor, weights: torch.Tensor, out_size: int,
     return _irfftn(torch.cat([out, tail], dim=-1), (d1,), (-1,), m1, "forward")
 
 
+def _quadrants(weights: torch.Tensor) -> torch.Tensor:
+    """The four (kx, ky) sign quadrants of a 3-D conv's (4, Ci, Co, m1, m2,
+    m3) weights as one (Ci, Co, 2*m1, 2*m2, m3) block laid out [[(+,+),
+    (+,-)], [(-,+), (-,-)]], in one copy (and its gradient in one)."""
+    _, ci, co, m1, m2, m3 = weights.shape
+    return (weights.reshape(2, 2, ci, co, m1, m2, m3).permute(2, 3, 1, 4, 0, 5, 6)
+            .reshape(ci, co, 2 * m1, 2 * m2, m3))
+
+
 @annotate("conv3d")
 def spectral_conv_3d(
     x: torch.Tensor,
@@ -359,56 +368,203 @@ def spectral_conv_3d(
     if m1 > d1 or m1 > sx or m2 > d2 or m2 > sy or m3 > d3 // 2 + 1 or m3 > st // 2 + 1:
         raise ValueError(f"modes {modes} incompatible with in {tuple(x.shape)} out {out_size}")
 
+    if split is None and not _dft_enabled():
+        x = _f32(x)
+        w = _quadrants(weights)  # (Ci, Co, 2*m1, 2*m2, m3)
+        plans = _conv_plans((sx, sy, st), (d1, d2, d3), (m1, m2, m3))
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _FFTConv3d.apply(x, w, (d1, d2, d3), plans)
+        return _conv3d_forward(x, w, (d1, d2, d3), plans)[0]
     w_lo = torch.cat([weights[0], weights[2]], dim=3)
     w_hi = torch.cat([weights[1], weights[3]], dim=3)
     w = torch.cat([w_lo, w_hi], dim=2)  # (Ci, Co, 2*m1, 2*m2, m3)
     if split is not None:
         return _split_conv_3d(x, w, (d1, d2, d3), (m1, m2, m3), split)
-    if _dft_enabled():
-        return _DFTConv3d.apply(x, w, (d1, d2, d3), (m1, m2, m3))
-    x_ft = _counted_3d(torch.fft.rfftn(_f32(x), dim=(-3, -2, -1), norm="forward"), "r2c")
-    # the four corners as one (B, Ci, 2*m1, 2*m2, m3) block laid out
-    # [[(+,+), (+,-)], [(-,+), (-,-)]], so one contraction covers all
-    lo_x = torch.cat([x_ft[:, :, :m1, :m2, :m3], x_ft[:, :, :m1, sy - m2 :, :m3]], dim=3)
-    hi_x = torch.cat([x_ft[:, :, sx - m1 :, :m2, :m3],
-                      x_ft[:, :, sx - m1 :, sy - m2 :, :m3]], dim=3)
-    out = complex_mode_matmul(torch.cat([lo_x, hi_x], dim=2), w)
-
-    # Zero-embed the quadrants in the output spectrum.  When 2*m > d the
-    # reference's quadrant writes overlap and the negative-frequency blocks
-    # (written later) win, so only the first d-m rows (kx) or columns (ky)
-    # of each positive block survive.
-    b, co = out.shape[:2]
-    n_x, n_y = min(m1, d1 - m1), min(m2, d2 - m2)
-    out_ft = torch.zeros((b, co, d1, d2, d3 // 2 + 1), dtype=out.dtype, device=out.device)
-    out_ft[:, :, :n_x, :n_y, :m3] = out[:, :, :n_x, :n_y]
-    out_ft[:, :, :n_x, d2 - m2 :, :m3] = out[:, :, :n_x, m2:]
-    out_ft[:, :, d1 - m1 :, :n_y, :m3] = out[:, :, m1:, :n_y]
-    out_ft[:, :, d1 - m1 :, d2 - m2 :, :m3] = out[:, :, m1:, m2:]
-    return _counted_3d(_irfftn(out_ft, (d1, d2, d3), (-3, -2, -1), m3, "forward"), "c2r")
+    return _DFTConv3d.apply(x, w, (d1, d2, d3), (m1, m2, m3))
 
 
-def _build_truncate_mask(sx: int, sy: int, st: int, m1: int, m2: int, m3: int, device):
-    """The 0/1 mask over the union of the four quadrant slices of an (sx, sy,
-    st) rfftn spectrum, boolean, on ``device``; built outside inference mode so a
-    later backward may save it."""
-    with torch.inference_mode(False):
-        ix, iy, it = (torch.arange(n) for n in (sx, sy, st))
-        keep_x = (ix < m1) | (ix >= sx - m1)
-        keep_y = (iy < m2) | (iy >= sy - m2)
-        keep_t = it < m3
-        mask = keep_x[:, None, None] & keep_y[None, :, None] & keep_t[None, None, :]
-        return mask.to(device=device)
+# --- the 3-D FFT path: cuFFT, remaps and the contraction ----------------------
+#
+# Each spectrum is laid out once in each direction by one remap
+# (ops/kernels/remap.py), and the backward is written by hand: the adjoint
+# of an r2c is a c2r of its gradient with the interior bins of the last axis
+# halved, that of a c2r an r2c of its gradient with those bins doubled.
+# Every transform runs unscaled (_r2c, _c2r), and each norm's factor is
+# folded into the scale of the remap beside it, so no transform is followed
+# by a pass over its output.  A remap that feeds a c2r takes the Hermitian
+# part of the DC and Nyquist planes, so that every c2r plan answers as
+# pocketfft does (the CPU, and so uno_tpu; _irfftn); the projection is
+# self-adjoint, and the r2c output that a backward remap reads is Hermitian
+# on those planes already, so a backward remap projects only where a c2r
+# follows it.
+
+_DIMS3 = (-3, -2, -1)
 
 
-# built once per process; while torch.export traces, tensors are fake, and a
-# mask built then is not cached (the trace records it as a constant)
-_cached_truncate_mask = lru_cache(maxsize=64)(_build_truncate_mask)
+class _Plans(NamedTuple):
+    """The remaps of one 3-D geometry: a conv's two each way (into and out
+    of the contraction's block), a truncation's one each way (``fwd_in``,
+    ``bwd_in``)."""
+
+    fwd_in: remap_k.Plan
+    fwd_out: Optional[remap_k.Plan]
+    bwd_out: Optional[remap_k.Plan]
+    bwd_in: remap_k.Plan
 
 
-def _truncate_mask(*args):
-    build = _build_truncate_mask if torch.compiler.is_exporting() else _cached_truncate_mask
-    return build(*args)
+def _weight(k: int, n: int) -> int:
+    """How often bin ``k`` of an ``n``-point half spectrum stands in the whole
+    spectrum: once for DC and an even ``n``'s Nyquist bin, else twice."""
+    return 1 if k == 0 or 2 * k == n else 2
+
+
+def _c2r_planes(n: int) -> Tuple[int, ...]:
+    """The bins of an ``n``-point c2r's half spectrum taken as real: DC and,
+    for an even ``n``, Nyquist."""
+    return (0, n // 2) if n % 2 == 0 else (0,)
+
+
+def _kept(m: int, n: int) -> list:
+    """A last-axis map of ``n`` bins: the first ``m`` read their own bin, the
+    rest are 0."""
+    return [k if k < m else None for k in range(n)]
+
+
+def _r2c(x: torch.Tensor) -> torch.Tensor:
+    """The unscaled rfftn over the last three axes."""
+    return torch.fft.rfftn(x, dim=_DIMS3)
+
+
+def _c2r(spec: torch.Tensor, s: tuple) -> torch.Tensor:
+    """The unscaled irfftn over the last three axes to ``s``."""
+    return torch.fft.irfftn(spec, s=s, dim=_DIMS3, norm="forward")
+
+
+@lru_cache(maxsize=256)
+def _conv_plans(grid: tuple, out_size: tuple, modes: tuple) -> _Plans:
+    """``spectral_conv_3d``'s remaps: the four corners of the input's half
+    spectrum gathered into the (2*m1, 2*m2, m3) block (where 2*m > the
+    input's length the corners overlap, and in the backward an input bin
+    sums the block's two entries); the block scattered into the output's
+    half spectrum, where 2*m > d the negative-frequency rows and columns
+    written last winning, as in the reference (a positive row they
+    overwrite gets no gradient).  The input's r2c takes the forward norm,
+    1 / (X Y T), folded into the gather, and its adjoint the same."""
+    (sx, sy, st), (d1, d2, d3), (m1, m2, m3) = grid, out_size, modes
+    n = sx * sy * st
+
+    def corners(s, m):  # block row -> the input row it reads
+        return [(i if i < m else s - 2 * m + i,) for i in range(2 * m)]
+
+    def sums(s, m):  # input row -> the block rows read from it
+        return [(i,) * (i < m) + (2 * m - s + i,) * (i >= s - m) for i in range(s)]
+
+    def placed(d, m):  # output row -> the block row written there last
+        return [(2 * m - d + i,) if i >= d - m else (i,) * (i < m) for i in range(d)]
+
+    def survivors(d, m):  # block row -> the output row that kept it
+        return [(i,) * (i < d - m) for i in range(m)] + [(d - m + i,) for i in range(m)]
+
+    return _Plans(
+        remap_k.plan(corners(sx, m1), corners(sy, m2), range(m3), scale=[1 / n] * m3),
+        remap_k.plan(placed(d1, m1), placed(d2, m2), _kept(m3, d3 // 2 + 1),
+                     herm=_c2r_planes(d3)),
+        remap_k.plan(survivors(d1, m1), survivors(d2, m2), range(m3),
+                     scale=[_weight(k, d3) for k in range(m3)]),
+        remap_k.plan(sums(sx, m1), sums(sy, m2), _kept(m3, st // 2 + 1),
+                     scale=[1 / (_weight(k, st) * n) for k in range(st // 2 + 1)],
+                     herm=_c2r_planes(st)))
+
+
+def _remapped(spec: torch.Tensor, plan: remap_k.Plan, direction: str) -> torch.Tensor:
+    REMAPS[direction] += 1
+    return remap_k.remap(spec, plan)
+
+
+def _conv3d_forward(x, w, out_size, plans: _Plans) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFT path's forward: (the output, the contracted block of the
+    input's modes)."""
+    xb = _remapped(_counted_3d(_r2c(x), "r2c"), plans.fwd_in, "forward")
+    out_ft = _remapped(complex_mode_matmul(xb, w), plans.fwd_out, "forward")
+    return _counted_3d(_c2r(out_ft, out_size), "c2r"), xb
+
+
+class _FFTConv3d(torch.autograd.Function):
+    """``spectral_conv_3d`` on the FFT path as one node.  x: (B, Ci, X, Y,
+    T) f32 (float64 for ``gradcheck``); w: (Ci, Co, 2*m1, 2*m2, m3) complex.
+    The backward: the r2c of the gradient, its kept modes gathered (the
+    c2r's interior bins doubled), the contraction's two gradients, the
+    input's modes scattered into its half spectrum (the r2c's interior bins
+    halved) and one c2r."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_size, plans):
+        y, xb = _conv3d_forward(x, w, out_size, plans)
+        ctx.save_for_backward(xb, w)
+        ctx.geometry = (plans, tuple(x.shape[-3:]))
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        xb, w = ctx.saved_tensors
+        plans, grid = ctx.geometry
+        gb = _remapped(_r2c(g), plans.bwd_out, "backward")
+        (b, co), ci = gb.shape[:2], w.shape[0]
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gxb = cmul_k.cmul_bwd_x(gb.reshape(b, co, -1), w.reshape(ci, co, -1)).reshape(xb.shape)
+            gx = _c2r(_remapped(gxb, plans.bwd_in, "backward"), grid)
+        if ctx.needs_input_grad[1]:
+            gw = cmul_k.cmul_bwd_w(xb.reshape(b, ci, -1), gb.reshape(b, co, -1)).reshape(w.shape)
+        return gx, gw, None, None
+
+
+@lru_cache(maxsize=256)
+def _truncate_plans(grid: tuple, out_size: tuple) -> _Plans:
+    """``fourier_truncate_3d``'s remap and its transpose: a bin is kept
+    where it lies in the union of the four quadrant slices (m = d // 2 per
+    axis, at the input's indices) and inside both grids' half spectra (the
+    irfftn's trailing trim or zero pad); in time below d3 // 2, so the
+    output's Nyquist bin is 0.  The c2r's backward norm, 1 / (d1 d2 d3), is
+    folded into both."""
+    (sx, sy, st), (d1, d2, d3) = grid, out_size
+    n = d1 * d2 * d3
+
+    def kept(s, d, n):  # index i of an n-long axis, kept or not
+        m = d // 2
+        return [(i,) * (i < min(s, d) and (i < m or i >= s - m)) for i in range(n)]
+
+    nt = min(st // 2 + 1, d3 // 2)
+    return _Plans(
+        remap_k.plan(kept(sx, d1, d1), kept(sy, d2, d2), _kept(nt, d3 // 2 + 1),
+                     scale=[1 / n] * (d3 // 2 + 1), herm=_c2r_planes(d3)),
+        None, None,
+        remap_k.plan(kept(sx, d1, sx), kept(sy, d2, sy), _kept(nt, st // 2 + 1),
+                     scale=[_weight(k, d3) / (_weight(k, st) * n) for k in range(st // 2 + 1)],
+                     herm=_c2r_planes(st)))
+
+
+def _truncate3d_forward(x, out_size, plans: _Plans) -> torch.Tensor:
+    spec = _remapped(_counted_3d(_r2c(x), "r2c"), plans.fwd_in, "forward")
+    return _counted_3d(_c2r(spec, out_size), "c2r")
+
+
+class _FFTTruncate3d(torch.autograd.Function):
+    """``fourier_truncate_3d`` on the FFT path as one node.  The map is
+    linear, so the backward saves nothing: the r2c of the gradient, the
+    transposed remap and one c2r."""
+
+    @staticmethod
+    def forward(ctx, x, out_size, plans):
+        ctx.geometry = (plans, tuple(x.shape[-3:]))
+        return _truncate3d_forward(x, out_size, plans)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        plans, grid = ctx.geometry
+        return _c2r(_remapped(_r2c(g), plans.bwd_in, "backward"), grid), None, None
 
 
 @annotate("truncate3d")
@@ -425,20 +581,21 @@ def fourier_truncate_3d(x: torch.Tensor, out_size: Tuple[int, int, int],
     indices, so their net effect is a 0/1 mask over the union of the
     quadrant slices, ``m = d // 2`` per axis, at the input's indices; the
     irfftn to ``out_size`` then trims or zero-pads the trailing entries of
-    each axis.  The DFT path computes the same map from the kept bins
-    alone (``_DFTTruncate3d``).  With ``split``, x holds its rows of an X =
-    ``split.n`` grid and the result its rows of d1.
+    each axis.  The FFT path applies both in one remap
+    (``_truncate_plans``); the DFT path computes the same map from the kept
+    bins alone (``_DFTTruncate3d``).  With ``split``, x holds its rows of
+    an X = ``split.n`` grid and the result its rows of d1.
     """
     d1, d2, d3 = out_size
     if split is not None:
         return _split_truncate_3d(x, (d1, d2, d3), split)
     if _dft_enabled():
         return _DFTTruncate3d.apply(x, (d1, d2, d3))
-    ft = _counted_3d(torch.fft.rfftn(_f32(x), dim=(-3, -2, -1)), "r2c")
-    mask = _truncate_mask(*ft.shape[-3:], d1 // 2, d2 // 2, d3 // 2, ft.device)
-    # the mask keeps the time bins below d3 // 2: the Nyquist bin is 0
-    return _counted_3d(_irfftn(_fit(ft * mask, (d1, d2, d3 // 2 + 1)), (d1, d2, d3),
-                               (-3, -2, -1), d3 // 2, "backward"), "c2r")
+    x = _f32(x)
+    plans = _truncate_plans(tuple(x.shape[-3:]), (d1, d2, d3))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _FFTTruncate3d.apply(x, (d1, d2, d3), plans)
+    return _truncate3d_forward(x, (d1, d2, d3), plans)
 
 
 # --- the partial-DFT path -----------------------------------------------------
