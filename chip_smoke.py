@@ -38,12 +38,16 @@ the trainers).
    and the time of one PyTorch call that computes the same function where
    there is one (the contractions' plain versions are one einsum each, so
    that time is also their ``library_ms``; the head has none).  A
-   one-element add timed the same way gives the floor of this timing;
+   one-element add timed the same way gives the floor of this timing.  The
+   spectrum remap kernel the same way at every remap of one darcy_s211
+   uno9 training step at batch 16, bf16 (its skips concatenated; its
+   forward's alone too) and f32 (its skips as channel pieces);
 4. runs ``python -m uno_tpu_torch.cli predict`` over a synthetic six-key
    darcy_s211 split (128 test samples: 8 batches of 16) once to warm up and
    once measured, with the launch counts set to 0 just before the measured
-   run; checks the output, that the contraction launched 5 times and the
-   head once per batch and that no backward kernel did; prints the median,
+   run; checks the output, that the contraction launched 5 times, the
+   spectrum remap 10 times (2 a conv) and the head once per batch and that
+   no backward kernel did; prints the median,
    fastest and slowest of the measured run's 8 warm batches;
 5. runs ``python -m uno_tpu_torch.cli train`` for 3 epochs of 4 steps on a
    synthetic split (64 train, 16 val, 16 test) with a learnable target, the
@@ -51,8 +55,8 @@ the trainers).
    and that every kernel launched as often as the steps and evaluation
    batches require; prints the warm ms per step and the peak device memory;
 6. runs the same predict and train on the partial-DFT spectral path
-   (``UNO_TPU_TORCH_DFT=1``): the contraction kernels launch 0 times, the
-   head's as on the FFT path; prints the ms per batch and per warm step of
+   (``UNO_TPU_TORCH_DFT=1``): the contraction and remap kernels launch 0
+   times, the head's as on the FFT path; prints the ms per batch and per warm step of
    both paths from this run side by side (``[dft]``);
 7. runs the port's Darcy generator on the card, n = 32 at s = 211 with
    threshold coefficients: its ms, CG iterations and final relative
@@ -120,7 +124,8 @@ the trainers).
    (``[s421-cuda-vs-cpu]``);
 14. a 1-D OperatorBlock (1024 -> 512 points, 64 modes) on the card and the
    CPU, forward and every gradient, f32 and bf16, on both spectral paths,
-   and the three contractions at its shape (``[1d]``, ``[kernels 1d]``);
+   and the three contractions and the remaps of its f32 forward and
+   backward at its shape (``[1d]``, ``[kernels 1d]``);
 15. data parallelism (``uno_tpu_torch.parallel``): ``cli train --preset
    darcy_s211 --dtype bfloat16 --data-parallel`` as one NCCL rank
    (``RANK=0 WORLD_SIZE=1``) against the same run without it, losses and
@@ -193,15 +198,14 @@ the trainers).
    (within 1e-5) and the fused form on the card against the CPU on 2
    samples (1e-4); uno9 bf16's default (materialized) against
    ``UNO_TPU_TORCH_FUSED_SKIPS=1`` (2e-2) (``[fused-skips]``);
-   ``ComplexAdam(fused=True)`` against ``fused=False`` on uno9's
-   darcy_s211 parameters on the card, both through the Adam kernel
-   (``csrc/adam.cu``): 20 steps of the same gradients, the parameters and
-   moments bit for bit and within 2 ulp of the plain sequence of torch ops
-   on the card, then the kernel's and the plain sequence's ms a step
-   (median of 40, L2 flushed) against the bound, each form's ms a step
-   (CUDA events, 50 steps), host to host ms, and kernels a step counted
-   by the profiler in a fresh process and by the kernel's own count
-   (``[adam-fused]``); and
+   ``ComplexAdam`` on uno9's darcy_s211 parameters on the card, through
+   the Adam kernel (``csrc/adam.cu``): 20 steps, the parameters and
+   moments within 2 ulp of the plain sequence of torch ops on the card
+   given the same gradients, then the kernel's and the plain sequence's
+   ms a step (median of 40, L2 flushed) against the bound, the
+   optimizer's ms a step (CUDA events, 50 steps), host to host ms, and
+   kernels a step counted by the profiler in a fresh process and by the
+   kernel's own count (``[adam]``); and
    the run's total seconds (``[total]``).  Every training run above holds
    the Adam kernel's launches to its steps times the launches a step (one
    a 40 parameters), and every serving run to 0.
@@ -215,13 +219,15 @@ the same keys under ``ns2d``, ``ns3d``, ``s421``, ``superres``, ``1d``,
 ``ns3d_t20_256``, ``ns3d_t10_256``, ``ns3d_t9_256`` and ``fused_skips``,
 the contractions of one f32 darcy_s211 step with the skips as pieces;
 ``adam_step``, the Adam kernel, is timed at uno9's parameters only;
-``remap``, the spectrum remap, at ``ns3d`` and ``ns3d_t40_256`` only, and
-its launches a path on every path);
+``remap``, the spectrum remap, is timed at the Darcy path's (and so
+``dp_nccl``'s and ``remat``'s), ``export`` (the Darcy forward's),
+``fused_skips``, ``1d``, ``ns3d`` and ``ns3d_t40_256``, and has its
+launches on every path);
 the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits 1 and prints no result.
 
     python3 chip_smoke.py --dp-rank DIR   # one rank of [dp]/[dp-ns3d]/[tp]/[spatial] (started by the script)
-    python3 chip_smoke.py --adam-count    # [adam-fused]'s profiler count (started by the script)
+    python3 chip_smoke.py --adam-count    # [adam]'s profiler count (started by the script)
 """
 
 from __future__ import annotations
@@ -258,6 +264,7 @@ from uno_tpu_torch.ops.kernels import adam as adam_k
 from uno_tpu_torch.ops.kernels import cmul as cmul_k
 from uno_tpu_torch.ops.kernels import mlp_head as head_k
 from uno_tpu_torch.ops.kernels import remap as remap_k
+from uno_tpu_torch.ops import spectral
 from uno_tpu_torch.ops.spectral import (
     fourier_truncate_3d,
     set_dft_mode,
@@ -301,6 +308,7 @@ NS3D_PREDICT = 8 * BATCH  # the ns3d-predict phase's test split: 8 batches of 16
 NS3D_SPLIT = (32, 4, 4)  # the ns3d-train phase's generated split: 2 steps per epoch
 NS3D_CHECK_WIDTH = 4  # ns3d-cuda-vs-cpu: uno3d_t40 at width 4, 2 samples
 NS3D_REMAPS = 3 * 7  # remaps of a uno3d_t40 forward, and of its backward: 2 a conv, 1 a truncation
+DARCY_REMAPS = 2 * 5  # remaps of a uno9 bf16 forward, and of its backward: 2 a conv
 # (B, Ci, Co, M = 2*m1 * 2*m2 * m3) of uno3d_t40's seven spectral contractions at ns3d_t40
 NS3D_CMUL_SHAPES = [(16, 8, 16, 6400), (16, 16, 32, 3136), (16, 32, 64, 576),
                     (16, 64, 128, 1008), (16, 128, 32, 1008), (16, 64, 16, 7840),
@@ -367,6 +375,17 @@ def _adam_per_step(name: str, **kw) -> int:
     model, one parameter group: one a ``MAX_TENSORS`` of its parameters."""
     n = sum(1 for p in build_model(name, device="meta", **kw).parameters() if p.numel())
     return -(-n // adam_k.MAX_TENSORS)
+
+
+def _remaps(name: str, dtype: str, sample: tuple, **kw) -> int:
+    """The remaps of a forward of factory ``name``'s model on the FFT path,
+    and of its backward: those that ``spectral.REMAPS`` counts over one
+    forward of a ``sample``-shaped input at batch 1 on the card."""
+    model = build_model(name, dtype=dtype, device="cuda", **kw)
+    n0 = spectral.REMAPS["forward"]
+    with torch.inference_mode():
+        model(torch.zeros((1, *sample), device="cuda"))
+    return spectral.REMAPS["forward"] - n0
 
 
 def _zero_launches() -> None:
@@ -511,57 +530,92 @@ def phase_kernels(dev, cmul_shapes=CMUL_SHAPES, head_shape=HEAD_SHAPE,
     return res
 
 
-def phase_remap(dev, name: str, kw: dict, batch: int, size: int, t_in: int, t_f: int,
-                tag: str) -> dict:
-    """The remap kernel at every remap of one f32 training step of ``name``
-    (the forward and the backward, at the path's shapes), each launch
-    against the plain version on the card: the same bits, times in turns,
-    the bound (the destination written and the source elements its maps
-    read, each once, at the card's memory rate); summed over the step."""
+def phase_remap(dev, forward, what: str, tag: str) -> tuple:
+    """The remap kernel at every remap of one training step (``forward()``
+    gives its loss, whose backward follows), each launch against the plain
+    version on the card: the same bits, times in turns, the bound (the
+    destination written and the source elements its maps read, each once,
+    at the card's memory rate); summed over the step, and over its forward
+    alone: (the step's, the forward's)."""
     calls, launch = [], remap_k.remap
 
     def spy(src, p):
         calls.append((src, p))
         return launch(src, p)
 
-    model = build_model(name, device=dev, generator=torch.Generator().manual_seed(0), **kw)
-    g = torch.Generator().manual_seed(1)
-    xx = torch.randn((batch, size, size, t_in), generator=g).to(dev)
-    yy = torch.randn((batch, size, size, t_f), generator=g).to(dev)
     remap_k.remap = spy
     try:
-        relative_lp_loss(forecast(model, xx, t_f), yy).backward()
+        loss = forward()
+        n_fwd = len(calls)
+        loss.backward()
     finally:
         remap_k.remap = launch
-    del model, xx, yy
+    del loss
     flush = torch.ones(256 * 2**20, dtype=torch.uint8, device=dev)  # 5x the 50 MB L2
-    res = {}
-    for src, p in calls:
-        tables = p.tables(src.device)
+    step, fwd = {}, {}
+    for i, (src, p) in enumerate(calls):
         got, again = launch(src, p), launch(src, p)
-        want = remap_k.remap_plain(src, *tables, p.shape)
+        want = remap_k.remap_plain(src, p)
         torch.cuda.synchronize()
         if not (torch.equal(got, want) and torch.equal(got, again)):
             raise AssertionError(f"[{tag}] remap {tuple(src.shape)} -> {p.shape}: the kernel "
                                  f"differs from the plain version by "
                                  f"{float((got - want).abs().max())}, or between two runs")
         km, pm = _turns(lambda: launch(src, p),
-                        lambda: remap_k.remap_plain(src, *tables, p.shape), flush)
+                        lambda: remap_k.remap_plain(src, p), flush)
         d1, d2, d3 = p.shape
         axes = (p.tab[: 2 * d1], p.tab[2 * d1 : 2 * d1 + 2 * d2],
                 p.tab[2 * d1 + 2 * d2 : 2 * d1 + 2 * d2 + d3])
         read = math.prod(len({v for v in a if v >= 0}) for a in axes)
-        _add(res, "remap", 0.0, km, pm, _bound(8 * (got.numel() + src.shape[0] * src.shape[1]
-                                                  * read), 0.0), None)
+        bound = _bound(8 * (got.numel() + src.shape[0] * src.shape[1] * read), 0.0)
+        for res in (step, fwd) if i < n_fwd else (step,):
+            _add(res, "remap", 0.0, km, pm, bound, None)
         del got, again, want
-    r = res["remap"]
-    print(f"[{tag}] remap: {len(calls)} launches of a {name} f32 b{batch} training step, each "
-          f"equal bit for bit to the plain version and to itself; kernel {r['ms']:.4f} ms  "
-          f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms (bytes, summed)")
-    r.pop("flops_ms")
-    r.pop("bytes_ms")
-    r["bound_by"] = "bytes"
-    return r
+    n = len(calls)
+    calls.clear()
+    s, f = step["remap"], fwd["remap"]
+    for r in (s, f):
+        r.pop("flops_ms")
+        r.pop("bytes_ms")
+        r["bound_by"] = "bytes"
+    print(f"[{tag}] remap: the {n} launches of a {what} training step, each equal bit for bit to "
+          f"the plain version and to itself; step: kernel {s['ms']:.4f} ms  plain "
+          f"{s['plain_ms']:.4f} ms  bound {s['bound_ms']:.4f} ms (bytes, summed); its "
+          f"{n_fwd} forward launches: kernel {f['ms']:.4f} ms  plain {f['plain_ms']:.4f} ms  "
+          f"bound {f['bound_ms']:.4f} ms")
+    return s, f
+
+
+def _forecast_loss(dev, name: str, kw: dict, batch: int, size: int, t_in: int, t_f: int):
+    """``phase_remap``'s forward for a uno3d model: the loss of one
+    ``forecast`` on random frames."""
+    model = build_model(name, device=dev, generator=torch.Generator().manual_seed(0), **kw)
+    g = torch.Generator().manual_seed(1)
+    xx = torch.randn((batch, size, size, t_in), generator=g).to(dev)
+    yy = torch.randn((batch, size, size, t_f), generator=g).to(dev)
+    return lambda: relative_lp_loss(forecast(model, xx, t_f), yy)
+
+
+def _darcy_step_loss(dev, dtype: str):
+    """``phase_remap``'s forward for darcy_s211's uno9 in ``dtype`` (bf16:
+    its skips concatenated; f32: carried as channel pieces), batch 16."""
+    model = build_model("uno9", dtype=dtype, device=dev,
+                        generator=torch.Generator().manual_seed(0),
+                        **get_preset(PRESET).model_kwargs)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((BATCH, S, S, 1), generator=g).to(dev)
+    y = torch.randn((BATCH, S, S), generator=g).to(dev)
+    return lambda: _darcy_loss(model, x, y)
+
+
+def _block_1d_loss(dev):
+    """``phase_remap``'s forward for the 1-D OperatorBlock of ``ONE_D``."""
+    b, ci, co, n, d, m = ONE_D
+    blk = OperatorBlock(ci, co, (m,), normalize=True, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    x = torch.randn((b, ci, n), generator=torch.Generator().manual_seed(1)).to(dev)
+    x.requires_grad_()
+    return lambda: blk(x, (d,)).square().mean()
 
 
 def _head_cases(dev, head_shape, g, flush, res, tag: str, forward_only: bool = False) -> None:
@@ -675,7 +729,7 @@ def phase_predict(tmp: str, tag: str = "predict", dft: bool = False) -> list:
     if (batches != NPREDICT // BATCH or launches["cmul_fwd"] != (0 if dft else 5 * batches)
             or launches["mlp_head_fwd"] != batches or launches["cmul_bwd_x"]
             or launches["cmul_bwd_w"] or launches["mlp_head_bwd"] or launches["adam_step"]
-            or launches["remap"]):
+            or launches["remap"] != (0 if dft else DARCY_REMAPS * batches)):
         raise AssertionError(f"predict kernel launches {launches} over {batches} batches")
     print(f"[{tag}] {PRESET} uno9 bf16 b{BATCH} {report['spectral']} path: {batches} warm "
           f"batches, ms per batch {_spread(ms)} ({[round(v, 3) for v in ms]}; first run "
@@ -709,10 +763,10 @@ def phase_train(tmp: str, dev, tag: str = "train", dft: bool = False) -> tuple:
     want = {"cmul_fwd": 5 * (steps + evals), "cmul_bwd_x": 5 * steps,
             "cmul_bwd_w": 5 * steps, "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps,
             "adam_step": steps * _adam_per_step("uno9", **get_preset(PRESET).model_kwargs),
-            "remap": 0}
+            "remap": DARCY_REMAPS * (2 * steps + evals)}
     exact = ("mlp_head_fwd", "mlp_head_bwd", "adam_step", "remap")
-    if dft:  # the DFT path contracts with an einsum: no contraction kernel
-        want.update(cmul_fwd=0, cmul_bwd_x=0, cmul_bwd_w=0)
+    if dft:  # the DFT path contracts with an einsum: no contraction or remap kernel
+        want.update(cmul_fwd=0, cmul_bwd_x=0, cmul_bwd_w=0, remap=0)
         exact = tuple(want)
     if any(launches[k] < v if k not in exact else launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{tag} kernel launches {launches}, expected {want} "
@@ -925,8 +979,11 @@ def phase_ns_predict(tmp: str) -> list:
     if pred.shape != (NS_PREDICT, NS_S, NS_S, t_f) or not np.isfinite(pred).all():
         raise AssertionError(f"ns-predict output: shape {pred.shape}, "
                              f"finite {np.isfinite(pred).all()}")
+    preset = get_preset(NS_PRESET)
+    remaps = _remaps(preset.model, "bfloat16", (NS_S, NS_S, preset.t_in), **preset.model_kwargs)
     if (batches != NS_PREDICT // BATCH or launches["cmul_fwd"] != 7 * t_f * batches
             or launches["mlp_head_fwd"] != t_f * batches
+            or launches["remap"] != remaps * t_f * batches
             or launches["cmul_bwd_x"] or launches["cmul_bwd_w"] or launches["mlp_head_bwd"]):
         raise AssertionError(f"ns-predict kernel launches {launches} over {batches} batches")
     print(f"[ns-predict] {NS_PRESET} uno bf16 b{BATCH} T_f={t_f}: {batches} warm batches, ms per "
@@ -967,10 +1024,13 @@ def phase_ns_train(tmp: str, dev, tag: str = "ns-train") -> tuple:
     evals = len(evaluated) * -(-nval // BATCH) + -(-ntest // BATCH)  # forward-only batches
     # each training step runs every rollout step's forward twice (the
     # checkpoint's recompute) and its backward once
+    preset = get_preset(NS_PRESET)
     want = {"cmul_fwd": 7 * t_f * (2 * steps + evals), "cmul_bwd_x": 7 * t_f * steps,
             "cmul_bwd_w": 7 * t_f * steps, "mlp_head_fwd": t_f * (2 * steps + evals),
-            "mlp_head_bwd": t_f * steps, "adam_step": steps * _adam_per_step(
-                get_preset(NS_PRESET).model, **get_preset(NS_PRESET).model_kwargs), "remap": 0}
+            "mlp_head_bwd": t_f * steps,
+            "adam_step": steps * _adam_per_step(preset.model, **preset.model_kwargs),
+            "remap": _remaps(preset.model, "bfloat16", (NS_S, NS_S, preset.t_in),
+                             **preset.model_kwargs) * t_f * (3 * steps + evals)}
     if launches != want:
         raise AssertionError(f"{tag} kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
@@ -1160,7 +1220,9 @@ def phase_s421_train(mat: str, dev) -> tuple:
     preset = get_preset(S421_PRESET)
     want = {"cmul_fwd": 7 * (steps + evals), "cmul_bwd_x": 7 * steps, "cmul_bwd_w": 7 * steps,
             "mlp_head_fwd": steps + evals, "mlp_head_bwd": steps,
-            "adam_step": steps * _adam_per_step(preset.model, **preset.model_kwargs), "remap": 0}
+            "adam_step": steps * _adam_per_step(preset.model, **preset.model_kwargs),
+            "remap": _remaps(preset.model, "bfloat16", (S421, S421, 1), **preset.model_kwargs)
+            * (2 * steps + evals)}
     if launches != want:
         raise AssertionError(f"s421-train kernel launches {launches}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
@@ -1196,6 +1258,7 @@ def phase_s421_predict(tmp: str, mat: str) -> list:
                              f"finite {np.isfinite(pred).all()}")
     if (report["spectral"] != "fft" or report["dtype"] != "bfloat16"
             or batches != S421_GEN_N // S421_BATCH or launches["cmul_fwd"] != 7 * batches
+            or launches["remap"] != 2 * 7 * batches
             or launches["mlp_head_fwd"] != batches or launches["cmul_bwd_x"]
             or launches["cmul_bwd_w"] or launches["mlp_head_bwd"]):
         raise AssertionError(f"s421-predict: {report['spectral']} path, kernel launches "
@@ -1231,7 +1294,7 @@ def phase_superres(tmp: str, dev, mat: str) -> dict:
     res = evaluate_superres(model, x_lo, y_lo, x_hi, y_hi, batch_size=SR_BATCH)
     launches = _launches()
     want = {"cmul_fwd": 2 * 5, "cmul_bwd_x": 0, "cmul_bwd_w": 0, "mlp_head_fwd": 2,
-            "mlp_head_bwd": 0, "adam_step": 0, "remap": 0}
+            "mlp_head_bwd": 0, "adam_step": 0, "remap": 2 * DARCY_REMAPS}
     if not all(np.isfinite(v) for v in res.values()) or launches != want:
         raise AssertionError(f"superres: {res}, launches {launches}, expected {want}")
     print(f"[superres] {PRESET} uno9 bf16 trained {SR_EPOCHS} epochs on ::2 of the s421 file "
@@ -1310,8 +1373,8 @@ def phase_dft3d(tmp: str, dev, fft_predict_ms: list, fft_train_ms: list) -> None
 def phase_1d(dev) -> dict:
     """A 1-D OperatorBlock (normalised, 1024 -> 512 points, 64 modes) card
     against CPU, the forward and every gradient, f32 and bf16, on the FFT
-    path (one contraction of each use) and the DFT path (none); returns the
-    FFT path's launches."""
+    path (one contraction of each use, two remaps each way) and the DFT
+    path (none); returns the FFT path's launches."""
     b, ci, co, n, d, m = ONE_D
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.standard_normal((b, ci, n)).astype(np.float32))
@@ -1337,7 +1400,7 @@ def phase_1d(dev) -> dict:
                 moved = {k: v - c0[k] for k, v in _launches().items()}
                 want = {k: 0 for k in moved}
                 if not dft:
-                    want.update(cmul_fwd=1, cmul_bwd_x=1, cmul_bwd_w=1)
+                    want.update(cmul_fwd=1, cmul_bwd_x=1, cmul_bwd_w=1, remap=4)
                     fft_launches = moved
                 rels = [_rel(g, w) for g, w in zip(res[1], res[0])]
                 # the norm cancels the 1x1 conv's bias: its gradient is
@@ -1404,13 +1467,15 @@ def _param_rels(got: dict, want: dict) -> dict:
 
 def _darcy_want(steps: int, evals: int, heads: bool) -> dict:
     """uno9's launches over ``steps`` training steps and ``evals`` forward-only
-    batches: 5 contractions a forward, the head under bf16, the Adam kernel
-    a step."""
-    h = int(heads)
+    batches: 5 contractions a forward, the head and bf16's remaps where
+    ``heads`` (f32's remaps, a skip as two pieces, where not), the Adam
+    kernel a step."""
+    h, kw = int(heads), get_preset(PRESET).model_kwargs
     return {"cmul_fwd": 5 * (steps + evals), "cmul_bwd_x": 5 * steps, "cmul_bwd_w": 5 * steps,
             "mlp_head_fwd": h * (steps + evals), "mlp_head_bwd": h * steps,
-            "adam_step": steps * _adam_per_step("uno9", **get_preset(PRESET).model_kwargs),
-            "remap": 0}
+            "adam_step": steps * _adam_per_step("uno9", **kw),
+            "remap": _remaps("uno9", "bfloat16" if heads else "float32", (S, S, 1), **kw)
+            * (2 * steps + evals)}
 
 
 def phase_dp_nccl(tmp: str) -> dict:
@@ -1656,9 +1721,10 @@ def phase_dp(tmp: str, dev) -> tuple:
     launches["tp"] = _check_mesh_run(
         "tp", "tp", ranks, ref["darcy"], darcy_want,
         _shapes(TP_CMUL_SHAPES, steps + evals, steps), (DP_TRAIN_REL, DP_WEIGHT_REL))
-    # split: every rank contracts the whole reduced modes, at batch 16
+    # split: every rank contracts the whole reduced modes, at batch 16; the
+    # split axis goes through a partial DFT: no remap
     launches["spatial"] = _check_mesh_run(
-        "spatial", "spatial", ranks, ref["darcy"], darcy_want,
+        "spatial", "spatial", ranks, ref["darcy"], dict(darcy_want, remap=0),
         _shapes(CMUL_SHAPES, steps + evals, steps), (DP_TRAIN_REL, DP_WEIGHT_REL))
     # the split path transforms the split axis by a partial DFT: no remap
     launches["spatial_ns3d"] = _check_mesh_run(
@@ -1697,7 +1763,8 @@ def phase_remat(tmp: str, dev) -> dict:
     evals = REMAT_EPOCHS * (NVAL // BATCH) + NTEST // BATCH
     want = _darcy_want(steps, evals, heads=True)
     # the recompute runs each block's forward once more in the backward
-    want_remat = dict(want, cmul_fwd=want["cmul_fwd"] + 5 * steps)
+    want_remat = dict(want, cmul_fwd=want["cmul_fwd"] + 5 * steps,
+                      remap=want["remap"] + DARCY_REMAPS * steps)
     if (len(losses[0]) != len(losses[1]) or not losses[0] or loss_rel > REMAT_REL
             or max(rels.values()) > REMAT_REL or runs[False]["launches"] != want
             or runs[True]["launches"] != want_remat):
@@ -1732,7 +1799,7 @@ def phase_head_switch(tmp: str) -> None:
     batches = len(report["batch_ms"])
     rel = float(np.linalg.norm(unfused - kernel) / np.linalg.norm(kernel))
     want = {"cmul_fwd": 5 * batches, "cmul_bwd_x": 0, "cmul_bwd_w": 0, "mlp_head_fwd": 0,
-            "mlp_head_bwd": 0, "adam_step": 0, "remap": 0}
+            "mlp_head_bwd": 0, "adam_step": 0, "remap": DARCY_REMAPS * batches}
     if report["fused_head"] or launches != want or not rel <= HEAD_REL:
         raise AssertionError(f"[head-switch]: fused_head {report['fused_head']}, launches "
                              f"{launches} (expected {want}), rel-L2 {rel} (bound {HEAD_REL})")
@@ -1816,8 +1883,10 @@ def phase_export(tmp: str, dev) -> dict:
     batches = len(xs) // BATCH
     launches = served["launches"]
     want = {"cmul_fwd": 5 * batches, "cmul_bwd_x": 0, "cmul_bwd_w": 0,
-            "mlp_head_fwd": batches, "mlp_head_bwd": 0, "adam_step": 0, "remap": 0}
-    if (rel > EXPORT_REL or served["nodes"] != {CONTRACT_OP: 5, HEAD_OP: 1}
+            "mlp_head_fwd": batches, "mlp_head_bwd": 0, "adam_step": 0,
+            "remap": DARCY_REMAPS * batches}
+    if (rel > EXPORT_REL or served["nodes"] != {CONTRACT_OP: 5, HEAD_OP: 1,
+                                                 REMAP_OP: DARCY_REMAPS}
             or launches != want or served["modules"] or len(served["ms"]) != batches):
         raise AssertionError(f"export: rel-L2 {rel} (bound {EXPORT_REL}), nodes "
                              f"{served['nodes']}, launches {launches} (expected {want}), model "
@@ -1835,7 +1904,8 @@ def phase_export(tmp: str, dev) -> dict:
     for name, shape, nodes, remaps in (
             (NS3D_PRESET, (BATCH, NS_S, NS_S, 10, 1), {CONTRACT_OP: 7, REMAP_OP: NS3D_REMAPS},
              2 * NS3D_REMAPS),
-            (NS_PRESET, (BATCH, NS_S, NS_S, 10), {CONTRACT_OP: 7, HEAD_OP: 1}, 0)):
+            (NS_PRESET, (BATCH, NS_S, NS_S, 10), {CONTRACT_OP: 7, HEAD_OP: 1, REMAP_OP: 14},
+             2 * 14)):
         p = get_preset(name)
         model = build_model(p.model, dtype="bfloat16", device=dev,
                             generator=torch.Generator().manual_seed(0), **p.model_kwargs).eval()
@@ -2142,7 +2212,7 @@ def _card_vs_cpu(tag: str, dev, name: str, kw: dict, x, y, fwd, loss, head: bool
         gpu.load_state_dict(cpu.state_dict())
         res = []
         for model, d in ((cpu, "cpu"), (gpu, dev)):
-            c0 = _launches()
+            c0, r0 = _launches(), sum(spectral.REMAPS.values())
             with torch.inference_mode():
                 out = fwd(model, x.to(d))
             value = loss(model, x.to(d), y.to(d))
@@ -2150,9 +2220,11 @@ def _card_vs_cpu(tag: str, dev, name: str, kw: dict, x, y, fwd, loss, head: bool
             res.append((out, value.detach(), torch.cat([
                 torch.view_as_real(p.grad).flatten() if p.is_complex() else p.grad.flatten()
                 for p in model.parameters()])))
+            if d == "cpu":  # the card launches a kernel for each remap the CPU ran
+                cpu_remaps = sum(spectral.REMAPS.values()) - r0
         moved = {k: v - c0[k] for k, v in _launches().items()}
-        want = _want(nb, 1, 1, head and dtype == "bfloat16", fwd_step=2 * reps if t_f else 1,
-                     fwd_eval=reps, bwd_step=reps, remap=3 * nb * (spec.ndim == 3))
+        want = dict(_want(nb, 1, 1, head and dtype == "bfloat16", fwd_step=2 * reps if t_f else 1,
+                          fwd_eval=reps, bwd_step=reps), remap=cpu_remaps)
         ro, rl, rg = (_rel(g, w) for g, w in zip(res[1], res[0]))
         if not (torch.isfinite(res[1][0]).all() and torch.isfinite(res[1][2]).all()
                 and ro <= E2E_REL[dtype] and max(rl, rg) <= GRAD_REL[dtype] and moved == want):
@@ -2199,12 +2271,15 @@ def phase_s85(tmp: str, dev) -> dict:
     shapes, head = _variant_shapes("uno9", BATCH, **get_preset(S85_PRESET).model_kwargs)
     run = _train_run(dev, lambda: _run_cli(["train", *split, "--generate",
                                             "--epochs", str(EPOCHS)]))
+    kw = get_preset(S85_PRESET).model_kwargs
     _check_train("s85-train", f"{S85_PRESET} uno9 bf16 b{BATCH}, generated {sum(S85_SPLIT)} "
                  f"samples at 85x85", run, shapes, True, BATCH, nval, ntest,
-                 _adam_per_step("uno9", **get_preset(S85_PRESET).model_kwargs))
+                 _adam_per_step("uno9", **kw),
+                 remap=_remaps("uno9", "bfloat16", (85, 85, 1), **kw))
     out = os.path.join(tmp, "s85_preds.npz")
     _cli_predict("s85-predict", ["predict", *split, "--init-seed", "0", "--split", "test",
-                                 "--out", out], out, (ntest, 85, 85), len(shapes), True)
+                                 "--out", out], out, (ntest, 85, 85), len(shapes), True,
+                 remap=_remaps("uno9", "bfloat16", (85, 85, 1), **kw))
     return run[1]
 
 
@@ -2261,14 +2336,17 @@ def phase_s256(tmp: str, dev) -> dict:
     bs = preset.train.batch_size
     shapes, _ = _variant_shapes(preset.model, bs, **preset.model_kwargs)
     run = _train_run(dev, lambda: _run_cli(["train", *split, "--epochs", str(EPOCHS)]))
+    remaps = _remaps(preset.model, "bfloat16", (preset.size, preset.size, preset.t_in),
+                     **preset.model_kwargs)
     _check_train("s256-train", f"{S256_PRESET} uno_s256 bf16 b{bs} T_f={preset.t_f} BPTT, a "
                  f"synthetic {preset.size}x{preset.size} split", run, shapes, False, bs, nval,
-                 ntest, _adam_per_step(preset.model, **preset.model_kwargs), t_f=preset.t_f)
+                 ntest, _adam_per_step(preset.model, **preset.model_kwargs), t_f=preset.t_f,
+                 remap=remaps)
     out = os.path.join(tmp, "s256_preds.npz")
     _cli_predict("s256-predict", ["predict", *split, "--init-seed", "0", "--split", "test",
                                   "--out", out],
                  out, (ntest, preset.size, preset.size, preset.t_f), len(shapes), False,
-                 per_batch=preset.t_f)
+                 per_batch=preset.t_f, remap=remaps)
     return run[1]
 
 
@@ -2286,13 +2364,15 @@ def phase_uno_p(tmp: str, dev) -> dict:
     _check_train("uno-p-train", f"uno_p width {UNO_P_KW['width']} bf16 b{BATCH} "
                  f"T_f={preset.t_f} BPTT, train_ns2d on the generated ns2d split", run, shapes,
                  False, BATCH, len(split[2]), len(split[4]), _adam_per_step("uno_p", **UNO_P_KW),
-                 t_f=preset.t_f)
+                 t_f=preset.t_f, remap=_remaps("uno_p", "bfloat16", (NS_S, NS_S, preset.t_in),
+                                               **UNO_P_KW))
     xs = _load_split(os.path.join(tmp, "ns2d.npz"))[4][: SERVE_BATCHES * BATCH]
     rollout = _rollout_fns(preset.t_f)[0]
     model.eval()
     _serve("uno-p-predict", f"uno_p bf16 rollout T_f={preset.t_f}", dev,
            lambda x: rollout(model, x), xs, BATCH, (NS_S, NS_S, preset.t_f),
-           len(shapes), False, per_batch=preset.t_f)
+           len(shapes), False, per_batch=preset.t_f,
+           remap=_remaps("uno_p", "bfloat16", (NS_S, NS_S, preset.t_in), **UNO_P_KW))
     return run[1]
 
 
@@ -2308,11 +2388,13 @@ def phase_uno_demo(tmp: str, dev) -> dict:
     run = _train_run(dev, _trainer(model, train_darcy, split, cfg))
     _check_train("uno-demo-train", f"uno_demo width {DEMO_KW['width']} pad 8 bf16 b{BATCH} at "
                  f"{S}x{S}, train_darcy", run, shapes, True, BATCH, len(split[2]), len(split[4]),
-                 _adam_per_step("uno_demo", **DEMO_KW))
+                 _adam_per_step("uno_demo", **DEMO_KW),
+                 remap=_remaps("uno_demo", "bfloat16", (S, S, 1), **DEMO_KW))
     xs = _load_split(os.path.join(tmp, "darcy_s211.npz"))[4][: SERVE_BATCHES * BATCH]
     model.eval()
     _serve("uno-demo-predict", "uno_demo bf16 forward", dev, model, xs, BATCH,
-           (S, S, 1), len(shapes), True)
+           (S, S, 1), len(shapes), True, remap=_remaps("uno_demo", "bfloat16", (S, S, 1),
+                                                       **DEMO_KW))
     return run[1]
 
 
@@ -2403,9 +2485,9 @@ def phase_variant_kernels(dev) -> dict:
 FUSED_REL, FUSED_BF16_REL = 1e-5, 2e-2  # [fused-skips]: fused against materialized
 FUSED_CPU_REL = 1e-4  # [fused-skips]: the fused form on the card against the CPU
 FUSED_STEPS, FUSED_SERVES = 12, 8  # [fused-skips] darcy_s211: timed steps, served batches a form
-ADAM_STEPS, ADAM_REPS = 20, 50  # [adam-fused]: steps held bit for bit; steps timed a form
-ADAM_KERNEL_REPS, ADAM_ULPS = 40, 2  # [adam-fused]: kernel launches timed; ulps from plain
-ADAM_COUNTED = 10  # [adam-fused]: steps whose launches are counted
+ADAM_STEPS, ADAM_REPS = 20, 50  # [adam]: steps held against plain; optimizer steps timed
+ADAM_KERNEL_REPS, ADAM_ULPS = 40, 2  # [adam]: kernel launches timed; ulps from plain
+ADAM_COUNTED = 10  # [adam]: steps whose launches are counted
 KERNEL_COUNT_PAD = 0.05  # s of idle on each side of a profiler-counted call
 NO_FUSED = "UNO_TPU_TORCH_NO_FUSED_SKIPS"
 FORMS = {"fused": {}, "materialized": {NO_FUSED: 1}}  # the skip forms: their environment
@@ -2486,6 +2568,7 @@ def _skip_case(dev, preset_name: str, batch: int, seed: int) -> dict:
         f" T_f={preset.t_f} rollout" if preset.task == "ns2d" else "")
     return dict(model=model, serve=serve, step=step, what=what, x=x, y=y,
                 nb=len(model.spec.blocks), rollout=preset.t_f if preset.task == "ns2d" else 1,
+                name=preset.model, kw=preset.model_kwargs,
                 adam=_adam_per_step(preset.model, **preset.model_kwargs))
 
 
@@ -2511,10 +2594,13 @@ def _time_forms(dev, case: dict, steps: int, serves: int) -> dict:
             res[form]["step_ms"] += [_host_ms(case["step"]) for _ in range(steps // 2)]
             res[form]["serve_ms"] += [_host_ms(case["serve"]) for _ in range(max(serves // 2, 1))]
     nb, reps = case["nb"], case["rollout"]
-    want = {"cmul_fwd": nb * reps * (2 if reps > 1 else 1), "cmul_bwd_x": nb * reps,
-            "cmul_bwd_w": nb * reps, "mlp_head_fwd": 0, "mlp_head_bwd": 0,
-            "adam_step": case["adam"], "remap": 0}
+    fwd = reps * (2 if reps > 1 else 1)
     for form, r in res.items():
+        with _env(**FORMS[form]):
+            remaps = _remaps(case["name"], "float32", tuple(case["x"].shape[1:]), **case["kw"])
+        want = {"cmul_fwd": nb * fwd, "cmul_bwd_x": nb * reps, "cmul_bwd_w": nb * reps,
+                "mlp_head_fwd": 0, "mlp_head_bwd": 0, "adam_step": case["adam"],
+                "remap": remaps * (fwd + reps)}
         if r["launches"] != want:
             raise AssertionError(f"[fused-skips] {case['what']} {form}: kernel launches a step "
                                  f"{r['launches']}, expected {want}")
@@ -2598,62 +2684,45 @@ def phase_fused_skips(dev) -> dict:
     return res["fused"]["launches"]
 
 
-def phase_adam_fused(dev) -> dict:
-    """``ComplexAdam(fused=True)`` against ``fused=False`` on uno9's
-    darcy_s211 parameters on the card, f32, both through the Adam kernel:
-    ADAM_STEPS steps of the same gradients must leave parameters and
-    moments bit-equal, and within ADAM_ULPS of the plain sequence of torch
-    ops on the card; then the kernel's ms a step (median of ADAM_KERNEL_REPS
-    launches, L2 flushed) against its bound, and each form's ms per step
-    (CUDA events, median of ADAM_REPS), host to host ms, and kernels per
-    step by the profiler (``adam_count_main``) and by the kernel's own
-    count, which must agree.
-    Returns the kernel's entry of the kernels line at these shapes."""
+def phase_adam(dev) -> dict:
+    """``ComplexAdam`` on uno9's darcy_s211 parameters on the card, f32,
+    through the Adam kernel: ADAM_STEPS steps, against the plain sequence of
+    torch ops on the card given the same gradients, within ADAM_ULPS; then
+    the kernel's ms a step (median of ADAM_KERNEL_REPS launches, L2
+    flushed) against its bound, the optimizer's ms per step (CUDA events,
+    median of ADAM_REPS), host to host ms, and kernels per step by the
+    profiler (``adam_count_main``) and by the kernel's own count, which
+    must agree.  Returns the kernel's entry of the kernels line at these
+    shapes."""
     model = build_model("uno9", device=dev, generator=torch.Generator().manual_seed(0),
                         **get_preset(PRESET).model_kwargs)
-    forms = {}
-    for fused in (False, True):
-        params = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
-        opt = ComplexAdam(params, lr=step_lr(1e-3, 100, 0.5, 4), weight_decay=1e-4, fused=fused)
-        forms[fused] = (params, opt)
+    ref = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+    opt = ComplexAdam(ref, lr=step_lr(1e-3, 100, 0.5, 4), weight_decay=1e-4)
     plain = [p.detach().clone() for p in model.parameters()]
     states = [_zero_state(p, False) for p in plain]
-    group = forms[False][1].param_groups[0]
+    group = opt.param_groups[0]
     g = torch.Generator(device=dev).manual_seed(2)
     for k in range(1, ADAM_STEPS + 1):
-        for p, q in zip(forms[False][0], forms[True][0]):
+        for p in ref:
             p.grad = torch.randn(p.shape, dtype=p.dtype, device=dev, generator=g)
-            q.grad = p.grad.clone()
         adam_k.adam_plain(group, [adam_k.Slot(q, p.grad, s["exp_avg"], s["exp_avg_sq"], None, k)
-                                  for p, q, s in zip(forms[False][0], plain, states)])
-        forms[False][1].step()
-        forms[True][1].step()
+                                  for p, q, s in zip(ref, plain, states)])
+        opt.step()
     torch.cuda.synchronize()
-    (ref, ref_opt), (fus, fus_opt) = forms[False], forms[True]
-    diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(ref, fus))
-    flat = fus_opt.state["flat0"]
-    for dt in {str(p.dtype) for p in ref}:
-        ps = [p for p in ref if str(p.dtype) == dt]
-        for key in ("exp_avg", "exp_avg_sq"):
-            want = torch.cat([ref_opt.state[p][key].reshape(-1) for p in ps])
-            diff = max(diff, float((flat[dt][key] - want).abs().max()))
-    if diff != 0.0:
-        raise AssertionError(f"[adam-fused] fused against per-parameter after {ADAM_STEPS} "
-                             f"steps: max abs difference {diff}")
     ulps = {"p": max(adam_k.ulps(p, q) for p, q in zip(ref, plain))}
     for key in ("exp_avg", "exp_avg_sq"):
-        ulps[key] = max(adam_k.ulps(ref_opt.state[p][key], s[key]) for p, s in zip(ref, states))
+        ulps[key] = max(adam_k.ulps(opt.state[p][key], s[key]) for p, s in zip(ref, states))
     for real in (True, False):
         ulps["p real" if real else "p complex"] = max(
             (adam_k.ulps(p, q) for p, q in zip(ref, plain) if p.is_complex() != real), default=0)
     plain_err = max(float((p.detach() - q).abs().max()) for p, q in zip(ref, plain))
     if max(ulps.values()) > ADAM_ULPS:
-        raise AssertionError(f"[adam-fused] the kernel against the plain sequence after "
+        raise AssertionError(f"[adam] the kernel against the plain sequence after "
                              f"{ADAM_STEPS} steps: ulps {ulps} (bound {ADAM_ULPS})")
     # the kernel alone: one step's table, packed once, launched ADAM_KERNEL_REPS times
     for p in ref:
         p.grad = torch.randn(p.shape, dtype=p.dtype, device=dev, generator=g)
-    launches = adam_k.pack(group, ref_opt._slots(group)[1], _build.device_limits(dev.index)[0])
+    launches = adam_k.pack(group, opt._slots(group)[1], _build.device_limits(dev.index)[0])
     flush = torch.ones(256 * 2**20, dtype=torch.uint8, device=dev)  # 5x the 50 MB L2
     kernel_ms = statistics.median(_time_ms(lambda: adam_k.launch(launches, dev), flush,
                                            ADAM_KERNEL_REPS))
@@ -2665,19 +2734,15 @@ def phase_adam_fused(dev) -> dict:
     n_real = sum(p.numel() for p in ref if not p.is_complex())
     # read p, g, mu, nu and write p, mu, nu: 48 bytes a complex64 element, 28 an f32 one
     bound, by = _bound(48.0 * n_cplx + 28.0 * n_real, 0.0)
-    timing = {}
-    for fused in (False, True, True, False):  # in turns
-        opt = forms[fused][1]
-        ms = []
-        for _ in range(ADAM_REPS // 2):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            opt.step()
-            b.record()
-            torch.cuda.synchronize()
-            ms.append(a.elapsed_time(b))
-        timing.setdefault(fused, []).extend(ms)
-    print(f"[adam-fused] kernel {kernel_ms:.4f} ms a step (median of {ADAM_KERNEL_REPS} "
+    timing = []
+    for _ in range(ADAM_REPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        opt.step()
+        b.record()
+        torch.cuda.synchronize()
+        timing.append(a.elapsed_time(b))
+    print(f"[adam] kernel {kernel_ms:.4f} ms a step (median of {ADAM_KERNEL_REPS} "
           f"launches, L2 flushed)  plain {plain_ms:.4f} ms (the torch ops, paced by the host)  "
           f"bound {bound:.4f} ms ({by}: {n_cplx} complex64 and {n_real} f32 numbers)  "
           f"{len(launches)} launch, {launches[0].blocks} blocks")
@@ -2686,52 +2751,44 @@ def phase_adam_fused(dev) -> dict:
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--adam-count"],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
-        raise AssertionError(f"[adam-fused] the counting process exited {proc.returncode}:\n"
+        raise AssertionError(f"[adam] the counting process exited {proc.returncode}:\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
-    counted = json.loads(proc.stdout.strip().splitlines()[-1])
-    for fused in (False, True):
-        opt = forms[fused][1]
-        host = statistics.median(_host_ms(opt.step) for _ in range(10))
-        before = adam_k.LAUNCHES["step"]
-        for _ in range(ADAM_COUNTED):
-            opt.step()
-        launches = adam_k.LAUNCHES["step"] - before
-        seen = counted[str(fused)]
-        if seen != ADAM_COUNTED or launches != ADAM_COUNTED:
-            raise AssertionError(f"[adam-fused] fused={fused}: {ADAM_COUNTED} steps, {seen} "
-                                 f"kernels (profiler), {launches} launches (the kernel's "
-                                 f"count)")
-        print(f"[adam-fused] uno9 {PRESET} f32, {len(ref)} parameters ({n_cplx + n_real} "
-              f"numbers), fused={fused}: ms per optimizer step {_spread(timing[fused])} (CUDA "
-              f"events, {len(timing[fused])} steps); host to host median {host:.3f}; kernels "
-              f"a step {seen / ADAM_COUNTED:g} (profiler, a fresh process), "
-              f"{launches / ADAM_COUNTED:g} (the kernel's launches, this process)")
-    print(f"[adam-fused] fused against per-parameter after {ADAM_STEPS} steps of the same "
-          f"gradients: parameters and moments max abs difference {diff}; the kernel against "
-          f"the plain sequence: largest gap in ulps {ulps} (bound {ADAM_ULPS})")
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])["kernels"]
+    host = statistics.median(_host_ms(opt.step) for _ in range(10))
+    before = adam_k.LAUNCHES["step"]
+    for _ in range(ADAM_COUNTED):
+        opt.step()
+    counted = adam_k.LAUNCHES["step"] - before
+    if seen != ADAM_COUNTED or counted != ADAM_COUNTED:
+        raise AssertionError(f"[adam] {ADAM_COUNTED} steps, {seen} kernels (profiler), "
+                             f"{counted} launches (the kernel's count)")
+    print(f"[adam] uno9 {PRESET} f32, {len(ref)} parameters ({n_cplx + n_real} numbers): ms "
+          f"per optimizer step {_spread(timing)} (CUDA events, {len(timing)} steps); host to "
+          f"host median {host:.3f}; kernels a step {seen / ADAM_COUNTED:g} (profiler, a fresh "
+          f"process), {counted / ADAM_COUNTED:g} (the kernel's launches, this process); the "
+          f"kernel against the plain sequence after {ADAM_STEPS} steps: largest gap in ulps "
+          f"{ulps} (bound {ADAM_ULPS})")
     return dict(max_abs_err=plain_err, max_ulps=max(ulps.values()), ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=bound, bytes_ms=bound, flops_ms=0.0,
                 library_ms=None)
 
 
 def adam_count_main() -> int:
-    """``[adam-fused]``'s profiler count, in a fresh process: uno9's
-    darcy_s211 parameters on the card in each ``ComplexAdam`` form, one
-    warm step, then the kernels of ADAM_COUNTED steps in one window;
-    prints them as a JSON line keyed by the form."""
+    """``[adam]``'s profiler count, in a fresh process: uno9's darcy_s211
+    parameters on the card under ``ComplexAdam``, one warm step, then the
+    kernels of ADAM_COUNTED steps in one window; prints them as a JSON
+    line."""
     dev = torch.device("cuda", 0)
     model = build_model("uno9", device=dev, generator=torch.Generator().manual_seed(0),
                         **get_preset(PRESET).model_kwargs)
     g = torch.Generator(device=dev).manual_seed(2)
-    seen = {}
-    for fused in (False, True):
-        params = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
-        for p in params:
-            p.grad = torch.randn(p.shape, dtype=p.dtype, device=dev, generator=g)
-        opt = ComplexAdam(params, lr=step_lr(1e-3, 100, 0.5, 4), weight_decay=1e-4, fused=fused)
-        opt.step()
-        seen[str(fused)] = _kernel_count(lambda: [opt.step() for _ in range(ADAM_COUNTED)])
-    print(json.dumps(seen))
+    params = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+    for p in params:
+        p.grad = torch.randn(p.shape, dtype=p.dtype, device=dev, generator=g)
+    opt = ComplexAdam(params, lr=step_lr(1e-3, 100, 0.5, 4), weight_decay=1e-4)
+    opt.step()
+    print(json.dumps({"kernels": _kernel_count(
+        lambda: [opt.step() for _ in range(ADAM_COUNTED)])}))
     return 0
 
 
@@ -2744,8 +2801,13 @@ def main() -> int:
     ns_times = phase_kernels(dev, NS_CMUL_SHAPES, NS_HEAD_SHAPE, "kernels ns2d")
     ns3d_times = phase_kernels(dev, NS3D_CMUL_SHAPES, None, "kernels ns3d")
     ns3d = get_preset(NS3D_PRESET)
-    ns3d_times["remap"] = phase_remap(dev, ns3d.model, ns3d.model_kwargs, BATCH, NS_S,
-                                      ns3d.t_in, ns3d.t_f, "kernels ns3d")
+    ns3d_times["remap"] = phase_remap(
+        dev, _forecast_loss(dev, ns3d.model, ns3d.model_kwargs, BATCH, NS_S, ns3d.t_in, ns3d.t_f),
+        f"{ns3d.model} f32 b{BATCH}", "kernels ns3d")[0]
+    times["remap"], export_remap = phase_remap(dev, _darcy_step_loss(dev, "bfloat16"),
+                                               f"uno9 bf16 b{BATCH}", "kernels")
+    pieces_remap = phase_remap(dev, _darcy_step_loss(dev, "float32"),
+                               f"uno9 f32 b{BATCH} (skips as channel pieces)", "kernels")[0]
     s421_times = phase_kernels(dev, S421_CMUL_SHAPES, S421_HEAD_SHAPE, "kernels s421")
     sr_times = phase_kernels(dev, SR_CMUL_SHAPES, SR_HEAD_SHAPE, "kernels s421 superres",
                              forward_only=True)
@@ -2756,8 +2818,11 @@ def main() -> int:
     spatial_times = phase_kernels(dev, CMUL_SHAPES, None, "kernels spatial")
     variant_times = phase_variant_kernels(dev)
     variant_times["ns3d_t40_256"]["remap"] = phase_remap(
-        dev, "uno3d_t40_256", NS3D_256_KW, NS3D_256_BATCH, NS3D_256_S,
-        *NS3D_256["uno3d_t40_256"], "kernels ns3d-t40-256")
+        dev, _forecast_loss(dev, "uno3d_t40_256", NS3D_256_KW, NS3D_256_BATCH, NS3D_256_S,
+                            *NS3D_256["uno3d_t40_256"]),
+        f"uno3d_t40_256 f32 b{NS3D_256_BATCH}", "kernels ns3d-t40-256")[0]
+    oned_times["remap"] = phase_remap(dev, _block_1d_loss(dev), "1-D OperatorBlock f32",
+                                      "kernels 1d")[0]
     with tempfile.TemporaryDirectory() as tmp:
         fft_predict_ms = phase_predict(tmp)
         phase_head_switch(tmp)
@@ -2800,7 +2865,7 @@ def main() -> int:
     oned_launches = phase_1d(dev)
     phase_variants_cuda_vs_cpu(dev)
     fused_launches = phase_fused_skips(dev)
-    times["adam_step"] = phase_adam_fused(dev)  # uno9's parameters: the Darcy paths'
+    times["adam_step"] = phase_adam(dev)  # uno9's parameters: the Darcy paths'
     # top level: the Darcy path (darcy_s211 shapes, launches of its train
     # run); "ns2d", "ns3d", "s421" (darcy_s421: its train run), "superres"
     # (the super-resolution evaluation at 421, forward only) and "1d" (the
@@ -2816,8 +2881,13 @@ def main() -> int:
     # whole reduced modes, the Darcy and NS-3D shapes); then the variants'
     # paths (VARIANT_KERNELS: their shapes, the launches of their train runs);
     # "fused_skips": one f32 darcy_s211 step with the skips as channel pieces
-    # (the Darcy contraction shapes; the head is not on the f32 path)
+    # (the Darcy contraction shapes; the head is not on the f32 path).  The
+    # remap is timed at the Darcy step (bf16; its forward alone for
+    # "export"), the f32 step with pieces ("fused_skips"), the 1-D block and
+    # the NS-3D steps; the TP shards' remaps (f32 pieces, Co/2 on the
+    # contraction's output side) are not timed at their shapes
     export_times = {k: times[k] for k in ("cmul_fwd", "mlp_head_fwd")}
+    export_times["remap"] = export_remap
     paths = {"ns2d": (ns_times, ns_launches), "ns3d": (ns3d_times, ns3d_launches),
              "s421": (s421_times, s421_launches), "superres": (sr_times, sr_launches),
              "1d": (oned_times, oned_launches), "dp_nccl": (times, dp_nccl_launches),
@@ -2829,8 +2899,8 @@ def main() -> int:
              # the split path transforms its split axis by a partial DFT: no remap to time
              "spatial_ns3d": ({k: v for k, v in ns3d_times.items() if k != "remap"},
                               mesh_launches["spatial_ns3d"]),
-             "fused_skips": ({k: times[k] for k in ("cmul_fwd", "cmul_bwd_x", "cmul_bwd_w")},
-                             fused_launches),
+             "fused_skips": ({**{k: times[k] for k in ("cmul_fwd", "cmul_bwd_x", "cmul_bwd_w")},
+                              "remap": pieces_remap}, fused_launches),
              **{k: (variant_times[k], variant_launches[k]) for k in variant_times}}
     kernels = []
     for name, (_, _, src, rep) in KERNELS.items():

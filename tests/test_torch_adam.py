@@ -135,13 +135,12 @@ def test_pack_refuses_what_the_kernel_cannot_take():
         A.pack(group, [ok._replace(mu=torch.zeros(5))], SMS)
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_a_refused_step_leaves_the_step_counts(monkeypatch, fused):
+def test_a_refused_step_leaves_the_step_counts(monkeypatch):
     """A step that ``adam_step`` refuses (on the card: a float64 parameter,
     a gradient that is not contiguous) advances no count, so a caller that
     catches the error steps on with the right bias corrections."""
     ps = [torch.nn.Parameter(torch.ones(4)), torch.nn.Parameter(torch.ones(3, dtype=_C))]
-    opt = ComplexAdam(ps, lr=1e-2, fused=fused)
+    opt = ComplexAdam(ps, lr=1e-2)
     for p in ps:
         p.grad = torch.ones_like(p)
     opt.step()
@@ -153,8 +152,7 @@ def test_a_refused_step_leaves_the_step_counts(monkeypatch, fused):
         m.setattr(A, "adam_step", refuse)
         with pytest.raises(ValueError, match="refused"):
             opt.step()
-    counts = [opt.state["flat0"]["step"]] if fused else [opt.state[p]["step"] for p in ps]
-    assert counts == [1] * len(counts)
+    assert [opt.state[p]["step"] for p in ps] == [1, 1]
     seen = []
     with monkeypatch.context() as m:
         m.setattr(A, "adam_step", lambda group, slots: seen.extend(s.count for s in slots))

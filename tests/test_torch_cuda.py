@@ -14,7 +14,8 @@ largest M (uno3d_t40_256), at uno_demo's 512 x 512 bottleneck, at batch 4
 uno_demo's shapes.
 
 Also: the spectrum remap kernel against its plain version at
-every remap of a uno3d_t40 and a uno3d_t40_256 forward and backward, its
+every remap of a uno3d_t40, a uno3d_t40_256, a uno9 (bf16, and f32 with its
+skips as channel pieces) and a 1-D block's forward and backward, its
 custom op, and one ns3d_t40 training step's loss and gradients on the card
 against the CPU.
 
@@ -517,38 +518,74 @@ def test_uno3d_t40_on_the_card_matches_the_cpu(cuda, dtype, bound, grad_bound):
     assert _rel(res[1][2], res[0][2]) <= grad_bound
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,size,blocks", [("uno3d_t40", 64, 7), ("uno3d_t40_256", 256, 9)])
-def test_remap_kernel_matches_plain_at_every_block(cuda, monkeypatch, name, size, blocks):
-    """Every remap of one forward and backward of the model (width 2, one
-    sample) on the card: the kernel's output equal, bit for bit, to the
-    plain version's of the same source and plan on the CPU; three remaps
-    a block each way, one kernel launch each."""
+def _remap_steps(name: str, size: int, device) -> dict:
+    """One forward and backward of each form of ``name`` that the test
+    holds (width 2, one sample), by the dtype it runs in: ``1d`` a 1-D
+    OperatorBlock (4 -> 6 channels, ``size`` -> size/2 points, 64 modes);
+    uno9 in bf16 (its skips concatenated) and f32 (its skips carried as
+    channel pieces); a uno3d model in f32."""
     from uno_tpu_torch.losses import relative_lp_loss
+    from uno_tpu_torch.nn.layers import OperatorBlock
     from uno_tpu_torch.train.ns3d import forecast
 
-    calls = []
-    launch = R.remap
-
-    def spy(src, p):
-        out = launch(src, p)
-        calls.append((src.cpu(), p, out.cpu()))
-        return out
-
-    monkeypatch.setattr(R, "remap", spy)
-    model = build_model(name, device=cuda, generator=torch.Generator().manual_seed(1),
-                        in_width=6, width=2)
     g = torch.Generator().manual_seed(2)
-    xx = torch.randn((1, size, size, 10), generator=g).to(cuda)
-    yy = torch.randn((1, size, size, 40), generator=g).to(cuda)
-    n0 = R.LAUNCHES["remap"]
-    relative_lp_loss(forecast(model, xx, 40), yy).backward()
-    torch.cuda.synchronize()
-    assert len(calls) == R.LAUNCHES["remap"] - n0 == 6 * blocks
-    for src, p, got in calls:
-        want = R.remap_plain(src, *p.tables("cpu"), p.shape)
-        assert got.shape == want.shape == src.shape[:2] + p.shape
-        assert torch.equal(got, want), (p.shape, float((got - want).abs().max()))
+    if name == "1d":
+        blk = OperatorBlock(4, 6, (64,), normalize=True, device=device,
+                            generator=torch.Generator().manual_seed(1))
+        x = torch.randn((1, 4, size), generator=g).to(device).requires_grad_()
+        return {"float32": lambda: blk(x, (size // 2,)).square().sum().backward()}
+    if name == "uno9":
+        x = torch.randn((1, size, size, 1), generator=g).to(device)
+        y = torch.randn((1, size, size), generator=g).to(device)
+        steps = {}
+        for dtype in ("bfloat16", "float32"):
+            model = build_model(name, dtype=dtype, device=device, width=2,
+                                generator=torch.Generator().manual_seed(1))
+            steps[dtype] = (lambda m: lambda: relative_lp_loss(
+                m(x).reshape(y.shape), y).backward())(model)
+        return steps
+    model = build_model(name, device=device, generator=torch.Generator().manual_seed(1),
+                        in_width=6, width=2)
+    xx = torch.randn((1, size, size, 10), generator=g).to(device)
+    yy = torch.randn((1, size, size, 40), generator=g).to(device)
+    return {"float32": lambda: relative_lp_loss(forecast(model, xx, 40), yy).backward()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size,blocks", [("uno3d_t40", 64, 7), ("uno3d_t40_256", 256, 9),
+                                              ("uno9", 211, 5), ("1d", 1024, 1)])
+def test_remap_kernel_matches_plain_at_every_block(cuda, monkeypatch, name, size, blocks):
+    """Every remap of one forward and backward of the model on the card, in
+    every rank (``_remap_steps``): the kernel's output equal, bit for bit,
+    to the plain version's of the same source and plan on the CPU; one
+    kernel launch a remap, as many in the backward as in the forward: three
+    a 3-D block (its conv and truncation), two a 1-D or 2-D conv, and one
+    more for the conv that takes uno9's skip as a second channel piece."""
+    from uno_tpu_torch.ops import spectral
+
+    launch = R.remap
+    for dtype, step in _remap_steps(name, size, cuda).items():
+        calls = []
+
+        def spy(src, p):
+            out = launch(src, p)
+            calls.append((src.cpu(), p, out.cpu()))
+            return out
+
+        monkeypatch.setattr(R, "remap", spy)
+        n0, counted = R.LAUNCHES["remap"], dict(spectral.REMAPS)
+        step()
+        torch.cuda.synchronize()
+        monkeypatch.setattr(R, "remap", launch)
+        per_pass = (3 * blocks if name.startswith("uno3d") else
+                    2 * blocks + (dtype == "float32" and name == "uno9"))
+        moved = {k: spectral.REMAPS[k] - counted[k] for k in counted}
+        assert moved == {"forward": per_pass, "backward": per_pass}, (dtype, moved)
+        assert len(calls) == R.LAUNCHES["remap"] - n0 == 2 * per_pass
+        for src, p, got in calls:
+            want = R.remap_plain(src, p)
+            assert got.shape == want.shape == src.shape[:2] + p.shape
+            assert torch.equal(got, want), (dtype, p.shape, float((got - want).abs().max()))
 
 
 @pytest.mark.cuda
@@ -562,7 +599,7 @@ def test_remap_custom_op_launches_the_kernel(cuda):
     n0 = R.LAUNCHES["remap"]
     got = torch.ops.uno_tpu_torch.remap(src.to(cuda), list(p.tab), list(p.scale), list(p.shape))
     assert R.LAUNCHES["remap"] == n0 + 1
-    assert torch.equal(got.cpu(), R.remap_plain(src, *p.tables("cpu"), p.shape))
+    assert torch.equal(got.cpu(), R.remap_plain(src, p))
     with pytest.raises(TypeError, match="complex64"):
         R.remap(src.to(torch.complex128).to(cuda), p)
 
@@ -704,8 +741,8 @@ def test_mlp_head_fwd_custom_op_launches_the_kernel(cuda, shape, h, o):
 @pytest.mark.cuda
 def test_exported_uno9_serves_through_the_kernels_on_the_card(cuda, tmp_path):
     """uno9 bf16 exported on the CPU, moved to the card on load: it launches
-    the kernels (5 contractions and the head per call) and matches the eager
-    model on the card."""
+    the kernels (5 contractions, 10 remaps and the head per call) and
+    matches the eager model on the card."""
     from uno_tpu_torch.export import export_forward, load_forward
 
     kw = dict(in_width=3, width=8, pad=1)
@@ -716,9 +753,9 @@ def test_exported_uno9_serves_through_the_kernels_on_the_card(cuda, tmp_path):
     served = load_forward(path, device=cuda)
     card = build_model("uno9", dtype="bfloat16", device=cuda, **kw)
     card.load_state_dict(cpu.state_dict())
-    c0, h0 = C.LAUNCHES["fwd"], H.LAUNCHES["fwd"]
+    c0, h0, r0 = C.LAUNCHES["fwd"], H.LAUNCHES["fwd"], R.LAUNCHES["remap"]
     got = served(x.to(cuda))
-    assert (C.LAUNCHES["fwd"] - c0, H.LAUNCHES["fwd"] - h0) == (5, 1)
+    assert (C.LAUNCHES["fwd"] - c0, H.LAUNCHES["fwd"] - h0, R.LAUNCHES["remap"] - r0) == (5, 1, 10)
     with torch.no_grad():
         want = card.eval()(x.to(cuda))
     assert _rel(got, want) <= 1e-6
@@ -900,30 +937,6 @@ def test_fused_skips_on_the_card_match_the_materialized_form(cuda, monkeypatch):
     assert _rel(grads_f, grads_m) <= 1e-5, _rel(grads_f, grads_m)
 
 
-@pytest.mark.cuda
-def test_fused_complex_adam_on_the_card_is_bit_equal(cuda):
-    """``ComplexAdam(fused=True)`` against ``fused=False`` on the card over 10
-    steps of the same gradients: uno9's parameters, weight decay, amsgrad."""
-    from uno_tpu_torch.optim import ComplexAdam
-
-    model = build_model("uno9", device=cuda, generator=torch.Generator().manual_seed(0),
-                        in_width=3, width=32, pad=5)
-    ref = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
-    fus = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
-    opts = [ComplexAdam(ps, lr=1e-3, weight_decay=1e-4, amsgrad=True, fused=f)
-            for ps, f in ((ref, False), (fus, True))]
-    g = torch.Generator(device=cuda).manual_seed(1)
-    for _ in range(10):
-        for a, b in zip(ref, fus):
-            a.grad = torch.randn(a.shape, dtype=a.dtype, device=cuda, generator=g)
-            b.grad = a.grad.clone()
-        for opt in opts:
-            opt.step()
-    torch.cuda.synchronize()
-    for a, b in zip(ref, fus):
-        assert torch.equal(a, b)
-
-
 def _adam_against_plain(cuda, wd: float, amsgrad: bool, steps: int):
     """uno9's darcy_s211 parameters stepped by ``ComplexAdam`` (the kernel)
     and by the plain sequence on the card, on the same gradients, under
@@ -978,15 +991,13 @@ def test_adam_kernel_launches_once_a_group_a_step(cuda):
 
     ps = [torch.nn.Parameter(torch.randn(n, device=cuda)) for n in (5, 70000, 3)]
     ps.append(torch.nn.Parameter(torch.randn(9, 4, dtype=torch.complex64, device=cuda)))
-    for fused in (False, True):
-        opt = ComplexAdam([{"params": ps[:2]}, {"params": ps[2:], "lr": 1e-2}], lr=1e-3,
-                          fused=fused)
-        for _ in range(3):
-            for p in ps:
-                p.grad = torch.randn_like(p)
-            before = A.LAUNCHES["step"]
-            opt.step()
-            assert A.LAUNCHES["step"] - before == 2
+    opt = ComplexAdam([{"params": ps[:2]}, {"params": ps[2:], "lr": 1e-2}], lr=1e-3)
+    for _ in range(3):
+        for p in ps:
+            p.grad = torch.randn_like(p)
+        before = A.LAUNCHES["step"]
+        opt.step()
+        assert A.LAUNCHES["step"] - before == 2
 
 
 @pytest.mark.cuda
@@ -1025,9 +1036,10 @@ def test_adam_kernel_refuses_float64_and_a_non_contiguous_gradient(cuda):
 @pytest.mark.cuda
 def test_adam_kernel_splits_a_long_table_with_the_same_bits(cuda):
     """100 parameters, complex and real, from 1 to 9,000 elements: one
-    optimizer (three launches a step), one optimizer a parameter, and the
-    flat form, whose views lie at offsets that are not 16-byte aligned
-    (the element-by-element path), give the same bits over 5 steps."""
+    optimizer (three launches a step), one optimizer a parameter, and
+    ``adam_step`` on moments that are views into one flat buffer per dtype,
+    at offsets that are not 16-byte aligned (the element-by-element path),
+    give the same bits over 5 steps."""
     from uno_tpu_torch.ops.kernels import adam as A
     from uno_tpu_torch.optim import ComplexAdam
 
@@ -1039,10 +1051,19 @@ def test_adam_kernel_splits_a_long_table_with_the_same_bits(cuda):
             for form in ("table", "single", "flat")}
     kw = dict(lr=1e-3, weight_decay=1e-3, amsgrad=True)
     opts = {"table": [ComplexAdam(runs["table"], **kw)],
-            "single": [ComplexAdam([p], **kw) for p in runs["single"]],
-            "flat": [ComplexAdam(runs["flat"], fused=True, **kw)]}
+            "single": [ComplexAdam([p], **kw) for p in runs["single"]]}
+    group = opts["table"][0].param_groups[0]
+    moments = {}  # dtype -> one flat buffer a moment
+    for p in runs["flat"]:
+        moments.setdefault(p.dtype, []).append(p)
+    views = {}
+    for dt, ps in moments.items():
+        bufs = [torch.zeros(sum(p.numel() for p in ps), dtype=d, device=cuda)
+                for d in (dt, torch.float32, torch.float32)]
+        for p, *vs in zip(ps, *(b.split([q.numel() for q in ps]) for b in bufs)):
+            views[p] = vs
     g = torch.Generator(device=cuda).manual_seed(4)
-    for _ in range(5):
+    for step in range(1, 6):
         grads = [torch.randn(p.shape, dtype=p.dtype, device=cuda, generator=g)
                  for p in runs["table"]]
         for form, ps in runs.items():
@@ -1051,8 +1072,10 @@ def test_adam_kernel_splits_a_long_table_with_the_same_bits(cuda):
         before = A.LAUNCHES["step"]
         opts["table"][0].step()
         assert A.LAUNCHES["step"] - before == 3
-        for opt in opts["single"] + opts["flat"]:
+        for opt in opts["single"]:
             opt.step()
+        with torch.no_grad():
+            A.adam_step(group, [A.Slot(p, p.grad, *views[p], step) for p in runs["flat"]])
     torch.cuda.synchronize()
     for a, b, c in zip(*runs.values()):
         assert torch.equal(a, b) and torch.equal(a, c)

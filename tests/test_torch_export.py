@@ -28,6 +28,7 @@ from uno_tpu.models import build_model as jax_build_model
 from uno_tpu_torch import bridge, cli
 from uno_tpu_torch.export import export_forward, load_forward
 from uno_tpu_torch.models import build_model
+from uno_tpu_torch.nn.layers import OperatorBlock
 from uno_tpu_torch.ops.kernels import cmul as C
 from uno_tpu_torch.ops.kernels import mlp_head as H
 from uno_tpu_torch.train.ns2d import make_rollout
@@ -92,8 +93,11 @@ def test_uno9_round_trip_matches_eager_and_uno_tpus_artifact(uno9_tree, tmp_path
     model = _port("uno9", UNO9, dtype, uno9_tree)
     served = _round_trip(model, jax_build_model("uno9", dtype=dtype, **UNO9), uno9_tree, x,
                          bound, tmp_path)
-    # one contraction node per 2-D spectral conv; the fused head under bf16
-    assert _custom_nodes(served) == Counter({CONTRACT: 5, **({HEAD: 1} if n_head else {})})
+    # one contraction node per 2-D spectral conv, and a remap per channel piece into it
+    # and one out of it (f32 carries block 3's skip concat as two pieces); the fused
+    # head under bf16
+    assert _custom_nodes(served) == Counter({CONTRACT: 5, REMAP: 10 if n_head else 11,
+                                             **({HEAD: 1} if n_head else {})})
 
 
 def test_ns2d_step_round_trip(tmp_path):
@@ -103,7 +107,7 @@ def test_ns2d_step_round_trip(tmp_path):
     tree = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x)))
     model = _port("uno", UNO, "float32", tree)
     served = _round_trip(model, jm, tree, x, 1e-5, tmp_path)
-    assert _custom_nodes(served) == Counter({CONTRACT: 7})
+    assert _custom_nodes(served) == Counter({CONTRACT: 7, REMAP: 16})  # two skips as pieces
     # the artifact of one step drives the rollout as the eager model does
     xx, yy = torch.from_numpy(x), torch.zeros(2, 64, 64, 2)
     with torch.no_grad():
@@ -122,6 +126,31 @@ def test_uno3d_t40_round_trip(tmp_path):
     with torch.no_grad():  # the artifact serves through forecast as the eager model does
         got = forecast(served, torch.from_numpy(x[..., 0]), 40)
         assert _rel(got, forecast(model, torch.from_numpy(x[..., 0]), 40)) <= 1e-5
+
+
+class _Block2d(torch.nn.Module):
+    """A 2-D operator block on two channel pieces, up-sampling to an even
+    last length (a Nyquist plane in the c2r's input)."""
+
+    def __init__(self):
+        super().__init__()
+        self.block = OperatorBlock(3, 4, (4, 3), normalize=True,
+                                   generator=torch.Generator().manual_seed(0))
+
+    def forward(self, x):
+        return self.block([x[:, :1], x[:, 1:]], (20, 18))
+
+
+def test_a_2d_model_exported_before_any_eager_forward_serves_as_eager(tmp_path):
+    """A fresh 2-D model, exported before it has run any forward: nothing of
+    the FFT path is settled by an eager call first, and the artifact serves
+    what the eager model computes."""
+    model = _Block2d().eval()
+    x = torch.randn((2, 3, 16, 14), generator=torch.Generator().manual_seed(7))
+    served = load_forward(export_forward(model, x, path=str(tmp_path / "m.pt2")))
+    assert _custom_nodes(served) == Counter({CONTRACT: 1, REMAP: 3})  # a gather a piece
+    with torch.no_grad():
+        assert _rel(served(x).detach(), model(x)) <= 1e-5
 
 
 def test_custom_ops_on_the_cpu_are_the_plain_versions():

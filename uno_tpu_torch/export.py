@@ -29,14 +29,9 @@ import torch
 def export_forward(model: torch.nn.Module, sample: torch.Tensor,
                    path: Optional[str] = None) -> bytes:
     """Export ``model``'s eval-mode forward at ``sample``'s shape, dtype and
-    device; returns the saved program's bytes, also written to ``path``.
-    One eager forward first settles, for ``sample``'s device, which inverse
-    FFTs make their input Hermitian (``ops/spectral.py`` ``_irfftn``), so
-    that the program takes the eager model's decisions: an artifact made on
-    the CPU and moved to the card keeps the CPU's (none)."""
+    device; returns the saved program's bytes, also written to ``path``."""
     with torch.no_grad():
-        model.eval()(sample)
-        program = torch.export.export(model, (sample,), strict=False)
+        program = torch.export.export(model.eval(), (sample,), strict=False)
     buf = io.BytesIO()
     torch.export.save(program, buf)
     data = buf.getvalue()

@@ -10,9 +10,8 @@ their pace; the kernel is one launch, bound by the bytes it moves (48 a
 complex element, 0.117 ms for uno9 at 3.35 TB/s).  The source says how.
 
 A step is a list of ``Slot``: a parameter, its gradient, its moments and its
-1-based step count.  The moments may be the parameter's own tensors or
-views into flat buffers (``ComplexAdam(fused=True)``): the kernel reads
-pointers, so either form runs the same arithmetic.  ``pack`` turns the
+1-based step count.  The kernel reads pointers, so a moment may also be a
+view into a larger buffer at any offset.  ``pack`` turns the
 slots of one device into launches: the f32 hyperparameters, then one
 64-byte entry a tensor (five pointers, the element count, whether it is
 complex, and its f32 step size and ``1 / sqrt(bc2)``), at most

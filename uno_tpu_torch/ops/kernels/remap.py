@@ -1,10 +1,11 @@
 """One remap of a complex spectrum through separable per-axis index maps:
 ``remap_kernel`` (``uno_tpu_torch/csrc/spectrum.cu``) on the card, and
-``remap_plain`` (``index_select``, sums and a mirror) for the CPU and for
+``remap_plain`` (indexing, sums and a mirror) for the CPU and for
 float64 / complex128 (``gradcheck``).
 
 Replaces no TPU kernel: ``uno_tpu`` slices and pads its spectra with jnp
-ops that XLA fuses.  The 3-D FFT path of ``ops/spectral.py`` lays out each
+ops that XLA fuses.  The FFT path of ``ops/spectral.py`` (every rank; a 1-D
+or 2-D spectrum with leading axes of length 1) lays out each
 spectrum around cuFFT and the contraction with one remap in each
 direction; the source says what a remap computes and how the kernel is
 built.
@@ -20,9 +21,9 @@ The forward is also the custom op ``uno_tpu_torch::remap``
 (``torch.library``), so that ``torch.export`` records it as one node whose
 table is part of the node's arguments; only tracing goes through it
 (``torch.compiler.is_exporting()``), as for ``uno_tpu_torch::contract``.
-The tables' tensors are made once per plan and device, at the first
-remap that runs there (never while ``torch.export`` traces: the op's fake
-version reads none).
+The kernel's tables and the plain version's index tensors are made once
+per plan and device, at the first remap that runs there (never while
+``torch.export`` traces: the op's fake version reads none).
 """
 
 from __future__ import annotations
@@ -47,28 +48,52 @@ class Plan:
     conj(T(-i, -j, k))) / 2 : T(i, j, k))``, ``T(i, j, k) = sum_q sum_p
     src[rows[i][p], cols[j][q], bins[k]]`` over the entries that are not -1
     (none: 0), ``-i`` and ``-j`` modulo D1 and D2.  Made by ``plan``, one
-    object for each value; holds the tables' tensors per device."""
+    object for each value; holds its tensors per device."""
 
-    __slots__ = ("shape", "tab", "scale", "_tables")
+    __slots__ = ("shape", "tab", "scale", "_tables", "_plain")
 
     def __init__(self, shape: Tuple[int, int, int], tab: Tuple[int, ...],
                  scale: Tuple[float, ...]):
         self.shape, self.tab, self.scale = shape, tab, scale
-        self._tables = {}
+        self._tables, self._plain = {}, {}
 
     def tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The int32 table and the scales on ``device`` (f32 on the card,
-        float64 on the CPU, where the plain version rounds them to its
-        dtype), made at the first call there (outside inference mode: a
-        later backward may read them)."""
+        """The kernel's int32 table and f32 scales on ``device``, made at the
+        first call there (outside inference mode: a later backward may read
+        them)."""
         device = torch.device(device)
         if device not in self._tables:
-            dtype = torch.float64 if device.type == "cpu" else torch.float32
             with torch.inference_mode(False):
                 self._tables[device] = (
                     torch.tensor(self.tab, dtype=torch.int32).to(device),
-                    torch.tensor(self.scale, dtype=dtype).to(device))
+                    torch.tensor(self.scale, dtype=torch.float32).to(device))
         return self._tables[device]
+
+    def steps(self, device, dtype) -> tuple:
+        """``remap_plain``'s ops for a spectrum on ``device`` whose real dtype
+        is ``dtype``, made at the first call there: each axis's gathers
+        (``_gathers``), the Hermitian bins and the first two axes' mirror
+        (None: no bin), and the scales in ``dtype`` (None: all 1, a product
+        that is exact and skipped)."""
+        key = (torch.device(device), dtype)
+        if key not in self._plain:
+            (d1, d2, d3), t = self.shape, self.tab
+            rows, cols = t[: 2 * d1], t[2 * d1 : 2 * d1 + 2 * d2]
+            bins, herm = t[2 * d1 + 2 * d2 : 2 * d1 + 2 * d2 + d3], t[2 * d1 + 2 * d2 + d3 :]
+            keep = [k for k in range(d3) if herm[k]]
+            dev = key[0]
+            with torch.inference_mode(False):
+                axes = (_gathers(rows, dev), _gathers(cols, dev),
+                        _gathers(tuple(v for b in bins for v in (b, -1)), dev))
+                mirror = None
+                if keep:
+                    mirror = (_longs(keep, dev),
+                              _longs([-i % d1 for i in range(d1)], dev) if d1 > 1 else None,
+                              _longs([-j % d2 for j in range(d2)], dev))
+                scale = (None if all(v == 1 for v in self.scale)
+                         else torch.tensor(self.scale, dtype=dtype, device=dev))
+            self._plain[key] = (axes, mirror, scale)
+        return self._plain[key]
 
 
 @lru_cache(maxsize=1024)
@@ -100,50 +125,51 @@ def plan(rows: Sequence[Sequence[int]], cols: Sequence[Sequence[int]],
     return _interned((len(rows), len(cols), d3), tab, scale)
 
 
-def _split(tab: torch.Tensor, shape) -> tuple:
-    d1, d2, d3 = shape
-    rows = tab[: 2 * d1].view(d1, 2)
-    cols = tab[2 * d1 : 2 * d1 + 2 * d2].view(d2, 2)
-    bins = tab[2 * d1 + 2 * d2 : 2 * d1 + 2 * d2 + d3]
-    herm = tab[2 * d1 + 2 * d2 + d3 :]
-    return rows, cols, bins, herm
+def _longs(v, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.long, device=device)
 
 
-def _gather(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
-    """Along ``dim``, the sum over the columns of ``idx`` (D, P) of x at
-    those indices, 0 where an index is -1 (a column of -1 alone adds
-    nothing and is skipped)."""
-    shape = [1] * x.ndim
-    shape[dim] = idx.shape[0]
-    out = None
-    for p in range(idx.shape[1]):
-        col = idx[:, p].long()
-        valid = col >= 0
-        if out is not None and not valid.any():
-            continue
-        sel = x.index_select(dim, col.clamp(min=0))
-        if not valid.all():
-            sel = torch.where(valid.view(shape), sel, torch.zeros((), dtype=x.dtype))
+def _gathers(pairs: Tuple[int, ...], device) -> tuple:
+    """One axis's map (two source indices an index, -1 for none, laid end
+    to end) as ``_gather``'s source columns, the first always and the
+    second where it has an entry: each its index tensor and whether it
+    has a -1."""
+    cols = [pairs[0::2]] + [c for c in [pairs[1::2]] if max(c) >= 0]
+    return tuple((_longs(c, device), min(c) < 0) for c in cols)
+
+
+def _gather(x: torch.Tensor, dim: int, cols: tuple) -> torch.Tensor:
+    """Along ``dim``, the sum over ``cols`` (``_gathers``) of x at their
+    indices, 0 where an index is -1: indexing (not ``index_select``, ≈ 4x
+    slower along the last axis on the CPU), a -1 reading a slice of zeros
+    put after x's last."""
+    padded = out = None
+    for idx, absent in cols:
+        if absent and padded is None:
+            shape = list(x.shape)
+            shape[dim] = 1
+            padded = torch.cat([x, x.new_zeros(shape)], dim)
+        sel = (padded if absent else x)[(slice(None),) * dim + (idx,)]
         out = sel if out is None else out + sel
     return out
 
 
-def remap_plain(src: torch.Tensor, tab: torch.Tensor, scale: torch.Tensor,
-                shape: Sequence[int]) -> torch.Tensor:
+def remap_plain(src: torch.Tensor, p: Plan) -> torch.Tensor:
     """The remap as torch ops: the kernel's reference, in its order of
     operations (the sum over rows, then over columns, the Hermitian half,
     the scale)."""
-    rows, cols, bins, herm = _split(tab, shape)
-    t = _gather(_gather(_gather(src, 2, rows), 3, cols), 4, bins[:, None])
-    keep = herm.nonzero().flatten()
-    if keep.numel():
+    axes, mirror, scale = p.steps(src.device, src.real.dtype)
+    t = src
+    for dim, cols in zip((2, 3, 4), axes):
+        t = _gather(t, dim, cols)
+    if mirror is not None:
+        keep, mi, mj = mirror
         sl = t.index_select(4, keep)
-        mirror = sl.flip((2, 3)).roll((1, 1), (2, 3))
-        t.index_copy_(4, keep, torch.view_as_complex(
-            torch.view_as_real(sl + mirror.conj()) * 0.5))
-    if bool((scale == 1).all()):  # a product by 1 is exact: skipped
+        mir = (sl if mi is None else sl.index_select(2, mi)).index_select(3, mj)
+        t.index_copy_(4, keep, torch.view_as_complex(torch.view_as_real(sl + mir.conj()) * 0.5))
+    if scale is None:
         return t
-    return torch.view_as_complex(torch.view_as_real(t) * scale.to(t.real.dtype)[:, None])
+    return torch.view_as_complex(torch.view_as_real(t) * scale[:, None])
 
 
 def _validate(src: torch.Tensor, shape) -> None:
@@ -169,9 +195,9 @@ def slices(bc: int, plane: int, sms: int) -> int:
 
 def _remap(src: torch.Tensor, p: Plan) -> torch.Tensor:
     _validate(src, p.shape)
-    tab, scale = p.tables(src.device)
     if src.device.type == "cpu":
-        return remap_plain(src, tab, scale, p.shape)
+        return remap_plain(src, p)
+    tab, scale = p.tables(src.device)
     src = src.contiguous()
     b, c, s1, s2, s3 = src.shape
     d1, d2, d3 = p.shape
@@ -203,7 +229,7 @@ def _remap_fake(src, tab, scale, shape):
 
 def remap(src: torch.Tensor, p: Plan) -> torch.Tensor:
     """``src`` (B, C, S1, S2, S3) complex -> (B, C, *p.shape): not
-    differentiable (the 3-D FFT path writes its backward by hand)."""
+    differentiable (the FFT path writes its backward by hand)."""
     if torch.compiler.is_exporting():
         return remap_op(src, list(p.tab), list(p.scale), list(p.shape))
     return _remap(src, p)

@@ -15,16 +15,14 @@ Two paths compute it, chosen by ``set_dft_mode`` or, when that is left at
 None, by the environment variable ``UNO_TPU_TORCH_DFT=1``:
 
 * **FFT** (the default on every device until an H100 measurement decides):
-  ``rfft2``/``irfft2`` in f32 whatever the input dtype, f32 output.  The
-  per-mode complex contraction goes through the CUDA kernels of
-  ``ops/kernels/cmul.py`` (forward and both gradients).  In 1-D and 2-D
-  everything around it is differentiated by torch autograd, where a
-  positive-kx row that the negative-kx block overwrites gets a zero
-  gradient.  In 3-D each spectrum is laid out by one remap
+  ``rfftn``/``irfftn`` in f32 whatever the input dtype, f32 output.  In
+  every rank each spectrum is laid out by one remap
   (``ops/kernels/remap.py``: the CUDA kernel on the card) in each
-  direction, and the conv and the truncation are each one autograd node
-  with a hand-written backward (``_FFTConv3d``, ``_FFTTruncate3d``), so
-  nothing around cuFFT and the contraction is left to autograd.
+  direction, around cuFFT and the per-mode complex contraction of
+  ``ops/kernels/cmul.py``, and each conv and the 3-D truncation is one
+  autograd node with a hand-written backward (``_FFTConv``,
+  ``_FFTTruncate3d``), so nothing around them is left to autograd.  A 1-D
+  or 2-D spectrum is laid out as a 3-D one with leading axes of length 1.
 * **Partial DFT** (``uno_tpu``'s default on the TPU): every stage is one
   einsum against a table of ``ops/dft.py`` on (re, im)-plane data, and the
   contraction is one einsum against a 2x2 block weight tensor.  A bf16
@@ -46,7 +44,7 @@ all-reduce's being an all-reduce.
 
 The 3-D ops are spans (``conv3d``, ``truncate3d``; ``utils/profiling.py``),
 ``TRANSFORMS_3D`` counts the 3-D transforms of their FFT path's forward by
-kind, and ``REMAPS`` that path's remaps by pass.
+kind, and ``REMAPS`` the FFT path's remaps of every rank by pass.
 """
 
 from __future__ import annotations
@@ -78,14 +76,16 @@ _DFT_MODE = None
 # ``fourier_truncate_3d`` (their hand-written backward calls torch.fft
 # directly, one adjoint each, uncounted)
 TRANSFORMS_3D = {"r2c": 0, "c2r": 0}
-# the remaps of the 3-D FFT path since the count was last set to 0, on
-# either device, by pass: two a conv and one a truncation each way
+# the remaps of the FFT path of every rank since the count was last set to 0,
+# on either device, by pass: two a conv and one a truncation each way
 REMAPS = {"forward": 0, "backward": 0}
 
 
-def _counted_3d(t: torch.Tensor, kind: str) -> torch.Tensor:
-    """``t``, the output of a 3-D transform of ``kind``, counted."""
-    TRANSFORMS_3D[kind] += 1
+def _counted(t: torch.Tensor, kind: str, rank: int) -> torch.Tensor:
+    """``t``, the output of a transform of ``kind`` over ``rank`` axes,
+    counted where it is 3-D."""
+    if rank == 3:
+        TRANSFORMS_3D[kind] += 1
     return t
 
 
@@ -197,21 +197,7 @@ def spectral_conv_2d(
         return _split_conv_2d(pieces, w, (d1, d2), (m1, m2), split)
     if _dft_enabled():
         return _DFTConv2d.apply(w, (d1, d2), (m1, m2), *pieces)
-    corners = []
-    for p in pieces:
-        x_ft = torch.fft.rfft2(_f32(p), norm="forward")
-        corners.append(torch.cat([x_ft[:, :, :m1, :m2], x_ft[:, :, h - m1 :, :m2]], dim=2))
-    out = complex_mode_matmul(_join(corners), w)  # (B, Co, 2*m1, m2)
-
-    # Zero-embed the corner rows in the output spectrum.  When 2*m1 > d1 the
-    # reference's corner writes overlap and the negative-kx block (written
-    # last) wins, so only the first d1-m1 rows of the positive block survive.
-    b, co = out.shape[:2]
-    n_top = min(m1, d1 - m1)
-    out_ft = torch.zeros((b, co, d1, d2 // 2 + 1), dtype=out.dtype, device=out.device)
-    out_ft[:, :, :n_top, :m2] = out[:, :, :n_top]
-    out_ft[:, :, d1 - m1 :, :m2] = out[:, :, m1:]
-    return _irfftn(out_ft, (d1, d2), (-2, -1), m2, "forward")
+    return _fft_conv(pieces, w, (d1, d2), (m1, m2))
 
 
 def _project_c2r(spec: torch.Tensor, n: int, axes: Tuple[int, ...], kept: int) -> torch.Tensor:
@@ -261,52 +247,15 @@ def _hermitian_c2r(spec: torch.Tensor, n: int, axes: Tuple[int, ...] = (),
     return _project_c2r(spec, n, tuple(axes), kept)
 
 
-# per plan (spectrum shape, s, dims, dtype, device): whether the device's c2r
-# keeps the Hermitian part of the DC and Nyquist slices by itself; asked in
-# eager mode only, never while torch.export traces (its tensors are fake)
-_C2R_KEEPS_HERMITIAN: dict = {}
-
-
-def _c2r_keeps_hermitian(spec: torch.Tensor, s: tuple, dims: tuple) -> Optional[bool]:
-    """Whether this device's c2r of ``spec``'s plan keeps only the Hermitian
-    part of its DC and Nyquist slices, as pocketfft does: one random
-    spectrum inverted raw and projected, once per plan (cuFFT's c2r does at
-    64 and 512 points and not at 128 and 256).  None while ``torch.export``
-    traces a plan not asked before."""
-    key = (tuple(spec.shape), s, dims, spec.dtype, spec.device)
-    if key not in _C2R_KEEPS_HERMITIAN and not torch.compiler.is_exporting():
-        g = torch.Generator(device=spec.device).manual_seed(0)
-        with torch.no_grad():
-            probe = torch.randn(spec.shape, dtype=spec.dtype, device=spec.device, generator=g)
-            raw = torch.fft.irfftn(probe, s=s, dim=dims)
-            axes = tuple(range(1 - len(dims), 0))
-            fixed = torch.fft.irfftn(_project_c2r(probe, s[-1], axes, spec.shape[-1]), s=s,
-                                     dim=dims)
-            _C2R_KEEPS_HERMITIAN[key] = bool((raw - fixed).norm() <= 1e-4 * fixed.norm())
-    return _C2R_KEEPS_HERMITIAN.get(key)
-
-
-def _irfftn(spec: torch.Tensor, s: Tuple[int, ...], dims: Tuple[int, ...], kept: int,
-            norm: str) -> torch.Tensor:
-    """``torch.fft.irfftn(spec, s, dims, norm)`` of a fresh half spectrum whose
-    last axis has nonzeros in its first ``kept`` bins, taken as pocketfft
-    takes it (the CPU, and so ``uno_tpu``).
-
-    A real output needs the DC and Nyquist slices of the last axis
-    Hermitian along the other axes; a U-NO's output spectrum does not have
-    them so (the kept corners have no mirror rows).  pocketfft keeps their
-    Hermitian part; cuFFT's c2r gives other answers for some plans
-    (uno_s256's last block, 64 -> 256 points, left the CPU by rel-L2 1.0).
-    On the card, a plan whose c2r does not keep that part by itself
-    (``_c2r_keeps_hermitian``), or is unknown while ``torch.export`` traces,
-    gets the slices made Hermitian first (``_hermitian_c2r``): a few
-    kernels, which the host-bound rollouts feel, so the plans that need
-    none skip them.  ``export_forward`` runs the model once before tracing,
-    so that an artifact takes the eager model's decisions for its device."""
-    s, dims = tuple(s), tuple(dims)
-    if spec.device.type == "cuda" and not _c2r_keeps_hermitian(spec, s, dims):
-        spec = _hermitian_c2r(spec, s[-1], tuple(range(1 - len(dims), 0)), kept)
-    return torch.fft.irfftn(spec, s=s, dim=dims, norm=norm)
+def _irfft(spec: torch.Tensor, n: int, kept: int, norm: str) -> torch.Tensor:
+    """``torch.fft.irfft(spec, n, norm=norm)`` of a fresh half spectrum with
+    nonzeros in its first ``kept`` bins, taken as pocketfft takes it (the
+    CPU, and so ``uno_tpu``): its DC and, for an even ``n``, Nyquist bins
+    made real first (``_hermitian_c2r``), which cuFFT's c2r does not do by
+    itself at every size (uno_s256's last block, 64 -> 256 points, left the
+    CPU by rel-L2 1.0).  The split path's last inverse; the other paths
+    fold the same rule into their remaps."""
+    return torch.fft.irfft(_hermitian_c2r(spec, n, (), kept), n=n, norm=norm)
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -329,10 +278,7 @@ def spectral_conv_1d(x: torch.Tensor, weights: torch.Tensor, out_size: int,
         raise ValueError(f"modes1={m1} incompatible with input {x.shape[-1]} / output {d1}")
     if _dft_enabled():
         return _DFTConv1d.apply(x, weights[0], d1, m1)
-    x_ft = torch.fft.rfft(_f32(x), norm="forward")
-    out = complex_mode_matmul(x_ft[:, :, :m1].contiguous(), weights[0])  # (B, Co, m1)
-    tail = out.new_zeros(out.shape[:2] + (d1 // 2 + 1 - m1,))
-    return _irfftn(torch.cat([out, tail], dim=-1), (d1,), (-1,), m1, "forward")
+    return _fft_conv([x], weights[0], (d1,), (m1,))
 
 
 def _quadrants(weights: torch.Tensor) -> torch.Tensor:
@@ -369,12 +315,7 @@ def spectral_conv_3d(
         raise ValueError(f"modes {modes} incompatible with in {tuple(x.shape)} out {out_size}")
 
     if split is None and not _dft_enabled():
-        x = _f32(x)
-        w = _quadrants(weights)  # (Ci, Co, 2*m1, 2*m2, m3)
-        plans = _conv_plans((sx, sy, st), (d1, d2, d3), (m1, m2, m3))
-        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            return _FFTConv3d.apply(x, w, (d1, d2, d3), plans)
-        return _conv3d_forward(x, w, (d1, d2, d3), plans)[0]
+        return _fft_conv([x], _quadrants(weights), (d1, d2, d3), (m1, m2, m3))
     w_lo = torch.cat([weights[0], weights[2]], dim=3)
     w_hi = torch.cat([weights[1], weights[3]], dim=3)
     w = torch.cat([w_lo, w_hi], dim=2)  # (Ci, Co, 2*m1, 2*m2, m3)
@@ -383,7 +324,7 @@ def spectral_conv_3d(
     return _DFTConv3d.apply(x, w, (d1, d2, d3), (m1, m2, m3))
 
 
-# --- the 3-D FFT path: cuFFT, remaps and the contraction ----------------------
+# --- the FFT path: cuFFT, remaps and the contraction ------------------------
 #
 # Each spectrum is laid out once in each direction by one remap
 # (ops/kernels/remap.py), and the backward is written by hand: the adjoint
@@ -393,17 +334,16 @@ def spectral_conv_3d(
 # folded into the scale of the remap beside it, so no transform is followed
 # by a pass over its output.  A remap that feeds a c2r takes the Hermitian
 # part of the DC and Nyquist planes, so that every c2r plan answers as
-# pocketfft does (the CPU, and so uno_tpu; _irfftn); the projection is
-# self-adjoint, and the r2c output that a backward remap reads is Hermitian
-# on those planes already, so a backward remap projects only where a c2r
-# follows it.
-
-_DIMS3 = (-3, -2, -1)
+# pocketfft does (the CPU, and so uno_tpu); the projection is self-adjoint,
+# and the r2c output that a backward remap reads is Hermitian on those
+# planes already, so a backward remap projects only where a c2r follows
+# it.  A 1-D or 2-D spectrum is the remap's (B, C, 1, 1, N//2+1) or (B, C,
+# 1, H, W//2+1): each leading axis of length 1 maps its one row to itself.
 
 
 class _Plans(NamedTuple):
-    """The remaps of one 3-D geometry: a conv's two each way (into and out
-    of the contraction's block), a truncation's one each way (``fwd_in``,
+    """The remaps of one geometry: a conv's two each way (into and out of
+    the contraction's block), a truncation's one each way (``fwd_in``,
     ``bwd_in``)."""
 
     fwd_in: remap_k.Plan
@@ -430,28 +370,35 @@ def _kept(m: int, n: int) -> list:
     return [k if k < m else None for k in range(n)]
 
 
+def _dims(rank: int) -> Tuple[int, ...]:
+    return tuple(range(-rank, 0))
+
+
 def _r2c(x: torch.Tensor) -> torch.Tensor:
-    """The unscaled rfftn over the last three axes."""
-    return torch.fft.rfftn(x, dim=_DIMS3)
+    """The unscaled rfftn of x (B, C, *grid) over its grid, as the remap's
+    5-D spectrum."""
+    spec = torch.fft.rfftn(x, dim=_dims(x.ndim - 2))
+    return spec.reshape(spec.shape[:2] + (1,) * (5 - x.ndim) + spec.shape[2:])
 
 
 def _c2r(spec: torch.Tensor, s: tuple) -> torch.Tensor:
-    """The unscaled irfftn over the last three axes to ``s``."""
-    return torch.fft.irfftn(spec, s=s, dim=_DIMS3, norm="forward")
+    """The unscaled irfftn of a 5-D spectrum to the grid ``s``: (B, C, *s)."""
+    y = torch.fft.irfftn(spec, s=s, dim=_dims(len(s)), norm="forward")
+    return y.reshape(y.shape[:2] + tuple(s))
 
 
 @lru_cache(maxsize=256)
 def _conv_plans(grid: tuple, out_size: tuple, modes: tuple) -> _Plans:
-    """``spectral_conv_3d``'s remaps: the four corners of the input's half
-    spectrum gathered into the (2*m1, 2*m2, m3) block (where 2*m > the
-    input's length the corners overlap, and in the backward an input bin
-    sums the block's two entries); the block scattered into the output's
-    half spectrum, where 2*m > d the negative-frequency rows and columns
-    written last winning, as in the reference (a positive row they
-    overwrite gets no gradient).  The input's r2c takes the forward norm,
-    1 / (X Y T), folded into the gather, and its adjoint the same."""
-    (sx, sy, st), (d1, d2, d3), (m1, m2, m3) = grid, out_size, modes
-    n = sx * sy * st
+    """The conv's remaps in 1, 2 or 3 dimensions: the corners of the
+    input's half spectrum gathered into the (2*m1, 2*m2, m3) block (in 2-D
+    (2*m1, m2), in 1-D (m1,); where 2*m > the input's length the corners
+    overlap, and in the backward an input bin sums the block's two
+    entries); the block scattered into the output's half spectrum, where 2*m
+    > d the negative-frequency rows and columns written last winning, as in
+    the reference (a positive row they overwrite gets no gradient).  The
+    input's r2c takes the forward norm, 1 / (the grid's size), folded into
+    the gather, and its adjoint the same."""
+    n = math.prod(grid)
 
     def corners(s, m):  # block row -> the input row it reads
         return [(i if i < m else s - 2 * m + i,) for i in range(2 * m)]
@@ -465,13 +412,18 @@ def _conv_plans(grid: tuple, out_size: tuple, modes: tuple) -> _Plans:
     def survivors(d, m):  # block row -> the output row that kept it
         return [(i,) * (i < d - m) for i in range(m)] + [(d - m + i,) for i in range(m)]
 
+    # the two leading axes' maps (fwd_in, fwd_out, bwd_out, bwd_in), a
+    # length-1 axis's first
+    axes = [([(0,)],) * 4] * (3 - len(grid)) + [
+        (corners(s, m), placed(d, m), survivors(d, m), sums(s, m))
+        for s, d, m in zip(grid[:-1], out_size[:-1], modes[:-1])]
+    (fi1, fo1, bo1, bi1), (fi2, fo2, bo2, bi2) = axes
+    st, d3, m3 = grid[-1], out_size[-1], modes[-1]
     return _Plans(
-        remap_k.plan(corners(sx, m1), corners(sy, m2), range(m3), scale=[1 / n] * m3),
-        remap_k.plan(placed(d1, m1), placed(d2, m2), _kept(m3, d3 // 2 + 1),
-                     herm=_c2r_planes(d3)),
-        remap_k.plan(survivors(d1, m1), survivors(d2, m2), range(m3),
-                     scale=[_weight(k, d3) for k in range(m3)]),
-        remap_k.plan(sums(sx, m1), sums(sy, m2), _kept(m3, st // 2 + 1),
+        remap_k.plan(fi1, fi2, range(m3), scale=[1 / n] * m3),
+        remap_k.plan(fo1, fo2, _kept(m3, d3 // 2 + 1), herm=_c2r_planes(d3)),
+        remap_k.plan(bo1, bo2, range(m3), scale=[_weight(k, d3) for k in range(m3)]),
+        remap_k.plan(bi1, bi2, _kept(m3, st // 2 + 1),
                      scale=[1 / (_weight(k, st) * n) for k in range(st // 2 + 1)],
                      herm=_c2r_planes(st)))
 
@@ -481,43 +433,60 @@ def _remapped(spec: torch.Tensor, plan: remap_k.Plan, direction: str) -> torch.T
     return remap_k.remap(spec, plan)
 
 
-def _conv3d_forward(x, w, out_size, plans: _Plans) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The FFT path's forward: (the output, the contracted block of the
-    input's modes)."""
-    xb = _remapped(_counted_3d(_r2c(x), "r2c"), plans.fwd_in, "forward")
+def _fft_conv(pieces: list, w: torch.Tensor, out_size: tuple, modes: tuple) -> torch.Tensor:
+    """The FFT path of the 1-, 2- and 3-D convs: ``pieces`` (B, Ci_k, *grid)
+    and ``w`` (Ci, Co, *block) -> (B, Co, *out_size)."""
+    pieces = [_f32(p) for p in pieces]
+    plans = _conv_plans(tuple(pieces[0].shape[2:]), out_size, modes)
+    if torch.is_grad_enabled() and (w.requires_grad or any(p.requires_grad for p in pieces)):
+        return _FFTConv.apply(w, out_size, plans, *pieces)
+    return _conv_forward(pieces, w, out_size, plans)[0]
+
+
+def _conv_forward(pieces, w, out_size, plans: _Plans) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFT path's forward: (the output, the contraction's operand: the
+    pieces' blocks of kept modes, joined)."""
+    rank = len(out_size)
+    xb = _join([_remapped(_counted(_r2c(p), "r2c", rank), plans.fwd_in, "forward")
+                for p in pieces])
     out_ft = _remapped(complex_mode_matmul(xb, w), plans.fwd_out, "forward")
-    return _counted_3d(_c2r(out_ft, out_size), "c2r"), xb
+    return _counted(_c2r(out_ft, out_size), "c2r", rank), xb
 
 
-class _FFTConv3d(torch.autograd.Function):
-    """``spectral_conv_3d`` on the FFT path as one node.  x: (B, Ci, X, Y,
-    T) f32 (float64 for ``gradcheck``); w: (Ci, Co, 2*m1, 2*m2, m3) complex.
-    The backward: the r2c of the gradient, its kept modes gathered (the
-    c2r's interior bins doubled), the contraction's two gradients, the
-    input's modes scattered into its half spectrum (the r2c's interior bins
-    halved) and one c2r."""
+class _FFTConv(torch.autograd.Function):
+    """A conv on the FFT path as one node, in 1, 2 or 3 dimensions.  w:
+    (Ci, Co, *block) complex; then the input's channel pieces (B, Ci_k,
+    *grid) f32 (float64 for ``gradcheck``), Ci the sum of their Ci_k (one
+    piece: the whole input).  Each piece gets its own r2c and gather, and
+    the blocks are joined for one contraction.  The backward: the r2c of
+    the gradient, its kept modes gathered (the c2r's interior bins
+    doubled), the contraction's two gradients, the input's block split by
+    piece, and each piece's modes scattered into its half spectrum (the
+    r2c's interior bins halved) and one c2r."""
 
     @staticmethod
-    def forward(ctx, x, w, out_size, plans):
-        y, xb = _conv3d_forward(x, w, out_size, plans)
+    def forward(ctx, w, out_size, plans, *pieces):
+        y, xb = _conv_forward(pieces, w, out_size, plans)
         ctx.save_for_backward(xb, w)
-        ctx.geometry = (plans, tuple(x.shape[-3:]))
+        ctx.geometry = (plans, tuple(pieces[0].shape[2:]), [p.shape[1] for p in pieces])
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         xb, w = ctx.saved_tensors
-        plans, grid = ctx.geometry
+        plans, grid, channels = ctx.geometry
         gb = _remapped(_r2c(g), plans.bwd_out, "backward")
         (b, co), ci = gb.shape[:2], w.shape[0]
-        gx = gw = None
-        if ctx.needs_input_grad[0]:
+        gxs = [None] * len(channels)
+        if any(ctx.needs_input_grad[3:]):
             gxb = cmul_k.cmul_bwd_x(gb.reshape(b, co, -1), w.reshape(ci, co, -1)).reshape(xb.shape)
-            gx = _c2r(_remapped(gxb, plans.bwd_in, "backward"), grid)
-        if ctx.needs_input_grad[1]:
+            gxs = [_c2r(_remapped(gxp, plans.bwd_in, "backward"), grid) if need else None
+                   for gxp, need in zip(gxb.split(channels, dim=1), ctx.needs_input_grad[3:])]
+        gw = None
+        if ctx.needs_input_grad[0]:
             gw = cmul_k.cmul_bwd_w(xb.reshape(b, ci, -1), gb.reshape(b, co, -1)).reshape(w.shape)
-        return gx, gw, None, None
+        return gw, None, None, *gxs
 
 
 @lru_cache(maxsize=256)
@@ -546,8 +515,8 @@ def _truncate_plans(grid: tuple, out_size: tuple) -> _Plans:
 
 
 def _truncate3d_forward(x, out_size, plans: _Plans) -> torch.Tensor:
-    spec = _remapped(_counted_3d(_r2c(x), "r2c"), plans.fwd_in, "forward")
-    return _counted_3d(_c2r(spec, out_size), "c2r")
+    spec = _remapped(_counted(_r2c(x), "r2c", 3), plans.fwd_in, "forward")
+    return _counted(_c2r(spec, out_size), "c2r", 3)
 
 
 class _FFTTruncate3d(torch.autograd.Function):
@@ -916,7 +885,7 @@ def _split_conv_2d(pieces, w, out_size, modes, split: Split) -> torch.Tensor:
                                split, _rows(m1, h), 1.0 / h) for x in pieces])
     out = complex_mode_matmul(psum(corners, split.group), w)  # (B, Co, 2*m1, m2)
     y = _inv_rows(_slice_pm(out, 2, m1, n_top), split.at(d1), idx_out, 1.0)
-    return _irfftn(y, (d2,), (-1,), m2, "forward")
+    return _irfft(y, d2, m2, "forward")
 
 
 def _split_conv_3d(x, w, out_size, modes, split: Split) -> torch.Tensor:
@@ -944,7 +913,7 @@ def _split_conv_3d(x, w, out_size, modes, split: Split) -> torch.Tensor:
     out_ft = torch.zeros((b, co, r, d2, d3 // 2 + 1), dtype=y.dtype, device=y.device)
     out_ft[..., :n_y, :m3] = y[..., :n_y, :]
     out_ft[..., d2 - m2 :, :m3] = y[..., m2:, :]
-    return _irfftn(torch.fft.ifft(out_ft, dim=-2, norm="forward"), (d3,), (-1,), m3, "forward")
+    return _irfft(torch.fft.ifft(out_ft, dim=-2, norm="forward"), d3, m3, "forward")
 
 
 def _split_truncate_3d(x, out_size, split: Split) -> torch.Tensor:
@@ -968,4 +937,4 @@ def _split_truncate_3d(x, out_size, split: Split) -> torch.Tensor:
     b, c, r = y.shape[:3]
     spec = torch.zeros((b, c, r, d2, d3 // 2 + 1), dtype=y.dtype, device=y.device)
     spec[..., list(ky), : len(kt)] = y
-    return _irfftn(torch.fft.ifft(spec, dim=-2), (d3,), (-1,), len(kt), "backward")
+    return _irfft(torch.fft.ifft(spec, dim=-2), d3, len(kt), "backward")

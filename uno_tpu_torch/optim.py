@@ -20,19 +20,17 @@ this optimizer does **not** conjugate.  ``uno_tpu``'s ``complex_adam``
 conjugates because ``jax.grad`` returns the conjugate; both take the same
 step from the same loss.
 
-``fused=True`` is ``uno_tpu``'s ``complex_adam(fused=True)``: the moments
-of a group live in one flat buffer per parameter dtype.  Its state is flat,
-so a checkpoint of one form does not load into the other.  It is kept for
-parity with ``uno_tpu`` alone: with both forms one kernel launch a step on
-the card it saves nothing, and its views into the flat buffers make its
-step slower than ``fused=False``'s, which every trainer uses.
+The moments are each parameter's own tensors.  ``uno_tpu``'s
+``complex_adam(fused=True)``, its moments in one flat buffer per dtype, has
+no counterpart here: the step of a group is already one kernel launch on
+the card.
 
-Either form hands a group's step to ``ops/kernels/adam.py``: on the card
-one launch of a hand-written kernel over all the group's parameters, on
-the CPU the plain sequence of torch ops a parameter at a time; both forms
-run the same arithmetic on each element, so they agree bit for bit.
+A group's step goes to ``ops/kernels/adam.py``: on the card one launch of
+a hand-written kernel over all the group's parameters, on the CPU the
+plain sequence of torch ops a parameter at a time; both run the same
+arithmetic on each element.
 
-``step`` is the ``optimizer`` span (``utils/profiling.py``) in either form.
+``step`` is the ``optimizer`` span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -78,15 +76,6 @@ class ComplexAdam(torch.optim.Optimizer):
 
     ``lr`` is a number or a schedule, a function of the 1-based step count
     (``step_lr``).  ``amsgrad`` divides by the running maximum of ``nu``.
-
-    ``fused=True`` keeps, for each parameter group and each parameter dtype
-    in it, one flat ``exp_avg`` and one flat real ``exp_avg_sq`` (and
-    ``max_exp_avg_sq``) over all the group's parameters of that dtype, in
-    their order, under ``state["flat<group>"]`` with the group's step count.
-    A step hands each parameter its views into those buffers.  Each step
-    needs a gradient for every parameter of a group or for none.  That
-    state does not load into a ``fused=False`` optimizer, nor the other way
-    round.
     """
 
     def __init__(
@@ -97,12 +86,10 @@ class ComplexAdam(torch.optim.Optimizer):
         eps: float = 1e-8,
         weight_decay: float = 0.0,
         amsgrad: bool = False,
-        fused: bool = False,
     ):
         defaults = dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
                         amsgrad=amsgrad)
         super().__init__(params, defaults)
-        self.fused = fused
 
     @annotate("optimizer")
     @torch.no_grad()
@@ -111,8 +98,8 @@ class ComplexAdam(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for i, group in enumerate(self.param_groups):
-            states, slots = self._flat_slots(i, group) if self.fused else self._slots(group)
+        for group in self.param_groups:
+            states, slots = self._slots(group)
             if slots:
                 adam.adam_step(group, slots)
             for state in states:  # counted once the step is taken: a refused one is not
@@ -132,44 +119,3 @@ class ComplexAdam(torch.optim.Optimizer):
             slots.append(adam.Slot(p, p.grad, state["exp_avg"], state["exp_avg_sq"],
                                    state.get("max_exp_avg_sq"), state["step"] + 1))
         return states, slots
-
-    def _flat_slots(self, i: int, group: dict) -> tuple:
-        params = [p for p in group["params"] if p.grad is not None]
-        if not params:
-            return [], []
-        if len(params) != len(group["params"]):
-            raise ValueError(f"ComplexAdam(fused=True): group {i} has gradients for "
-                             f"{len(params)} of its {len(group['params'])} parameters")
-        by_dtype = {}
-        for p in params:
-            by_dtype.setdefault(str(p.dtype), []).append(p)
-        flat = self.state[f"flat{i}"]
-        if not flat:
-            flat["step"] = 0
-            for dt, ps in by_dtype.items():
-                n = sum(p.numel() for p in ps)
-                flat[dt] = _zero_state(ps[0].new_empty(n), group["amsgrad"])
-        slots = []
-        for dt, ps in by_dtype.items():
-            sizes = [p.numel() for p in ps]
-            views = {k: [v.view(p.shape) for v, p in zip(buf.split(sizes), ps)]
-                     for k, buf in flat[dt].items()}
-            maxes = views.get("max_exp_avg_sq", [None] * len(ps))
-            slots += [adam.Slot(p, p.grad, mu, nu, mx, flat["step"] + 1)
-                      for p, mu, nu, mx in zip(ps, views["exp_avg"], views["exp_avg_sq"], maxes)]
-        return [flat], slots
-
-    def load_state_dict(self, state_dict: dict) -> None:
-        """torch's, after checking that the state is of this optimizer's
-        form; flat buffers go to their group's device."""
-        if any(isinstance(k, str) != self.fused for k in state_dict["state"]):
-            raise ValueError(f"the state of a fused={not self.fused} ComplexAdam does not load "
-                             f"into a fused={self.fused} one")
-        super().load_state_dict(state_dict)
-        for i, group in enumerate(self.param_groups):
-            st = self.state.get(f"flat{i}")
-            if st:
-                dev = group["params"][0].device
-                for dt, bufs in st.items():
-                    if dt != "step":
-                        st[dt] = {k: v.to(dev) for k, v in bufs.items()}
